@@ -3,15 +3,17 @@
 The JAX package stays the reference; this package keeps its module names so
 each module's counterpart is easy to find, and is held against it by the
 ``tests/test_torch_*.py`` files.  Plain tensor code is eager PyTorch with an
-explicit ``device``; the one Pallas kernel on the variant-A edit path (the
-fused-RoPE packed attention) is a hand-written CUDA kernel for Hopper under
-``csrc/``, built with ``nvcc`` at its first CUDA call and bound with
+explicit ``device``; the Pallas kernels on the inference paths (the
+fused-RoPE packed attention, its q-only form for the feature cache, and the
+BLHD flash attention) are hand-written CUDA kernels for Hopper under
+``csrc/``, built with ``nvcc`` at their first CUDA call and bound with
 ``ctypes`` (:mod:`mmada_parallel_torch.ops._cuda`).
 
 Framework-free host code is imported from the JAX package rather than copied:
 :mod:`mmada_parallel_tpu.tokens` and :mod:`mmada_parallel_tpu.utils.image`
-(neither imports ``jax``).  Nothing else of ``mmada_parallel_tpu`` is
-imported here.
+(neither imports ``jax``), and :mod:`mmada_parallel_tpu.config` inside the
+variant-M CLI's ``main`` only (it needs ``yaml``).  Nothing else of
+``mmada_parallel_tpu`` is imported here.
 """
 
 __version__ = "0.1.0"

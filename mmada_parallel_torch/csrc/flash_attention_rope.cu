@@ -1,270 +1,12 @@
-// Fused-RoPE packed bidirectional attention for Hopper (sm_90a).
+// K1: fused-RoPE packed bidirectional attention for Hopper (sm_90a).
 //
 // Replaces the TPU kernel mmada_parallel_tpu/ops/rope_attention.py ::
 // flash_attention_rope / _kernel (the Pallas body reached through _launch with
-// rope_k=True).  Same contract:
-//
-//   q [B, Lq, H*D], k/v [B, Lk, KV*D] packed, pre-RoPE, bf16 or f32;
-//   sin/cos f32 tables [L, D] (shared) or [B, L, D] (per-row positions),
-//   one pair for q rows and one for k rows;
-//   optional additive f32 bias [B, 1, Lq, Lk];
-//   out[b, i, h*D:(h+1)*D] = softmax(rope(q_h) . rope(k_g)^T * D^-1/2 + bias) . v_g
-//   with g = h / (H / KV) (GQA).
-//
-// Numerics follow the TPU kernel: the Neox rotate-half is done in f32 and the
-// rotated q/k are rounded back to the input dtype before the dot product
-// (_rope_rows); scores and the softmax run in f32; p is rounded to v's dtype
-// before p.v, which accumulates in f32; the row sum is divided out at the end.
-// Key columns >= Lk are skipped by bounds checks, so a row whose bias is -1e30
-// everywhere returns mean(v) over the Lk real keys, exactly as the plain
-// reference does (the TPU kernel also averaged over its 128-padding).
-//
-// What bounds it on this card: at the edit shape (L ~ 2424, H = 32, D = 128)
-// the Q.K^T and P.V products are 4*B*H*L^2*D ~ 96 GFLOP per batch row, against
-// ~40 MB of q/k/v traffic, so it is compute bound.  K/V tiles are re-read
-// once per 64-row q tile (38 times at L = 2424), which the 50 MB L2 absorbs.
-//
-// What this first design does about it: one thread block per (b*h, 64 q rows),
-// 256 threads; the rotated Q tile stays in shared memory, K/V stream through
-// shared memory in 64-key tiles with the online-softmax recurrence (no L x L
-// scores anywhere, no length cap, any GQA ratio), and each thread keeps a 4x4
-// score tile and a 4x(D/16) output tile in registers.  The products run on
-// the f32 FMA pipes, not the tensor cores: wgmma/mma.sync, TMA and warp
-// specialisation are the next step for speed.
+// rope_k=True): pre-RoPE packed q [B, Lq, H*D] and k/v [B, Lk, KV*D], both q
+// and k rotated on load in f32.  The kernel body, its numerics and what bounds
+// it are in attention_kernel.cuh (template flags kRopeQ = kRopeK = true).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-
-namespace {
-
-constexpr int kBlockQ = 64;    // q rows per thread block
-constexpr int kBlockK = 64;    // keys per shared-memory tile
-constexpr int kThreads = 256;  // 16 x 16 threads, each owning 4 q rows
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// Round an f32 value through the storage dtype T (identity for f32).
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32<T>(from_f32<T>(x));
-}
-
-// Element d of the f32 Neox rotation of one head row x[0:D]:
-// x*cos + rotate_half(x)*sin with rotate_half([x1, x2]) = [-x2, x1], as two
-// rounded products and a rounded sum (no FMA contraction), then rounded to T.
-template <typename T, int D>
-__device__ __forceinline__ float rope_elem(const T* __restrict__ x,
-                                           const float* __restrict__ s,
-                                           const float* __restrict__ c,
-                                           int d) {
-  const float xv = to_f32<T>(x[d]);
-  const float rot = d < D / 2 ? -to_f32<T>(x[d + D / 2]) : to_f32<T>(x[d - D / 2]);
-  return round_to<T>(__fadd_rn(__fmul_rn(xv, c[d]), __fmul_rn(rot, s[d])));
-}
-
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-rope_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v,
-                      const float* __restrict__ sin_q,
-                      const float* __restrict__ cos_q,
-                      const float* __restrict__ sin_k,
-                      const float* __restrict__ cos_k,
-                      const float* __restrict__ bias, T* __restrict__ out,
-                      int Lq, int Lk, int H, int KV, long long tq_bstride,
-                      long long tk_bstride, float scale) {
-  constexpr int P = D + 1;            // padded row: conflict-free column reads
-  constexpr int kCols = D / 16;       // output columns per thread
-  constexpr int PS = kBlockK + 1;     // padded row of the probability tile
-  static_assert(kBlockQ * PS <= kBlockK * P, "P tile must fit in the K tile");
-
-  extern __shared__ float smem[];
-  float* Qs = smem;                   // [kBlockQ][P] rotated q
-  float* Ks = Qs + kBlockQ * P;       // [kBlockK][P] rotated k
-  float* Vs = Ks + kBlockK * P;       // [kBlockK][P] v
-  float* Ps = Ks;                     // [kBlockQ][PS] p, reuses the K tile
-
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;            // owns q rows ty*4 .. ty*4+3
-  const int tx = tid % 16;            // owns columns tx + 16*j
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
-  const int g = h / (H / KV);
-  const int q0 = blockIdx.x * kBlockQ;
-
-  const long long q_row = (long long)H * D;
-  const long long kv_row = (long long)KV * D;
-  const T* qb = q + (long long)b * Lq * q_row + (long long)h * D;
-  const T* kb = k + (long long)b * Lk * kv_row + (long long)g * D;
-  const T* vb = v + (long long)b * Lk * kv_row + (long long)g * D;
-  const float* sq = sin_q + b * tq_bstride;
-  const float* cq = cos_q + b * tq_bstride;
-  const float* sk = sin_k + b * tk_bstride;
-  const float* ck = cos_k + b * tk_bstride;
-  const float* bias_b = bias ? bias + (long long)b * Lq * Lk : nullptr;
-
-  for (int i = tid; i < kBlockQ * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    const int row = q0 + r;
-    Qs[r * P + d] = row < Lq
-        ? rope_elem<T, D>(qb + row * q_row, sq + (long long)row * D,
-                          cq + (long long)row * D, d)
-        : 0.f;
-  }
-
-  float o[4][kCols];
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) o[i][c] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < Lk; k0 += kBlockK) {
-    __syncthreads();  // previous tile's P/V reads are done (and Q is loaded)
-    for (int i = tid; i < kBlockK * D; i += kThreads) {
-      const int r = i / D, d = i % D;
-      const int row = k0 + r;
-      float kv = 0.f, vv = 0.f;
-      if (row < Lk) {
-        kv = rope_elem<T, D>(kb + row * kv_row, sk + (long long)row * D,
-                             ck + (long long)row * D, d);
-        vv = to_f32<T>(vb[row * kv_row + d]);
-      }
-      Ks[r * P + d] = kv;
-      Vs[r * P + d] = vv;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[4], bk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty * 4 + i) * P + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bk[j] = Ks[(tx + 16 * j) * P + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
-    }
-    __syncthreads();  // every K read is done before P overwrites the tile
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      float tile_max = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        if (col < Lk) {
-          float x = s[i][j] * scale;
-          if (bias_b && row < Lq) x += bias_b[(long long)row * Lk + col];
-          s[i][j] = x;
-          tile_max = fmaxf(tile_max, x);
-        }
-      }
-      // column k0 is always a real key, so the tile max is finite
-      const float m_new = fmaxf(m[i], half_warp_max(tile_max));
-      const float alpha = expf(m[i] - m_new);  // 0 on the first tile
-      float row_sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const float p = col < Lk ? expf(s[i][j] - m_new) : 0.f;
-        row_sum += p;
-        Ps[(ty * 4 + i) * PS + tx + 16 * j] = round_to<T>(p);
-      }
-      l[i] = l[i] * alpha + half_warp_sum(row_sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) o[i][c] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kBlockK; ++kk) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty * 4 + i) * PS + kk];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const float vv = Vs[kk * P + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) o[i][c] = fmaf(p[i], vv, o[i][c]);
-      }
-    }
-  }
-
-  T* ob = out + (long long)b * Lq * q_row + (long long)h * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= Lq) continue;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c)
-      ob[row * q_row + tx + 16 * c] = from_f32<T>(o[i][c] / l[i]);
-  }
-}
-
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const float* sin_q, const float* cos_q, const float* sin_k,
-                   const float* cos_k, const float* bias, void* out, int B,
-                   int Lq, int Lk, int H, int KV, long long tq_bstride,
-                   long long tk_bstride, float scale, cudaStream_t stream) {
-  const int smem = (kBlockQ + 2 * kBlockK) * (D + 1) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      rope_attention_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Lq + kBlockQ - 1) / kBlockQ, B * H);
-  rope_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), sin_q, cos_q, sin_k, cos_k, bias,
-      static_cast<T*>(out), Lq, Lk, H, KV, tq_bstride, tk_bstride, scale);
-  return cudaGetLastError();
-}
-
-}  // namespace
+#include "attention_kernel.cuh"
 
 // C entry point, bound with ctypes.  dtype: 0 = float32, 1 = bfloat16.
 // tq_bstride / tk_bstride: batch stride of the q / k rope tables in floats
@@ -277,20 +19,7 @@ extern "C" int mmada_flash_attention_rope(
     const float* bias, void* out, int B, int Lq, int Lk, int H, int KV, int D,
     long long tq_bstride, long long tk_bstride, float scale, int dtype,
     void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, sin_q, cos_q, sin_k, cos_k,
-                                      bias, out, B, Lq, Lk, H, KV, tq_bstride,
-                                      tk_bstride, scale, s);
-  if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, sin_q, cos_q, sin_k, cos_k,
-                                     bias, out, B, Lq, Lk, H, KV, tq_bstride,
-                                     tk_bstride, scale, s);
-  if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, sin_q, cos_q, sin_k, cos_k, bias, out,
-                              B, Lq, Lk, H, KV, tq_bstride, tk_bstride, scale, s);
-  if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, sin_q, cos_q, sin_k, cos_k, bias, out,
-                             B, Lq, Lk, H, KV, tq_bstride, tk_bstride, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<true, true>(q, k, v, sin_q, cos_q, sin_k, cos_k, bias, out,
+                              B, Lq, Lk, H, KV, D, tq_bstride, tk_bstride,
+                              scale, dtype, stream);
 }

@@ -10,7 +10,6 @@ with TF32 off where results are compared: cuDNN convolutions default to TF32.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -57,34 +56,14 @@ def init_amused_vq_params(cfg: AmusedVQConfig, generator: torch.Generator,
                           device=None, dtype=torch.float32) -> Dict[str, Any]:
     """Random parameters drawn from ``generator`` on ``device`` (default:
     the generator's device), in the JAX tree's structure."""
-    dev = torch.device(device) if device is not None else generator.device
-
-    def uniform(shape, bound):
-        return torch.empty(shape, dtype=dtype, device=dev).uniform_(
-            -bound, bound, generator=generator)
-
-    def conv(kh, kw, cin, cout):
-        bound = math.sqrt(1.0 / (kh * kw * cin))
-        return {"w": uniform((cout, cin, kh, kw), bound),
-                "b": uniform((cout,), bound)}
-
-    def norm(c):
-        return {"scale": torch.ones(c, dtype=dtype, device=dev),
-                "bias": torch.zeros(c, dtype=dtype, device=dev)}
-
-    def resnet(cin, cout):
-        p = {"norm1": norm(cin), "conv1": conv(3, 3, cin, cout),
-             "norm2": norm(cout), "conv2": conv(3, 3, cout, cout)}
-        if cin != cout:
-            p["nin_shortcut"] = conv(1, 1, cin, cout)
-        return p
+    init = C.ParamInit(generator, device, dtype)
+    uniform, conv, norm, resnet = init.uniform, init.conv, init.norm, \
+        init.resnet
 
     def mid(c):
         m = {"block_1": resnet(c, c), "block_2": resnet(c, c)}
         if cfg.mid_attention:
-            m["attn_1"] = {"norm": norm(c), "q": conv(1, 1, c, c),
-                           "k": conv(1, 1, c, c), "v": conv(1, 1, c, c),
-                           "proj_out": conv(1, 1, c, c)}
+            m["attn_1"] = init.attn(c)
         return m
 
     chans = cfg.block_out_channels

@@ -1,12 +1,14 @@
-"""Checkpoint conversion, variant A: HF safetensors -> the port's params.
+"""Checkpoint conversion: HF safetensors -> the port's params.
 
-Counterpart of the A side of :mod:`mmada_parallel_tpu.models.convert`: the
-LLaDA backbone (``model.transformer.*``, torch ``Linear`` ``[out, in]``
-transposed to ``[in, out]``, per-layer tensors stacked on a leading layer
-axis) and the Amused-VQ diffusers ``VQModel`` (conv weights stay OIHW, the
+Counterpart of :mod:`mmada_parallel_tpu.models.convert`: the LLaDA backbone
+(``model.transformer.*``, torch ``Linear`` ``[out, in]`` transposed to
+``[in, out]``, per-layer tensors stacked on a leading layer axis), the
+Amused-VQ diffusers ``VQModel`` of variant A (conv weights stay OIHW, the
 port's conv layout; mid-block attention ``Linear`` layers fold into 1x1
 convs; diffusers ``up_blocks`` are listed deepest-first and re-indexed to
-the shallow-first levels).  ``safetensors`` is imported inside the loader.
+the shallow-first levels) and the MagViT-v2 of variant M (taming-style
+names, already shallow-first).  ``safetensors`` is imported inside the
+loader.
 """
 
 from __future__ import annotations
@@ -19,10 +21,12 @@ import torch
 
 from mmada_parallel_torch.models.amused_vq import AmusedVQConfig
 from mmada_parallel_torch.models.llada import LLaDAConfig
+from mmada_parallel_torch.models.magvit2 import MagvitConfig
 
 __all__ = ["load_safetensors_dir", "llada_config_from_hf",
            "llada_params_from_torch", "amused_config_from_hf",
-           "amused_params_from_torch", "load_llada_checkpoint"]
+           "amused_params_from_torch", "magvit_params_from_torch",
+           "load_llada_checkpoint"]
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -147,13 +151,15 @@ def _conv_p(tensors, base, dtype):
             "b": tensors[base + ".bias"].to(dtype)}
 
 
-def _resnet_p(tensors, base, dtype):
+def _resnet_p(tensors, base, dtype, shortcut="conv_shortcut"):
+    """A resnet block; the 1x1 shortcut is ``conv_shortcut`` in diffusers
+    and ``nin_shortcut`` in taming-style (MagViT) checkpoints."""
     p = {"norm1": _norm_p(tensors, base + ".norm1", dtype),
          "conv1": _conv_p(tensors, base + ".conv1", dtype),
          "norm2": _norm_p(tensors, base + ".norm2", dtype),
          "conv2": _conv_p(tensors, base + ".conv2", dtype)}
-    if base + ".conv_shortcut.weight" in tensors:
-        p["nin_shortcut"] = _conv_p(tensors, base + ".conv_shortcut", dtype)
+    if f"{base}.{shortcut}.weight" in tensors:
+        p["nin_shortcut"] = _conv_p(tensors, f"{base}.{shortcut}", dtype)
     return p
 
 
@@ -167,6 +173,52 @@ def _attn_p(tensors, base, dtype):
     return {"norm": _norm_p(tensors, base + ".group_norm", dtype),
             "q": lin_as_conv("to_q"), "k": lin_as_conv("to_k"),
             "v": lin_as_conv("to_v"), "proj_out": lin_as_conv("to_out.0")}
+
+
+def magvit_params_from_torch(tensors: Tensors,
+                             cfg: MagvitConfig = MagvitConfig(),
+                             dtype=torch.float32) -> Dict[str, Any]:
+    """Map the MAGVITv2 state dict (taming-style names: ``encoder.down.{i}.
+    block.{j}``, ``nin_shortcut``, conv attention ``q/k/v/proj_out``) to
+    params; conv weights stay OIHW."""
+    def resnet(base):
+        return _resnet_p(tensors, base, dtype, shortcut="nin_shortcut")
+
+    def attn(base):
+        return {"norm": _norm_p(tensors, base + ".norm", dtype),
+                **{n: _conv_p(tensors, f"{base}.{n}", dtype)
+                   for n in ("q", "k", "v", "proj_out")}}
+
+    def mid(base):
+        return {"block_1": resnet(base + ".block_1"),
+                "attn_1": attn(base + ".attn_1"),
+                "block_2": resnet(base + ".block_2")}
+
+    def levels(side, blocks, resample):
+        out = []
+        for i, n in enumerate(blocks):
+            level: Dict[str, Any] = {"block": [
+                resnet(f"{side}.{i}.block.{j}") for j in range(n)]}
+            conv = f"{side}.{i}.{resample}.conv"
+            if conv + ".weight" in tensors:
+                level[resample] = {"conv": _conv_p(tensors, conv, dtype)}
+            out.append(level)
+        return out
+
+    enc = {"conv_in": _conv_p(tensors, "encoder.conv_in", dtype),
+           "down": levels("encoder.down", cfg.enc_blocks, "downsample"),
+           "mid": mid("encoder.mid"),
+           "norm_out": _norm_p(tensors, "encoder.norm_out", dtype),
+           "conv_out": _conv_p(tensors, "encoder.conv_out", dtype),
+           "quant_conv": _conv_p(tensors, "encoder.quant_conv", dtype)}
+    dec = {"post_quant_conv": _conv_p(tensors, "decoder.post_quant_conv",
+                                      dtype),
+           "conv_in": _conv_p(tensors, "decoder.conv_in", dtype),
+           "mid": mid("decoder.mid"),
+           "up": levels("decoder.up", cfg.dec_blocks, "upsample"),
+           "norm_out": _norm_p(tensors, "decoder.norm_out", dtype),
+           "conv_out": _conv_p(tensors, "decoder.conv_out", dtype)}
+    return {"encoder": enc, "decoder": dec}
 
 
 def amused_config_from_hf(config_json: Dict[str, Any]) -> AmusedVQConfig:

@@ -6,8 +6,8 @@ so this module needs no ``jax``.  Names and nesting are kept; what changes:
 
 * LLaDA: nothing but the container (stacked ``[n_layers, ...]`` blocks and
   ``[d_in, d_out]`` linears are the port's layout too);
-* Amused-VQ: every conv weight goes from HWIO (JAX, NHWC convs) to OIHW
-  (PyTorch, NCHW convs).
+* Amused-VQ and MagViT-v2: every conv weight goes from HWIO (JAX, NHWC
+  convs) to OIHW (PyTorch, NCHW convs).
 """
 
 from __future__ import annotations
@@ -17,7 +17,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-__all__ = ["llada_params_from_jax", "amused_params_from_jax"]
+__all__ = ["llada_params_from_jax", "amused_params_from_jax",
+           "magvit_params_from_jax"]
 
 
 def _tensor(x, device, dtype) -> torch.Tensor:
@@ -56,3 +57,11 @@ def amused_params_from_jax(tree: Any, device=None,
             return [convert(v) for v in node]
         return _tensor(node, device, dtype)
     return convert(tree)
+
+
+def magvit_params_from_jax(tree: Any, device=None,
+                           dtype: Optional[torch.dtype] = torch.float32
+                           ) -> Any:
+    """MagViT-v2 numpy tree -> torch params, conv weights HWIO -> OIHW (the
+    same conversion as :func:`amused_params_from_jax`)."""
+    return amused_params_from_jax(tree, device, dtype)

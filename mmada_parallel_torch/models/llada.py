@@ -7,8 +7,9 @@ pytree: per-layer weights stack on a leading ``[n_layers, ...]`` axis and
 linear weights keep the ``[d_in, d_out]`` layout, applied as ``x @ w``.  The
 layer stack is a Python loop over that axis (the JAX ``lax.scan``).
 
-Attention goes through :func:`mmada_parallel_torch.ops.attention.rope_attention`,
-which launches the fused-RoPE CUDA kernel for CUDA tensors.
+Attention goes through :func:`mmada_parallel_torch.ops.attention.rope_attention`
+(and, for the feature-cached forwards, ``rope_attention_qonly``), which
+launch the fused-RoPE CUDA kernels for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -21,10 +22,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mmada_parallel_torch.ops.attention import rope_attention
+from mmada_parallel_torch.ops.attention import (rope_attention,
+                                                 rope_attention_qonly)
+from mmada_parallel_torch.ops.masks import pairwise_padding_mask, to_bias
+from mmada_parallel_torch.ops.rope_attention import rope_tensor
 
 __all__ = ["LLaDAConfig", "init_llada_params", "llada_hidden", "llada_head",
-           "llada_forward", "count_params"]
+           "llada_forward", "llada_hidden_with_cache", "llada_hidden_partial",
+           "count_params"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -349,9 +354,7 @@ def llada_hidden(params: Dict[str, Any], cfg: LLaDAConfig,
 
     attn_bias = None
     if attn_mask is not None:
-        m = attn_mask.bool()
-        pair = m[:, :, None] & m[:, None, :]
-        attn_bias = torch.where(pair[:, None], 0.0, -1e30).to(torch.float32)
+        attn_bias = to_bias(pairwise_padding_mask(attn_mask))
 
     blocks = params["blocks"]
     for i in range(cfg.n_layers):
@@ -387,3 +390,105 @@ def llada_forward(params: Dict[str, Any], cfg: LLaDAConfig,
     """Full-sequence forward: ``[B, L]`` ids -> ``[B, L, emb_size]`` logits."""
     hidden = llada_hidden(params, cfg, input_ids, attn_mask)
     return llada_head(params, cfg, hidden, logits_dtype=logits_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Feature-cached forwards (the samplers' opt-in use_cache path)
+# ---------------------------------------------------------------------------
+
+
+def _rope_packed(t: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor,
+                 n_heads: int, full_precision: bool) -> torch.Tensor:
+    """Neox rotation on a packed ``[B, L, H*hd]`` tensor through a 4-D view
+    of :func:`~mmada_parallel_torch.ops.rope_attention.rope_tensor`."""
+    B, L, HD = t.shape
+    t4 = t.reshape(B, L, n_heads, HD // n_heads)
+    return rope_tensor(t4, sin, cos, full_precision).reshape(B, L, HD)
+
+
+def _cached_block(x: torch.Tensor, lp: Dict[str, torch.Tensor],
+                  cfg: LLaDAConfig, attend) -> torch.Tensor:
+    """A llama block whose attention is ``attend(q, k, v) -> att``: the
+    caller rotates k, updates its cache and runs the q-only attention."""
+    h = _norm(x, lp["attn_norm"], cfg)
+    att = attend(_pmm(h, lp["q_proj"]), _pmm(h, lp["k_proj"]),
+                 _pmm(h, lp["v_proj"]))
+    x = x + _pmm(att, lp["attn_out"])
+    h = _norm(x, lp["ff_norm"], cfg)
+    gate = F.silu(_pmm(h, lp["ff_proj"]))
+    return x + _pmm(gate * _pmm(h, lp["up_proj"]), lp["ff_out"])
+
+
+def llada_hidden_with_cache(params: Dict[str, Any], cfg: LLaDAConfig,
+                            input_ids: torch.Tensor
+                            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full forward that also returns the per-layer k/v feature cache
+    ``{"k": [n_layers, B, L, KV*hd], "v": ...}`` in the packed layout, k
+    stored POST-RoPE (rounded to the compute dtype), so partial steps rotate
+    only the recomputed positions.  Attention is the q-only path against the
+    layer's own rotated k."""
+    if cfg.block_type != "llama":
+        raise NotImplementedError("feature cache supports llama blocks only")
+    cdt = cfg.compute_dtype
+    B, L = input_ids.shape
+    nh, nkv = cfg.n_heads, cfg.effective_n_kv_heads
+    wte = params["wte"]
+    x = F.embedding(input_ids.long().clamp(0, wte.shape[0] - 1), wte).to(cdt)
+    sin, cos = _rope_sin_cos(L, cfg.head_dim, cfg.rope_theta, x.device)
+    shape = (cfg.n_layers, B, L, nkv * cfg.head_dim)
+    cache = {"k": torch.empty(shape, dtype=cdt, device=x.device),
+             "v": torch.empty(shape, dtype=cdt, device=x.device)}
+
+    blocks = params["blocks"]
+    for i in range(cfg.n_layers):
+        def attend(q, k, v, i=i):
+            cache["k"][i] = _rope_packed(k, sin, cos, nkv,
+                                         cfg.rope_full_precision)
+            cache["v"][i] = v
+            return rope_attention_qonly(
+                q, cache["k"][i], cache["v"][i], sin, cos, n_heads=nh,
+                n_kv_heads=nkv, full_precision=cfg.rope_full_precision,
+                impl=cfg.attention_impl)
+        x = _cached_block(x, {name: p[i] for name, p in blocks.items()},
+                          cfg, attend)
+    return _norm(x, params["ln_f"], cfg), cache
+
+
+def llada_hidden_partial(params: Dict[str, Any], cfg: LLaDAConfig,
+                         sel_ids: torch.Tensor, sel_pos: torch.Tensor,
+                         cache: Dict[str, torch.Tensor]
+                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Partial recompute: run only the ``n`` selected tokens (``sel_ids``
+    ``[B, n]`` at absolute positions ``sel_pos`` ``[B, n]``) through the
+    stack, attending to the full k/v cache with their fresh k/v written in.
+
+    Returns ``(hidden_sel [B, n, d], cache)``.  The cache is updated IN
+    PLACE (the JAX function returns a new one; the values are the same):
+    each layer scatters the selected rows' rotated k and v into its slice
+    before attending.  RoPE uses the true absolute positions."""
+    cdt = cfg.compute_dtype
+    B, n = sel_ids.shape
+    L = cache["k"].shape[2]
+    nh, nkv = cfg.n_heads, cfg.effective_n_kv_heads
+    wte = params["wte"]
+    x = F.embedding(sel_ids.long().clamp(0, wte.shape[0] - 1), wte).to(cdt)
+    sin_full, cos_full = _rope_sin_cos(L, cfg.head_dim, cfg.rope_theta,
+                                       x.device)
+    pos = sel_pos.long()
+    sin_sel, cos_sel = sin_full[pos], cos_full[pos]        # [B, n, hd]
+    idx = pos[:, :, None].expand(B, n, cache["k"].shape[-1])
+
+    blocks = params["blocks"]
+    for i in range(cfg.n_layers):
+        def attend(q, k, v, i=i):
+            k_full, v_full = cache["k"][i], cache["v"][i]
+            k_full.scatter_(1, idx, _rope_packed(
+                k, sin_sel, cos_sel, nkv, cfg.rope_full_precision))
+            v_full.scatter_(1, idx, v)
+            return rope_attention_qonly(
+                q, k_full, v_full, sin_sel, cos_sel, n_heads=nh,
+                n_kv_heads=nkv, full_precision=cfg.rope_full_precision,
+                impl=cfg.attention_impl)
+        x = _cached_block(x, {name: p[i] for name, p in blocks.items()},
+                          cfg, attend)
+    return _norm(x, params["ln_f"], cfg), cache

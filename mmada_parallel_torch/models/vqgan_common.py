@@ -8,13 +8,54 @@ the JAX key structure (``{"w", "b"}`` convs, ``{"scale", "bias"}`` norms) so
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
 
 __all__ = ["conv2d", "group_norm", "swish", "resnet_block", "attn_block",
-           "downsample", "upsample"]
+           "downsample", "upsample", "ParamInit"]
+
+
+class ParamInit:
+    """Random VQGAN parameters drawn from one generator, in the JAX trees'
+    structure: torch's default inits (kaiming-uniform convs with
+    ``U(+-sqrt(1/fan_in))`` weight and bias, ones/zeros norms), OIHW convs,
+    straight into ``dtype`` on ``device`` (default: the generator's)."""
+
+    def __init__(self, generator: torch.Generator, device=None,
+                 dtype=torch.float32):
+        self.generator = generator
+        self.device = (torch.device(device) if device is not None
+                       else generator.device)
+        self.dtype = dtype
+
+    def uniform(self, shape, bound: float) -> torch.Tensor:
+        return torch.empty(shape, dtype=self.dtype,
+                           device=self.device).uniform_(
+            -bound, bound, generator=self.generator)
+
+    def conv(self, kh: int, kw: int, cin: int, cout: int):
+        bound = math.sqrt(1.0 / (kh * kw * cin))
+        return {"w": self.uniform((cout, cin, kh, kw), bound),
+                "b": self.uniform((cout,), bound)}
+
+    def norm(self, c: int):
+        return {"scale": torch.ones(c, dtype=self.dtype, device=self.device),
+                "bias": torch.zeros(c, dtype=self.dtype, device=self.device)}
+
+    def resnet(self, cin: int, cout: int):
+        p = {"norm1": self.norm(cin), "conv1": self.conv(3, 3, cin, cout),
+             "norm2": self.norm(cout), "conv2": self.conv(3, 3, cout, cout)}
+        if cin != cout:
+            p["nin_shortcut"] = self.conv(1, 1, cin, cout)
+        return p
+
+    def attn(self, c: int):
+        return {"norm": self.norm(c), "q": self.conv(1, 1, c, c),
+                "k": self.conv(1, 1, c, c), "v": self.conv(1, 1, c, c),
+                "proj_out": self.conv(1, 1, c, c)}
 
 
 def swish(x: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,13 @@
 """Build and bind the port's CUDA kernels.
 
-``csrc/*.cu`` are compiled by ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with :mod:`ctypes`.  The build runs at the
-first CUDA call (never at import, so the CPU-only tests import every module)
-and lands in ``mmada_parallel_torch/_build/``, keyed by a hash of the sources
-and flags, so an unchanged tree reuses it.  A missing ``nvcc`` or a failed
-compile raises with the compiler's output; nothing carries on without the
-kernel.
+Each ``csrc/*.cu`` is compiled by its own ``nvcc`` for ``sm_90a``, all of
+them at once, and the objects are linked into one shared library with a plain
+C interface, loaded with :mod:`ctypes`.  The build runs at the first CUDA call
+(never at import, so the CPU-only tests import every module) and lands in
+``mmada_parallel_torch/_build/``, keyed by a hash of the sources (headers
+included) and flags, so an unchanged tree reuses it.  A missing ``nvcc`` or a
+failed compile raises with the compiler's output; nothing carries on without
+the kernel.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
@@ -33,6 +34,10 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 _SIGNATURES = {
     "mmada_flash_attention_rope": (
         [_P] * 9 + [_I] * 6 + [_LL, _LL, _F, _I, _P], _I),
+    "mmada_flash_attention_rope_qonly": (
+        [_P] * 7 + [_I] * 6 + [_LL, _F, _I, _P], _I),
+    "mmada_flash_attention": (
+        [_P] * 5 + [_I] * 6 + [_F, _I, _P], _I),
 }
 
 
@@ -61,25 +66,41 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libmmada_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds):
+    """Run the commands concurrently; raise with the first failure's output.
+    Returns the output of each, in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return outs
+
+
 def build() -> str:
-    """Compile ``csrc/*.cu`` unless the library for these sources exists.
-    Returns its path; the compiler's output (``-Xptxas -v`` register and
-    shared-memory report) is kept beside it as ``.log``."""
+    """Compile ``csrc/*.cu`` unless the library for these sources exists:
+    one ``nvcc -c`` per source, all started together, then one link.
+    Returns the library's path; the compilers' output (``-Xptxas -v``
+    register and shared-memory report) is kept beside it as ``.log``."""
     path = library_path()
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    with open(path[:-3] + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    os.replace(tmp, path)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [os.path.join(work, os.path.basename(s)[:-3] + ".o")
+                for s in _sources()]
+        logs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+                         for s, o in zip(_sources(), objs)])
+        tmp = os.path.join(work, "lib.so")
+        logs += _run_all([[nvcc, "-shared", "-Xcompiler", "-fPIC", "-o", tmp,
+                           *objs]])
+        with open(path[:-3] + ".log", "w") as f:
+            f.write("".join(logs))
+        os.replace(tmp, path)
     return path
 
 

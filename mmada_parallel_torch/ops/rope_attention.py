@@ -1,14 +1,20 @@
-"""Fused-RoPE packed attention: the CUDA kernel wrapper and its plain version.
+"""Fused-RoPE packed attention: the CUDA kernel wrappers and their plain
+versions.
 
-Counterpart of :mod:`mmada_parallel_tpu.ops.rope_attention`.  The TPU kernel
-``flash_attention_rope`` (``_kernel``) is ported as the hand-written CUDA
-kernel ``csrc/flash_attention_rope.cu``; :func:`flash_attention_rope` here is
-its wrapper, and :func:`flash_attention_rope_reference` is the plain PyTorch
-version of the same function (reshape -> fp32 RoPE -> eager softmax attention
--> reshape), used for CPU tensors and as the oracle the kernel is held to.
+Counterpart of :mod:`mmada_parallel_tpu.ops.rope_attention`.  Its two TPU
+kernels on the inference path are ported as hand-written CUDA kernels:
 
-On CUDA the packed ``[B, L, H*D]`` layout is only a stride, so the kernel
-reads each head's column slice in place: no reshape, no copy.
+* ``flash_attention_rope`` (K1, q and k rotated on load) as
+  ``csrc/flash_attention_rope.cu``; :func:`flash_attention_rope` is its
+  wrapper and :func:`flash_attention_rope_reference` its plain PyTorch
+  version (reshape -> fp32 RoPE -> eager softmax attention -> reshape);
+* ``flash_attention_rope_qonly`` (K2, q rotated, k a pre-rotated cache) as
+  ``csrc/flash_attention_rope_qonly.cu``; :func:`flash_attention_rope_qonly`
+  and :func:`flash_attention_rope_qonly_reference`.
+
+The plain versions run for CPU tensors and are the oracles the kernels are
+held to.  On CUDA the packed ``[B, L, H*D]`` layout is only a stride, so the
+kernels read each head's column slice in place: no reshape, no copy.
 """
 
 from __future__ import annotations
@@ -18,7 +24,8 @@ from typing import Optional, Tuple
 import torch
 
 __all__ = ["rope_tensor", "apply_rope", "flash_attention_rope",
-           "flash_attention_rope_reference"]
+           "flash_attention_rope_reference", "flash_attention_rope_qonly",
+           "flash_attention_rope_qonly_reference"]
 
 NEG_INF = -1e30
 _KERNEL_HEAD_DIMS = (64, 128)
@@ -99,8 +106,10 @@ def _check_table(name, t, B, L, D, device):
     return t.shape[-2] * D if t.ndim == 3 else 0
 
 
-def _launch(q, k, v, sin_q, cos_q, sin_k, cos_k, bias, H: int, KV: int):
-    from mmada_parallel_torch.ops import _cuda
+def check_packed(q, k, v, bias, H: int, KV: int):
+    """Validate packed ``q [B, Lq, H*D]``, ``k``/``v [B, Lk, KV*D]`` and an
+    optional f32 ``bias [B, 1, Lq, Lk]`` for the CUDA kernels; returns
+    ``(B, Lq, Lk, D)``.  Raises on anything the kernels do not take."""
     B, Lq, HD = q.shape
     Lk = k.shape[1]
     if HD % H or H % KV:
@@ -119,18 +128,24 @@ def _launch(q, k, v, sin_q, cos_q, sin_k, cos_k, bias, H: int, KV: int):
         if tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous {list(shape)}, got "
                              f"{list(t.shape)}")
-    tq = _check_table("sin_q", sin_q, B, Lq, D, q.device)
-    _check_table("cos_q", cos_q, B, Lq, D, q.device)
-    tk = _check_table("sin_k", sin_k, B, Lk, D, q.device)
-    _check_table("cos_k", cos_k, B, Lk, D, q.device)
-    if cos_q.shape != sin_q.shape or cos_k.shape != sin_k.shape:
-        raise ValueError("sin and cos tables must have one shape")
     if bias is not None:
         if (bias.dtype != torch.float32 or bias.device != q.device
                 or tuple(bias.shape) != (B, 1, Lq, Lk)
                 or not bias.is_contiguous()):
             raise ValueError(f"bias must be contiguous float32 "
                              f"[{B}, 1, {Lq}, {Lk}] on {q.device}")
+    return B, Lq, Lk, D
+
+
+def _launch(q, k, v, sin_q, cos_q, sin_k, cos_k, bias, H: int, KV: int):
+    from mmada_parallel_torch.ops import _cuda
+    B, Lq, Lk, D = check_packed(q, k, v, bias, H, KV)
+    tq = _check_table("sin_q", sin_q, B, Lq, D, q.device)
+    _check_table("cos_q", cos_q, B, Lq, D, q.device)
+    tk = _check_table("sin_k", sin_k, B, Lk, D, q.device)
+    _check_table("cos_k", cos_k, B, Lk, D, q.device)
+    if cos_q.shape != sin_q.shape or cos_k.shape != sin_k.shape:
+        raise ValueError("sin and cos tables must have one shape")
     out = torch.empty_like(q)
     lib = _cuda.library()
     with torch.cuda.device(q.device):
@@ -144,6 +159,29 @@ def _launch(q, k, v, sin_q, cos_q, sin_k, cos_k, bias, H: int, KV: int):
         raise RuntimeError(f"flash_attention_rope CUDA launch failed: "
                            f"cudaError_t {err}")
     flash_attention_rope.launches += 1
+    return out
+
+
+def _launch_qonly(q, k, v, sin_q, cos_q, bias, H: int, KV: int):
+    from mmada_parallel_torch.ops import _cuda
+    B, Lq, Lk, D = check_packed(q, k, v, bias, H, KV)
+    tq = _check_table("sin_q", sin_q, B, Lq, D, q.device)
+    _check_table("cos_q", cos_q, B, Lq, D, q.device)
+    if cos_q.shape != sin_q.shape:
+        raise ValueError("sin and cos tables must have one shape")
+    out = torch.empty_like(q)
+    lib = _cuda.library()
+    with torch.cuda.device(q.device):
+        err = lib.mmada_flash_attention_rope_qonly(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), sin_q.data_ptr(),
+            cos_q.data_ptr(), bias.data_ptr() if bias is not None else None,
+            out.data_ptr(), B, Lq, Lk, H, KV, D, tq, D ** -0.5,
+            _KERNEL_DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_rope_qonly CUDA launch failed: "
+                           f"cudaError_t {err}")
+    flash_attention_rope_qonly.launches += 1
     return out
 
 
@@ -173,3 +211,51 @@ def flash_attention_rope(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_rope.launches = 0
+
+
+def flash_attention_rope_qonly_reference(q: torch.Tensor, k: torch.Tensor,
+                                         v: torch.Tensor,
+                                         sin_q: torch.Tensor,
+                                         cos_q: torch.Tensor,
+                                         bias: Optional[torch.Tensor] = None,
+                                         *, n_heads: int,
+                                         n_kv_heads: Optional[int] = None
+                                         ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`flash_attention_rope_qonly`, same
+    arguments, any device: ``ops.attention._packed_qonly_reference``."""
+    from mmada_parallel_torch.ops.attention import _packed_qonly_reference
+    H = n_heads
+    KV = n_kv_heads if n_kv_heads is not None else H
+    return _packed_qonly_reference(q, k, v, sin_q.float(), cos_q.float(),
+                                   bias, H, KV)
+
+
+def flash_attention_rope_qonly(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, sin_q: torch.Tensor,
+                               cos_q: torch.Tensor,
+                               bias: Optional[torch.Tensor] = None, *,
+                               n_heads: int, n_kv_heads: Optional[int] = None
+                               ) -> torch.Tensor:
+    """Packed attention with PRE-ROTATED k: ``[B, Lq, H*D] x [B, Lk, KV*D]
+    -> [B, Lq, H*D]``, the feature-cache hot path.
+
+    ``q`` is pre-RoPE and gets the fp32 rotation at its true positions:
+    ``sin_q``/``cos_q`` are f32 ``[Lq, D]`` or per-row ``[B, Lq, D]``.
+    ``k``/``v`` are the packed caches (k already rotated), read as stored;
+    ``Lq`` and ``Lk`` are independent.  ``bias`` is an optional f32
+    ``[B, 1, Lq, Lk]``.  A CUDA tensor launches the kernel (bf16 or f32,
+    D in {64, 128}, any GQA ratio) and raises on anything it does not take;
+    a CPU tensor runs :func:`flash_attention_rope_qonly_reference`.
+    ``flash_attention_rope_qonly.launches`` counts kernel launches."""
+    H = n_heads
+    KV = n_kv_heads if n_kv_heads is not None else H
+    if q.device.type == "cpu":
+        return flash_attention_rope_qonly_reference(
+            q, k, v, sin_q, cos_q, bias, n_heads=H, n_kv_heads=KV)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_rope_qonly runs on cuda or cpu, "
+                         f"not {q.device}")
+    return _launch_qonly(q, k, v, sin_q.float(), cos_q.float(), bias, H, KV)
+
+
+flash_attention_rope_qonly.launches = 0

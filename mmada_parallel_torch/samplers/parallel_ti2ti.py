@@ -1,12 +1,16 @@
-"""The joint parallel text+image denoiser (variant A), exact sampler.
+"""The joint parallel text+image denoiser (variant A): the exact sampler and
+the feature-cached one.
 
-Counterpart of :mod:`mmada_parallel_tpu.samplers.parallel_ti2ti`
-(``generate_ti2ti``): per step one conditional full-sequence forward and a
+Counterpart of :mod:`mmada_parallel_tpu.samplers.parallel_ti2ti`.
+``generate_ti2ti``: per step one conditional full-sequence forward and a
 text update; on the scheduled image steps, the uncond CFG forwards (one
 batched forward when both prefixes are used), dual CFG, a categorical sample
-and the MaskGit-style re-mask.  The ``lax.scan``/``lax.cond`` of the JAX
-sampler are a Python loop and a host boolean: the step schedule is
-precomputed, so the loop needs no device-to-host sync.
+and the MaskGit-style re-mask.  ``generate_ti2ti_cached``: the same steps,
+with the cond forward replaced between refreshes by a partial recompute of a
+few text slots against a per-layer k/v cache (an opt-in approximation).  The
+``lax.scan``/``lax.cond`` of the JAX samplers are a Python loop and host
+booleans: the step schedules are precomputed, so the loop needs no
+device-to-host sync.
 
 ``generator=None`` is fully deterministic (argmax everywhere), the parity
 configuration.
@@ -15,17 +19,22 @@ configuration.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from mmada_parallel_tpu.tokens import SequenceLayout
-from mmada_parallel_torch.models.llada import LLaDAConfig, llada_head, llada_hidden
+from mmada_parallel_torch.models.llada import (LLaDAConfig, llada_head,
+                                               llada_hidden,
+                                               llada_hidden_partial,
+                                               llada_hidden_with_cache)
 from mmada_parallel_torch.ops import sampling as S
+from mmada_parallel_torch.ops.masks import ragged_positions
 
-__all__ = ["TI2TIOptions", "generate_ti2ti", "make_ti2ti_step",
-           "decode_text"]
+__all__ = ["TI2TIOptions", "generate_ti2ti", "generate_ti2ti_cached",
+           "cached_refresh_schedule", "make_ti2ti_step", "decode_text"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,17 +54,13 @@ class TI2TIOptions:
     mask_token: int = 126336
 
 
-def ragged_positions(attn_mask: torch.Tensor) -> torch.Tensor:
-    """``[B, L]`` bool -> RoPE positions ``cumsum(mask) - 1`` (clamped at 0):
-    each real token's rank among its row's real tokens."""
-    return (torch.cumsum(attn_mask.long(), dim=-1) - 1).clamp_min(0)
-
-
 def _text_update(ids: torch.Tensor, text_logits: torch.Tensor,
                  budget: torch.Tensor, opts: TI2TIOptions,
                  layout: SequenceLayout,
-                 generator: Optional[torch.Generator]) -> torch.Tensor:
-    """One text-transfer update; returns new ids."""
+                 generator: Optional[torch.Generator],
+                 return_transfer: bool = False):
+    """One text-transfer update; returns new ids, or ``(ids, transfer)``
+    when ``return_transfer`` (the cached sampler tracks committed slots)."""
     ts, te = layout.text_start, layout.text_end
     cur = ids[:, ts:te]
     masked = cur == opts.mask_token
@@ -73,7 +78,7 @@ def _text_update(ids: torch.Tensor, text_logits: torch.Tensor,
     transfer = S.topk_transfer_mask(conf, budget)
     out = ids.clone()
     out[:, ts:te] = torch.where(transfer, x0, cur)
-    return out
+    return (out, transfer) if return_transfer else out
 
 
 def _cfg_plan(opts: TI2TIOptions, uncond_text_prefix, uncond_image_prefix,
@@ -254,23 +259,137 @@ def generate_ti2ti(
     budgets = S.get_num_transfer_tokens(masked0, opts.text_steps)
     for s in range(opts.text_steps):
         ids = step(ids, s, budgets[:, s], generator)
+    return ids, _final_codes(ids, layout, opts, generator)
 
+
+def _final_codes(ids: torch.Tensor, layout: SequenceLayout,
+                 opts: TI2TIOptions,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Image codes ``[B, N_vq]`` from the final ids.  The per-step re-mask
+    keeps >= 1 token masked even on the last step; the reference fills
+    still-masked positions with a random code at extraction (deterministic
+    mode fills with 0)."""
     img_pos = torch.as_tensor(layout.image_positions(), dtype=torch.long,
-                              device=device)
+                              device=ids.device)
     img_tokens = ids[:, img_pos]
     codes = (img_tokens - opts.text_vocab_size).clamp(
         0, opts.codebook_size - 1)
-    # the per-step re-mask keeps >= 1 token masked even on the last step;
-    # the reference fills still-masked positions with a random code at
-    # extraction (deterministic mode fills with 0)
     still_masked = img_tokens == opts.mask_token
     if generator is not None:
         fill = torch.randint(0, opts.codebook_size, codes.shape,
-                             generator=generator, device=device)
+                             generator=generator, device=ids.device)
     else:
         fill = torch.zeros_like(codes)
-    codes = torch.where(still_masked, fill, codes)
-    return ids, codes
+    return torch.where(still_masked, fill, codes)
+
+
+def cached_refresh_schedule(steps: int, timesteps: int,
+                            refresh_interval: int = 4,
+                            warmup_ratio: float = 0.25) -> np.ndarray:
+    """Host bool ``[steps]``: the steps of :func:`generate_ti2ti_cached`
+    that run a full forward.  Image steps, the step after each image step
+    (its writes made the cached k/v at image positions stale, which the
+    text-span tracking does not cover), the warmup, and every
+    ``refresh_interval``-th step since the last refresh."""
+    img_step = S.image_step_mask(steps, timesteps)
+    refresh = img_step.copy()
+    refresh[1:] |= img_step[:-1]
+    refresh[:int(steps * warmup_ratio) + 1] = True
+    last = 0
+    for s in range(steps):
+        if refresh[s]:
+            last = s
+        elif s - last >= refresh_interval:
+            refresh[s] = True
+            last = s
+    return refresh
+
+
+@torch.inference_mode()
+def generate_ti2ti_cached(
+    params: Dict[str, Any],
+    cfg: LLaDAConfig,
+    input_ids: torch.Tensor,
+    layout: SequenceLayout,
+    opts: TI2TIOptions,
+    cache_ratio: float = 0.95,
+    refresh_interval: int = 4,
+    warmup_ratio: float = 0.25,
+    uncond_text_prefix: Optional[np.ndarray] = None,
+    uncond_image_prefix: Optional[np.ndarray] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """TI2TI with the adaptive feature cache on the cond trajectory.
+
+    Steps of :func:`cached_refresh_schedule` run full forwards, rebuilding
+    the per-layer k/v cache; the other (text-only) steps recompute just
+    ``n_sel = ceil(text_len/steps) + 1 + ceil((1 - cache_ratio) * text_len)``
+    text slots against it: every slot committed on the previous step (its
+    cached k/v is stale) plus the lowest-confidence still-masked slots.
+    Logits elsewhere are reused, so this is an approximation; with
+    ``refresh_interval=1`` every step refreshes and the trajectory equals
+    :func:`generate_ti2ti`.  The uncond CFG forwards (image steps only)
+    stay exact.  Same arguments and return as :func:`generate_ti2ti`."""
+    if opts.remasking == "random" and generator is None:
+        raise ValueError("remasking='random' requires a generator")
+    device = input_ids.device
+    ids = input_ids.long()
+    B = ids.shape[0]
+    img_pos = torch.as_tensor(layout.image_positions(), dtype=torch.long,
+                              device=device)
+    ts, te = layout.text_start, layout.text_end
+    text_len = te - ts
+    tvs, cb = opts.text_vocab_size, opts.codebook_size
+    steps = opts.text_steps
+
+    ratios = (torch.arange(steps, dtype=torch.float32, device=device)
+              + 1) / steps
+    mask_ratios = S.get_mask_schedule(opts.schedule)(ratios)
+    img_temps = opts.temperature * (1.0 - ratios)
+    img_step = S.image_step_mask(steps, opts.timesteps)
+    refresh = cached_refresh_schedule(steps, opts.timesteps,
+                                      refresh_interval, warmup_ratio)
+    n_sel = min(math.ceil(text_len / steps) + 1
+                + max(math.ceil((1.0 - cache_ratio) * text_len), 1),
+                text_len)
+    plan = _cfg_plan(opts, uncond_text_prefix, uncond_image_prefix, device)
+    budgets = S.get_num_transfer_tokens(
+        (ids[:, ts:te] == opts.mask_token).sum(dim=1), steps)
+
+    cache = text_logits = vq = None
+    changed = torch.zeros((B, text_len), dtype=torch.bool, device=device)
+    for s in range(steps):          # refresh[0] is always True
+        if refresh[s]:
+            cache = None                  # free the old one first
+            hidden, cache = llada_hidden_with_cache(params, cfg, ids)
+            text_logits = llada_head(params, cfg, hidden[:, ts:te])
+            vq = llada_head(params, cfg, hidden[:, img_pos],
+                            vocab_slice=(tvs, cb))
+            del hidden
+        else:
+            masked = ids[:, ts:te] == opts.mask_token
+            conf = torch.softmax(text_logits, dim=-1).amax(dim=-1)
+            score = changed.float() * 1e6 + masked.float() * (1.0 - conf)
+            # stable: unmasked, unchanged slots all score 0
+            sel_slot = torch.sort(-score, dim=-1,
+                                  stable=True).indices[:, :n_sel]
+            sel_pos = ts + sel_slot
+            h_sel, cache = llada_hidden_partial(
+                params, cfg, torch.gather(ids, 1, sel_pos), sel_pos, cache)
+            logits_sel = llada_head(params, cfg, h_sel)
+            text_logits.scatter_(1, sel_slot[:, :, None].expand_as(
+                logits_sel), logits_sel.to(text_logits.dtype))
+        # both branches consume the previous step's commits, so the slots
+        # that go stale are exactly this step's transfers
+        ids, changed = _text_update(ids, text_logits, budgets[:, s], opts,
+                                    layout, generator, return_transfer=True)
+        if img_step[s]:
+            ut_vq, ui_vq = _uncond_vq(params, cfg, ids, vq, plan, img_pos,
+                                      tvs, cb)
+            ids = _image_update(ids, vq, ut_vq, ui_vq, img_pos,
+                                mask_ratios[s], img_temps[s], opts,
+                                generator)
+    return ids, _final_codes(ids, layout, opts, generator)
 
 
 def decode_text(final_ids, layout: SequenceLayout, opts: TI2TIOptions,

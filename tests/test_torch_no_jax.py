@@ -1,10 +1,12 @@
-"""The port's main path imports neither JAX nor PIL.
+"""The port's paths import neither JAX nor PIL.
 
-``tests/conftest.py`` imports jax into every test process, so the check runs
+``tests/conftest.py`` imports jax into every test process, so each check runs
 in a subprocess in which importing ``jax`` raises: it imports the port, runs
-a tiny edit on the CPU through ``TI2TIPipeline`` with an array image (PIL is
-installed here, so its absence from ``sys.modules`` shows the path never
-imported it), and reports what got imported."""
+tiny generations on the CPU with an array image (PIL is installed here, so
+its absence from ``sys.modules`` shows the path never imported it), and
+reports what got imported.  The paths: the exact and the cached
+``TI2TIPipeline`` edit, and the exact and the cached ``InterleavePipeline``
+with an array already at the resolution."""
 
 import json
 import os
@@ -52,13 +54,37 @@ opts = TI2TIOptions(text_steps=4, timesteps=2, temperature=1.0,
                     codebook_size=32)
 out, text, info = pipe("add a hat", img, 16, 16, opts, text_gen_length=6,
                        seed=3)
+_, text_c, info_c = pipe("add a hat", img, 16, 16, opts, text_gen_length=6,
+                         seed=3, use_cache=True)
+
+from mmada_parallel_torch.models import magvit2 as MVQ
+from mmada_parallel_torch.pipeline import InterleavePipeline
+from mmada_parallel_torch.samplers.interleave import InterleaveOptions
+from mmada_parallel_torch.cli import infer_m  # imports yaml/PIL in main()
+T = tk.VariantMTokens(mask=250, soi=251, eoi=252, bos=249, eos=248,
+                      interleave=247, text_vocab_size=256, codebook_size=16)
+mcfg = LLaDAConfig.tiny(vocab_size=272, mask_token_id=250)
+mvcfg = MVQ.MagvitConfig.tiny()
+mpipe = InterleavePipeline(mcfg, init_llada_params(mcfg, g), mvcfg,
+                           MVQ.init_magvit_params(mvcfg, g), Tok(), tokens=T,
+                           num_vq_tokens=64, max_seq_length=6, resolution=16)
+mopts = InterleaveOptions(text_steps=4, image_steps=2, text_temperature=0.7,
+                          text_vocab_size=256, codebook_size=16,
+                          mask_token=250)
+m_runs = [mpipe("add a hat", img, mopts, seed=3, use_cache=c)
+          for c in (False, True)]
 print(json.dumps({
     "jax": sorted(m for m in sys.modules if m.split(".")[0] in
                   ("jax", "jaxlib")),
     "pil": sorted(m for m in sys.modules if m.split(".")[0] == "PIL"),
+    "yaml": "yaml" in sys.modules,
     "image": out is None, "pixels": list(info["pixels"].shape),
     "finite": bool(np.isfinite(info["pixels"]).all()),
-    "codes": info["codes"].tolist(), "text": text}))
+    "codes": info["codes"].tolist(), "text": text,
+    "cached_codes": info_c["codes"].tolist(), "cached_text": text_c,
+    "m": [{"image": o is None, "pixels": list(i["pixels"].shape),
+           "finite": bool(np.isfinite(i["pixels"]).all()),
+           "codes": i["codes"].tolist(), "text": t} for o, t, i in m_runs]}))
 """
 
 
@@ -68,11 +94,19 @@ def test_port_main_path_imports_no_jax_and_no_pil():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     res = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert res["jax"] == [] and res["pil"] == []
+    assert res["jax"] == [] and res["pil"] == [] and not res["yaml"]
     assert res["image"] is True                 # array in -> no PIL image
     assert res["pixels"] == [16, 16, 3] and res["finite"]
     assert all(0 <= c < 32 for c in res["codes"][0])
-    assert isinstance(res["text"], str) and res["text"]
+    assert all(0 <= c < 32 for c in res["cached_codes"][0])
+    for t in (res["text"], res["cached_text"]):
+        assert isinstance(t, str) and t
+    for m in res["m"]:                          # exact, then cached
+        assert m["image"] is True
+        assert m["pixels"] == [16, 16, 3] and m["finite"]
+        assert len(m["codes"][0]) == 64
+        assert all(0 <= c < 16 for c in m["codes"][0])
+        assert isinstance(m["text"], str) and m["text"]
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):

@@ -110,11 +110,25 @@ def test_pipeline_edit_matches_jax(pipes, cfg_scale, cfg_img, painting):
 
 
 def test_pipeline_cache_option_not_ported(pipes):
-    _, port = pipes
-    with pytest.raises(NotImplementedError):
-        port("x", _image()[0], 32, 32, TI2TIOptions(text_steps=2,
-                                                    timesteps=1),
-             text_gen_length=4, use_cache=True)
+    """``use_cache=True`` (once refused) runs the cached sampler: at
+    temperature 0 the text and the decided codes equal the JAX pipeline's
+    cached edit, whose schedule here has partial steps (4, 5, 6 and 8 of
+    0-9)."""
+    jax_pipe, port = pipes
+    kw = dict(text_steps=10, timesteps=2, temperature=0.0,
+              text_temperature=0.0, cfg_scale=2.5, cfg_img=4.0,
+              codebook_size=32)
+    arr, pil = _image()
+    call = dict(text_gen_length=16, seed=7, use_cache=True)
+    _, j_text, j_info = jax_pipe("add a hat", pil, 32, 32, JOpts(**kw),
+                                 **call)
+    _, t_text, t_info = port("add a hat", arr, 32, 32, TI2TIOptions(**kw),
+                             **call)
+    assert t_text == j_text and len(t_text) > 0
+    lay = t_info["layout"]
+    still = t_info["ids"][0, lay.image_positions()] == T.mask
+    assert np.array_equal(t_info["codes"][0][~still],
+                          j_info["codes"][0][~still])
 
 
 def test_infer_cli_keeps_the_jax_flags():

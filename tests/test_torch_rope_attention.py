@@ -158,9 +158,9 @@ def test_dispatch_rules_on_cpu():
     auto = TA.rope_attention(q, q, q, s, c, n_heads=H)
     assert torch.equal(xla, auto)
     assert TR.flash_attention_rope.launches == 0
-    # the BLHD kernel (K3) is not ported: only the eager path answers
+    # the BLHD kernel (K3) launches only for CUDA tensors
     q4 = q.reshape(B, L, H, D)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="CUDA"):
         TA.dot_product_attention(q4, q4, q4, impl="pallas")
 
 
