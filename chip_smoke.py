@@ -1,6 +1,7 @@
 """On-card proof that the PyTorch/CUDA port builds, is right and runs its
-paths: the variant-A thinking-aware edit (exact and feature-cached) and the
-variant-M interleave generation (exact and feature-cached).
+paths: the variant-A thinking-aware edit (exact and feature-cached), the
+variant-M interleave generation (exact and feature-cached), and the A and M
+train steps with gradients through the attention kernels.
 
     python3 chip_smoke.py        # from the repository root, one H100
 
@@ -9,20 +10,36 @@ Phases (each prints its own lines; any failure exits non-zero):
 0. device: the card's name and power limit, torch/CUDA versions, TF32 off;
 1. build: one ``nvcc`` per ``mmada_parallel_torch/csrc/*.cu`` for sm_90a,
    all at once, then one link;
-2. the three attention kernels against their plain PyTorch versions on the
+2. the four attention kernels against their plain PyTorch versions on the
    card, timed with CUDA events against them: K1 fused RoPE at the edit's
    shapes, K2 q-only RoPE at the cached samplers' partial and full shapes,
-   K3 BLHD at the edit shape, and each at small f32 shapes;
+   K3 BLHD at the edit shape, K4 prefix bounds at the A-train shape and a
+   mixed task batch (with K1 on the equivalent dense bias beside it at 2424
+   and 5120, the crossover ``rope_attention_prefix``'s ``auto`` would want,
+   and ``auto``'s choice at both lengths checked by launch counts), each at
+   small f32 shapes, and K1 at the A and M train steps' shapes; then each
+   kernel's autograd Function: q/k/v gradients against plain autograd, bf16
+   and f32;
 3. small f32 models (head_dim 64): the kernel path gives the same tokens as
    the plain attention at temperature 0 on the exact edit, the cached edit,
    the exact and cached interleave, and the exact edit with bf16-style
-   (non-fp32) RoPE, which runs K3;
+   (non-fp32) RoPE, which runs K3; and three A train steps through the
+   kernel path equal the plain path's;
 4. at the full width of the 8B backbone (all 32 layers, one set of random
    bf16 weights from a seed) with the full-size tokenizers: the exact edit
    (K1), the exact edit with non-fp32 RoPE (K3), the cached edit (K2 and
    K1), the exact interleave (K1) and the cached interleave (K2).  Each run
    sets every launch count to 0 just before it and checks them just after;
-   codes, pixels, wall time and peak memory are checked and printed.
+   codes, pixels, wall time and peak memory are checked and printed;
+5. training at full width, 4 of the 32 layers (f32 params, bf16 compute,
+   AdamW, clip 4.0), after the inference weights are freed: the A SFT step
+   of ``cli/train_a.py`` (B=1, L=5120, 2 accumulation microbatches, remat
+   ``whole_layer``: exactly 16 K1 launches, loss and grad norm against the
+   plain attention path, 3 finite steps of each) and the M
+   ``forward_process`` step on a padded ``[t2i | lm | mmu]`` batch at the
+   interleave length, with seconds per step, tokens per second and peak
+   memory; one more step of each (A plain, A K1, M) under ``torch.profiler``
+   gives the device time by kernel class and the idle share.
 
 The second-to-last line of stdout is a JSON object with the kernels'
 records; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -32,6 +49,7 @@ device, or outside the repository, the script fails and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -50,6 +68,9 @@ KERNELS = {          # name -> (source, TPU kernel it replaces)
     "flash_attention": (
         CSRC + "flash_attention.cu",
         "mmada_parallel_tpu/ops/flash_attention.py:85"),
+    "flash_attention_rope_prefix": (
+        CSRC + "flash_attention_rope_prefix.cu",
+        "mmada_parallel_tpu/ops/rope_attention.py:298"),
 }
 
 # tolerances of the kernels against their plain versions on the card
@@ -64,6 +85,7 @@ BF16_TOL = dict(atol=1e-2, rtol=1e-2)
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
 
 EDIT_L, EDIT_H, EDIT_D = 2424, 32, 128
+TRAIN_L = 5120            # the A trainer's --max_seq_len
 
 
 def log(msg: str) -> None:
@@ -130,10 +152,12 @@ def phase_build() -> None:
 def _launch_counters():
     from mmada_parallel_torch.ops.flash_attention import flash_attention
     from mmada_parallel_torch.ops.rope_attention import (
-        flash_attention_rope, flash_attention_rope_qonly)
+        flash_attention_rope, flash_attention_rope_prefix,
+        flash_attention_rope_qonly)
     return {"flash_attention_rope": flash_attention_rope,
             "flash_attention_rope_qonly": flash_attention_rope_qonly,
-            "flash_attention": flash_attention}
+            "flash_attention": flash_attention,
+            "flash_attention_rope_prefix": flash_attention_rope_prefix}
 
 
 def reset_launches() -> None:
@@ -194,6 +218,20 @@ def _pad_bias(lengths, Lq: int, Lk: int, device):
         lengths, device=device)[:, None]
     pair = mq[:, :, None] & mk[:, None, :]
     return torch.where(pair[:, None], 0.0, -1e30).to(torch.float32)
+
+
+M_T2I_PAD = 200           # left padding of the M train batch's t2i row
+
+
+def _m_train_bias(L: int, device):
+    """The M train step's attention bias, as ``llada_hidden`` builds it from
+    ``forward_process``'s padding mask: ``[t2i | lm | mmu]`` rows, the t2i
+    row's first ``M_T2I_PAD`` positions padding."""
+    import torch
+    from mmada_parallel_torch.ops.masks import pairwise_padding_mask, to_bias
+    mask = torch.ones(3, L, dtype=torch.bool, device=device)
+    mask[0, :M_T2I_PAD] = False
+    return to_bias(pairwise_padding_mask(mask)).contiguous()
 
 
 def _kernel_case(name, B, Lq, Lk, H, KV, D, dtype, tol, gen, *,
@@ -257,12 +295,28 @@ def phase_kernel() -> dict:
     pos2 = (torch.cumsum(m2.long(), dim=1) - 1).clamp_min(0)
     b2 = torch.where((m2[:, :, None] & m2[:, None, :])[:, None], 0.0,
                      -1e30).to(f32).contiguous()
-    _kernel_case("d/f32", 2, 300, 300, 4, 2, 128, f32, F32_TOL, gen,
-                 bias=b2, per_row_pos=pos2)
-    _kernel_case("d/f32-D64", 1, 100, 260, 4, 4, 64, f32, F32_TOL, gen)
+    errs.append(_kernel_case("d/f32", 2, 300, 300, 4, 2, 128, f32, F32_TOL,
+                             gen, bias=b2, per_row_pos=pos2)[0])
+    errs.append(_kernel_case("d/f32-D64", 1, 100, 260, 4, 4, 64, f32,
+                             F32_TOL, gen)[0])
+    # (e) the A train step's attention (phase 5): B=1 at --max_seq_len,
+    # shared tables, no bias
+    e, ms_e, plain_e = _kernel_case("e/A-train", 1, TRAIN_L, TRAIN_L, H, H,
+                                    D, bf16, BF16_TOL, gen, timed=True)
+    errs.append(e)
+    # (f) the M train step's: [t2i | lm | mmu] B=3 at the interleave length,
+    # shared tables (forward_process passes no positions) and the pairwise
+    # padding bias llada_hidden builds, the t2i row left-padded
+    Lm = _m_sequence_length()
+    e, ms_f, plain_f = _kernel_case("f/M-train", 3, Lm, Lm, H, H, D, bf16,
+                                    BF16_TOL, gen, bias=_m_train_bias(Lm, dev),
+                                    timed=True)
+    errs.append(e)
     log(f"[kernel] K1 edit shape B=1: kernel {ms:.3f} ms plain "
         f"{plain_ms:.3f} ms; B=2: kernel {ms2:.3f} ms plain "
-        f"{plain_ms2:.3f} ms")
+        f"{plain_ms2:.3f} ms; A-train B=1 L={TRAIN_L}: kernel {ms_e:.3f} ms "
+        f"plain {plain_e:.3f} ms; M-train B=3 L={Lm}: kernel {ms_f:.3f} ms "
+        f"plain {plain_f:.3f} ms")
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms}
 
 
@@ -334,9 +388,11 @@ def phase_kernel_qonly() -> dict:
                           gen, bias=bias.contiguous())
     errs.append(e)
     # (e) f32 at small shapes, D=128 and D=64
-    _qonly_case("e/f32", 2, 40, 300, 4, 2, 128, f32, F32_TOL, gen,
-                bias=_pad_bias([300, 250], 40, 300, dev).contiguous())
-    _qonly_case("e/f32-D64", 1, 100, 260, 4, 4, 64, f32, F32_TOL, gen)
+    errs.append(_qonly_case(
+        "e/f32", 2, 40, 300, 4, 2, 128, f32, F32_TOL, gen,
+        bias=_pad_bias([300, 250], 40, 300, dev).contiguous())[0])
+    errs.append(_qonly_case("e/f32-D64", 1, 100, 260, 4, 4, 64, f32,
+                            F32_TOL, gen)[0])
     return {"max_abs_err": max(errs), "ms": ms_b, "plain_ms": plain_b}
 
 
@@ -380,10 +436,203 @@ def phase_kernel_blhd() -> dict:
     errs.append(e)
     e, _, _ = _blhd_case("c/gqa", 1, L, L, H, 8, D, bf16, BF16_TOL, gen)
     errs.append(e)
-    _blhd_case("d/f32", 2, 300, 300, 4, 2, 128, f32, F32_TOL, gen,
-               bias=_pad_bias([300, 250], 300, 300, dev).contiguous())
-    _blhd_case("d/f32-D64", 1, 100, 260, 4, 4, 64, f32, F32_TOL, gen)
+    errs.append(_blhd_case(
+        "d/f32", 2, 300, 300, 4, 2, 128, f32, F32_TOL, gen,
+        bias=_pad_bias([300, 250], 300, 300, dev).contiguous())[0])
+    errs.append(_blhd_case("d/f32-D64", 1, 100, 260, 4, 4, 64, f32, F32_TOL,
+                           gen)[0])
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms}
+
+
+def _prefix_case(name, B, Lq, Lk, H, KV, D, dtype, tol, gen, hi, *,
+                 timed=False):
+    """K4 vs plain on one shape with bounds ``hi`` [B, Lq]."""
+    import torch
+    from mmada_parallel_torch.ops.rope_attention import (
+        flash_attention_rope_prefix, flash_attention_rope_prefix_reference)
+    dev = torch.device("cuda")
+    q = torch.randn(B, Lq, H * D, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, Lk, KV * D, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, Lk, KV * D, generator=gen, device=dev).to(dtype)
+    sin, cos = _rope_tables(max(Lq, Lk), D, dev)
+    kw = dict(n_heads=H, n_kv_heads=KV)
+    desc = (f"B={B} Lq={Lq} Lk={Lk} H={H} KV={KV} D={D} "
+            f"{str(dtype).split('.')[-1]} bounds in "
+            f"[{int(hi.min())}, {int(hi.max())}]")
+    return _compare(
+        f"K4 {name}", desc,
+        lambda: flash_attention_rope_prefix(q, k, v, sin, cos, hi, **kw),
+        lambda: flash_attention_rope_prefix_reference(q, k, v, sin, cos, hi,
+                                                      **kw), tol, timed)
+
+
+def _causal_bounds(B, L, device):
+    from mmada_parallel_torch.ops.masks import prefix_bounds
+    return prefix_bounds(L, device=device)[None].expand(B, L).contiguous()
+
+
+def phase_kernel_prefix() -> dict:
+    """K4 against its plain version, and against K1 on the equivalent dense
+    bias (the crossover for ``rope_attention_prefix``'s ``auto``)."""
+    import torch
+    from mmada_parallel_torch.ops.masks import mixed_prefix_bounds
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bf16, f32 = torch.bfloat16, torch.float32
+    H, D, L = EDIT_H, EDIT_D, TRAIN_L
+    dev = torch.device("cuda")
+    errs = []
+    # (a) the A-train shape, causal bounds
+    e, ms, plain_ms = _prefix_case("a/A-train causal", 1, L, L, H, H, D,
+                                   bf16, BF16_TOL, gen,
+                                   _causal_bounds(1, L, dev), timed=True)
+    errs.append(e)
+    # (b) a mixed [t2i | lm | mmu] batch: t2i rows see the image span
+    # bidirectionally, mmu rows the whole 1056-token image prefix
+    hi = mixed_prefix_bounds(L, 1, 1, 1, ((1024, 2080),), 1056,
+                             device=dev).contiguous()
+    e, ms_b, plain_b = _prefix_case("b/mixed B=3", 3, L, L, H, H, D, bf16,
+                                    BF16_TOL, gen, hi, timed=True)
+    errs.append(e)
+    torch.cuda.empty_cache()
+    # (c) GQA 32/8, t2i bounds
+    hi = mixed_prefix_bounds(700, 1, 0, 0, ((100, 400),), 0, device=dev)
+    e, _, _ = _prefix_case("c/gqa", 1, 700, 700, H, 8, D, bf16, BF16_TOL,
+                           gen, hi.contiguous())
+    errs.append(e)
+    # (d) f32 at D=64, a mixed batch with GQA
+    errs.append(_prefix_case(
+        "d/f32-D64", 3, 300, 300, 4, 2, 64, f32, F32_TOL, gen,
+        mixed_prefix_bounds(300, 1, 1, 1, ((20, 140),), 60,
+                            device=dev).contiguous())[0])
+    # (e) bounds 0 and past Lk, random elsewhere; Lq != Lk from one table
+    hi = torch.randint(-3, 300, (2, 200), generator=gen, device=dev)
+    hi[0, :7] = 0
+    hi[1, :7] = 10_000
+    errs.append(_prefix_case("e/edge bounds", 2, 200, 260, 4, 4, 128, f32,
+                             F32_TOL, gen, hi.to(torch.int32))[0])
+    log(f"[kernel] K4 A-train causal B=1 L={L}: kernel {ms:.3f} ms plain "
+        f"{plain_ms:.3f} ms; mixed B=3: kernel {ms_b:.3f} ms plain "
+        f"{plain_b:.3f} ms")
+    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_prefix_crossover() -> int:
+    """K4 against K1 on the equivalent dense bias (causal, B=1) at the edit
+    and A-train lengths, then ``rope_attention_prefix(impl="auto")`` with a
+    backward at both: K1 below 4096 tokens, K4 from it, and no launch in
+    either backward.  Returns K4's launch count."""
+    import torch
+    from mmada_parallel_torch.ops.attention import (_prefix_dense_bias,
+                                                    rope_attention_prefix)
+    from mmada_parallel_torch.ops.masks import to_bias
+    from mmada_parallel_torch.ops.rope_attention import (
+        flash_attention_rope, flash_attention_rope_prefix)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dev = torch.device("cuda")
+    H, D = EDIT_H, EDIT_D
+    tensors = {}
+    for L in (EDIT_L, TRAIN_L):
+        q, k, v = (torch.randn(1, L, H * D, generator=gen, device=dev
+                               ).to(torch.bfloat16) for _ in range(3))
+        sin, cos = _rope_tables(L, D, dev)
+        hi = _causal_bounds(1, L, dev)
+        bias = to_bias(_prefix_dense_bias(hi, L)).contiguous()
+        kw = dict(n_heads=H, n_kv_heads=H)
+        k4 = time_ms(lambda: flash_attention_rope_prefix(q, k, v, sin, cos,
+                                                         hi, **kw))
+        k1 = time_ms(lambda: flash_attention_rope(q, k, v, sin, cos, bias,
+                                                  **kw))
+        log(f"[crossover] causal B=1 L={L} H={H} D={D} bf16: K4 bounds "
+            f"{k4:.3f} ms, K1 dense bias {k1:.3f} ms ({k1 / k4:.2f}x)")
+        tensors[L] = (q, k, v, sin, cos, hi)
+    launches = {}
+    for L, want in ((EDIT_L, {"flash_attention_rope": 1}),
+                    (TRAIN_L, {"flash_attention_rope_prefix": 1})):
+        q, k, v, sin, cos, hi = tensors[L]
+        q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+        reset_launches()
+        out = rope_attention_prefix(q, k, v, sin, cos, hi, n_heads=H,
+                                    n_kv_heads=H, impl="auto")
+        out.float().square().mean().backward()
+        torch.cuda.synchronize()
+        launches[L] = check_launches(f"auto prefix L={L}", want)
+        if not all(torch.isfinite(t.grad).all() for t in (q, k, v)):
+            raise AssertionError(f"auto prefix L={L}: gradients not finite")
+    log(f"[crossover] rope_attention_prefix(auto) forward + backward: "
+        f"L={EDIT_L} launches {launches[EDIT_L]}, L={TRAIN_L} launches "
+        f"{launches[TRAIN_L]}")
+    return launches[TRAIN_L]["flash_attention_rope_prefix"]
+
+
+def phase_kernel_grads() -> None:
+    """Each kernel's autograd Function (``impl="pallas"``): the forward
+    within the kernel's tolerance of plain autograd (``impl="xla"``), and
+    q/k/v gradients equal to it, since the backward recomputes the plain
+    chain (tolerance: the kernel's, because the gradients flow through the
+    same ``w`` either way and only the forward differs)."""
+    import torch
+    from mmada_parallel_torch.ops import attention as A
+    from mmada_parallel_torch.ops.masks import mixed_prefix_bounds
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    dev = torch.device("cuda")
+    for dtype, tol, B, L, H, KV, D in (
+            (torch.bfloat16, BF16_TOL, 2, 300, 8, 4, 128),
+            (torch.float32, F32_TOL, 2, 200, 4, 2, 64)):
+        sin, cos = _rope_tables(L, D, dev)
+        bias = _pad_bias([L, L - 50], L, L, dev).contiguous()
+        hi = mixed_prefix_bounds(L, 1, 0, 1, ((40, 120),), 80, device=dev)
+        sel = torch.sort(torch.randperm(L, generator=gen, device=dev)[:40]
+                         ).values
+        packed = ((B, L, H * D), (B, L, KV * D), (B, L, KV * D))
+        cases = {
+            "K1 rope_attention": (packed, lambda q, k, v, impl:
+                                  A.rope_attention(
+                                      q, k, v, sin, cos, bias, n_heads=H,
+                                      n_kv_heads=KV, impl=impl)),
+            "K2 rope_attention_qonly": (
+                ((B, 40, H * D),) + packed[1:], lambda q, k, v, impl:
+                A.rope_attention_qonly(q, k, v, sin[sel], cos[sel],
+                                       bias[:, :, sel].contiguous(),
+                                       n_heads=H, n_kv_heads=KV, impl=impl)),
+            "K3 dot_product_attention": (
+                ((B, L, H, D), (B, L, KV, D), (B, L, KV, D)),
+                lambda q, k, v, impl: A.dot_product_attention(
+                    q, k, v, bias, impl=impl)),
+            "K4 rope_attention_prefix": (packed, lambda q, k, v, impl:
+                                         A.rope_attention_prefix(
+                                             q, k, v, sin, cos, hi,
+                                             n_heads=H, n_kv_heads=KV,
+                                             impl=impl)),
+        }
+        for name, (shapes, fn) in cases.items():
+            xs = [torch.randn(*sh, generator=gen, device=dev).to(dtype)
+                  for sh in shapes]
+            w = torch.randn(*shapes[0], generator=gen, device=dev)
+            outs, grads = [], []
+            for impl in ("pallas", "xla"):
+                reset_launches()
+                ins = [x.detach().requires_grad_(True) for x in xs]
+                out = fn(*ins, impl)
+                (out.float() * w).sum().backward()
+                torch.cuda.synchronize()
+                launched = sum(read_launches().values())
+                if launched != (1 if impl == "pallas" else 0):
+                    raise AssertionError(f"{name} impl={impl}: {launched} "
+                                         f"launches, forward + backward")
+                outs.append(out.detach().float())
+                grads.append([t.grad.float() for t in ins])
+            errs = [(a - b).abs().max() for a, b in zip(
+                [outs[0], *grads[0]], [outs[1], *grads[1]])]
+            for a, b in zip([outs[0], *grads[0]], [outs[1], *grads[1]]):
+                if not torch.allclose(a, b, **tol):
+                    raise AssertionError(
+                        f"{name} {dtype}: Function and plain autograd "
+                        f"differ, max |err| out/dq/dk/dv "
+                        f"{[f'{float(e):.3e}' for e in errs]} ({tol})")
+            log(f"[grad] {name} {str(dtype).split('.')[-1]} "
+                f"{'x'.join(map(str, shapes[0]))}: one launch, max |err| "
+                f"out/dq/dk/dv {[f'{float(e):.3e}' for e in errs]} tol "
+                f"{tol}")
 
 
 # ---------------------------------------------------------------------------
@@ -517,6 +766,202 @@ def phase_small_slice() -> None:
     _token_exact("cached interleave",
                  lambda impl: interleave(impl_cfg(mcfg, impl), True),
                  ["flash_attention_rope_qonly"])
+
+
+def _a_train_batch(gen, rows: int, L: int):
+    """``rows`` variant-A SFT rows of length ``L``: instruction text, the user
+    image (32 x 32 codes with a newline after each row), then the answer:
+    ``<answer_start><boi>``, the answer image masked by ``mask_codes``,
+    ``<eoi>``, masked answer text, ``<answer_end>``.  Returns
+    ``(ids, labels, lengths)`` on the generator's device."""
+    import torch
+    from mmada_parallel_tpu import tokens as tk
+    from mmada_parallel_torch.training.masking import mask_codes
+    T = tk.TOKENS_A
+    dev = gen.device
+
+    def image(n_rows):
+        codes = torch.randint(0, T.codebook_size, (n_rows, 32, 32),
+                              generator=gen, device=dev) + T.text_vocab_size
+        nl = torch.full((n_rows, 32, 1), T.newline, device=dev)
+        return torch.cat([codes, nl], dim=2).reshape(n_rows, -1)
+
+    def text(n_rows, n):
+        return torch.randint(1000, 120000, (n_rows, n), generator=gen,
+                             device=dev)
+
+    def const(*ids):
+        return torch.tensor(ids, device=dev).expand(rows, len(ids))
+
+    ans_img, ans_img_lab = mask_codes(gen, image(rows), mask_token=T.mask)
+    ans_txt, ans_txt_lab = mask_codes(gen, text(rows, 256),
+                                      mask_token=T.mask)
+    tail = [const(T.answer_start, T.boi), ans_img, const(T.eoi), ans_txt,
+            const(T.answer_end)]
+    head_len = L - sum(t.shape[1] for t in tail) - 1056 - 2
+    head = [text(rows, head_len), const(T.boi), image(rows), const(T.eoi)]
+    ids = torch.cat(head + tail, dim=1)
+    ignore = [torch.full_like(t, -100) for t in head]
+    labels = torch.cat(ignore + [torch.full_like(tail[0], -100), ans_img_lab,
+                                 torch.full_like(tail[2], -100), ans_txt_lab,
+                                 torch.full_like(tail[4], -100)], dim=1)
+    assert ids.shape == (rows, L)
+    return ids, labels, torch.full((rows,), L, device=dev)
+
+
+def _train_a_steps(cfg, params, batch, n_steps: int, *, lr=2e-5, clip=4.0,
+                   accum=2):
+    """``n_steps`` steps of the A trainer's own step function on one batch;
+    returns (state, step function, per-step metrics, per-step seconds,
+    per-step launches, peak bytes)."""
+    import torch
+    from mmada_parallel_torch.cli.train_a import build_train_step
+    state, step, _ = build_train_step(
+        cfg, params, lr=lr, min_lr=0.0, wd=0.1, clip_grad=clip,
+        warmup_steps=0, total_steps=100, accum_steps=accum)
+    metrics, secs, launches = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.time()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.time() - t0)
+        launches.append(read_launches())
+        metrics.append({k: float(v) for k, v in m.items()})
+    return (state, step, metrics, secs, launches,
+            torch.cuda.max_memory_allocated())
+
+
+def phase_small_train() -> None:
+    """Three A train steps (AdamW, clip, 2 microbatches, remat) on a small
+    f32 model (head_dim 64): the kernel path's loss, grad norm and
+    parameters equal the plain attention path's.  Tolerance: the kernel's
+    f32 forward differs from the plain chain by summation order only
+    (~1e-6 relative), so loss and grad norm agree to rtol 1e-4.  AdamW
+    divides each gradient element by its own running magnitude, so an
+    element whose gradient is near 0 (|g| ~ eps = 1e-8) moves by up to
+    lr * g / (|g| + eps), and a 1e-10 change in it moves the parameter by
+    ~1 % of lr: parameters are held to 5 % of one lr-sized step (atol 5e-5
+    at lr 1e-3), against the ~3e-3 the 3 steps move them."""
+    import dataclasses
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cfg = dataclasses.replace(_small_llada(gen, 2048)[0], remat="whole_layer")
+    batch = (torch.randint(0, 2048, (4, 192), generator=gen, device="cuda"),)
+    batch += (torch.where(torch.rand(4, 192, generator=gen, device="cuda")
+                          < 0.3, batch[0], -100),
+              torch.full((4,), 192, device="cuda"))
+    runs = {}
+    for impl in ("auto", "xla"):
+        c = dataclasses.replace(cfg, attention_impl=impl)
+        params = _small_llada(torch.Generator(device="cuda").manual_seed(8),
+                              2048)[1]
+        runs[impl] = _train_a_steps(c, params, batch, 3, lr=1e-3, clip=1.0)
+    (sk, _, mk, _, lk, _), (sp, _, mp, _, lp, _) = runs["auto"], runs["xla"]
+    # 2 layers x 2 microbatches x (forward + remat recompute)
+    want = {n: 0 for n in KERNELS}
+    want["flash_attention_rope"] = cfg.n_layers * 2 * 2
+    if any(launches != want for launches in lk):
+        raise AssertionError(f"small train: launches {lk}, expected {want} "
+                             f"per step")
+    if any(sum(x.values()) for x in lp):
+        raise AssertionError("small train: the plain path launched kernels")
+    for a, b in zip(mk, mp):
+        for key in ("loss", "grad_norm"):
+            if abs(a[key] - b[key]) > 1e-4 * abs(b[key]):
+                raise AssertionError(f"small train: {key} {a[key]} (kernel) "
+                                     f"vs {b[key]} (plain)")
+    from mmada_parallel_torch.training.trainer import tree_leaves
+    pk = [t.detach() for t in tree_leaves(sk.params)]
+    pp = [t.detach() for t in tree_leaves(sp.params)]
+    worst = max(float((x - y).abs().max()) for x, y in zip(pk, pp))
+    moved = max(float((x - y).abs().max()) for x, y in zip(
+        pk, tree_leaves(_small_llada(
+            torch.Generator(device="cuda").manual_seed(8), 2048)[1])))
+    if worst > 5e-5:
+        raise AssertionError(f"small train: parameters differ after 3 "
+                             f"steps, max |err| {worst:.3e} (atol 5e-5)")
+    log(f"[train-small] 3 A steps, f32 head_dim 64, remat whole_layer, 2 "
+        f"microbatches: losses {[round(m['loss'], 6) for m in mk]} (kernel) "
+        f"vs {[round(m['loss'], 6) for m in mp]} (plain), grad norms "
+        f"{[round(m['grad_norm'], 6) for m in mk]} vs "
+        f"{[round(m['grad_norm'], 6) for m in mp]}, params max |err| "
+        f"{worst:.3e} (they moved by up to {moved:.3e}); K1 "
+        f"{want['flash_attention_rope']} launches per step")
+
+
+# ---------------------------------------------------------------------------
+# Profile: where a step's device time goes
+# ---------------------------------------------------------------------------
+
+# kernel classes by (lowercased) kernel name, first match wins.  TF32 is off,
+# so an f32 GEMM runs on the FMA pipes (``sgemm``, ``f32f32`` kernels) and a
+# tensor-core GEMM (``nvjet``, other ``gemm``) takes bf16 operands.
+_KERNEL_CLASSES = (
+    ("attention kernels K1-K4", ("attention_kernel",)),
+    ("f32 GEMMs (FMA)", ("sgemm", "f32f32")),
+    ("bf16 tensor-core GEMMs", ("nvjet", "gemm")),
+    ("softmax", ("softmax",)),
+    ("reductions", ("reduce",)),
+    ("elementwise, copies, other", ("",)),
+)
+
+
+def _profile(phase: str, fn, top: int = 6) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` (CPU and CUDA activity):
+    prints its device time by kernel class and its largest kernels, and the
+    device's idle share between its first and last kernel.  Returns
+    ``{class: ms}``.  Fails if no kernel was recorded."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation
+               and e.time_range.end > e.time_range.start]
+    if not kernels:
+        raise AssertionError(f"profile {phase}: no device time recorded")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:                  # union of the kernel intervals
+        if a > hi:
+            busy, lo = busy + hi - lo, a
+        hi = max(hi, b)
+    busy += hi - lo
+    first, last = spans[0][0], max(b for _, b in spans)
+    per_class = {name: 0.0 for name, _ in _KERNEL_CLASSES}
+    per_kernel = {}
+    for e in kernels:
+        us = e.time_range.end - e.time_range.start
+        low = e.name.lower()
+        cls = next(name for name, keys in _KERNEL_CLASSES
+                   if any(k in low for k in keys))
+        per_class[cls] += us / 1e3
+        n, t = per_kernel.get(e.name, (0, 0.0))
+        per_kernel[e.name] = (n + 1, t + us / 1e3)
+    total = sum(per_class.values())
+    log(f"[profile {phase}] one step, profiler on: host wall "
+        f"{wall * 1e3:.1f} ms; kernels {total:.1f} ms, device busy "
+        f"{busy / 1e3:.1f} ms of the {(last - first) / 1e3:.1f} ms from the "
+        f"first kernel to the last (idle "
+        f"{100 * (1 - busy / (last - first)):.2f} %)")
+    log(f"[profile {phase}] by class: " + "; ".join(
+        f"{name} {ms:.1f} ms ({100 * ms / total:.1f} %)"
+        for name, ms in sorted(per_class.items(), key=lambda x: -x[1])
+        if ms > 0))
+    for name, (n, ms) in sorted(per_kernel.items(),
+                                key=lambda x: -x[1][1])[:top]:
+        log(f"[profile {phase}]   {ms:9.1f} ms {100 * ms / total:5.1f} % "
+            f"x{n:<4d} {name[:110]}")
+    return per_class
 
 
 # ---------------------------------------------------------------------------
@@ -718,21 +1163,213 @@ def phase_cached_interleave(full) -> int:
     return launches["flash_attention_rope_qonly"]
 
 
+def _train_cfg(impl: str = "auto", remat: str = "whole_layer"):
+    """The 8B widths, cut to 4 of 32 layers: f32 params, bf16 compute."""
+    import torch
+    from mmada_parallel_torch.models.llada import LLaDAConfig
+    return LLaDAConfig.llada_8b(n_layers=4, param_dtype=torch.float32,
+                                compute_dtype=torch.bfloat16, remat=remat,
+                                attention_impl=impl)
+
+
+def _train_params(cfg):
+    """Random f32 params from seed 9, on the card."""
+    import torch
+    from mmada_parallel_torch.models.llada import init_llada_params
+    return init_llada_params(cfg, torch.Generator(device="cuda").manual_seed(9))
+
+
+# the A step's first loss and grad norm, kernel path against the plain
+# attention path: the end-to-end gate.  K1 itself is held element by element
+# against its plain version at this step's shape, and at the M step's, in
+# phase 2 (K1 cases e and f): the Function's backward recomputes the plain
+# chain, so the q/k/v gradients do not see the kernel's output, and a wrong
+# kernel reaches these two numbers only through later activations.  Both
+# compute in bf16; K1 rounds p to bf16 per key tile
+# before the online rescale, the plain chain after normalising, so an
+# attention output element differs by up to a bf16 ulp (2^-8 relative).
+# Those differences are independent across elements, and the loss averages
+# 2 x 5120 token losses and the grad norm sums 2 B squares, which shrinks
+# them by orders of magnitude: the first H100 run gave 1.7e-6 (loss) and
+# 8e-6 (grad norm) relative, and the limits keep a margin of 60x and 120x.
+A_LOSS_RTOL, A_GRAD_NORM_RTOL = 1e-4, 1e-3
+
+
+def phase_train_a() -> dict:
+    """The A SFT step of ``cli/train_a.py`` at full width, 4 layers: the
+    plain attention path's first step, then 3 steps through K1."""
+    import gc
+    import torch
+    from mmada_parallel_torch.models.llada import count_params
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    batch = _a_train_batch(gen, 2, TRAIN_L)       # 2 microbatches of B=1
+    tokens = batch[0].numel()
+
+    plain_state, plain_step, mp, sp, lp, peak_p = _train_a_steps(
+        _train_cfg("xla"), _train_params(_train_cfg("xla")), batch, 3)
+    if any(sum(x.values()) for x in lp):
+        raise AssertionError("train-a: the plain path launched kernels")
+    _profile("train-a plain", lambda: plain_step(plain_state, batch))
+    del plain_state, plain_step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = _train_cfg("auto")
+    params = _train_params(cfg)
+    n_params = count_params(params)
+    state, step, mk, sk, lk, peak = _train_a_steps(cfg, params, batch, 3)
+    want = {n: 0 for n in KERNELS}
+    # 4 layers x 2 microbatches x (forward + remat recompute); the
+    # Function's backward recomputes the plain chain and launches nothing
+    want["flash_attention_rope"] = cfg.n_layers * 2 * 2
+    if any(x != want for x in lk):
+        raise AssertionError(f"train-a: launches per step {lk}, expected "
+                             f"{want}")
+    if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+               and m["nonfinite"] == 0 for m in mk):
+        raise AssertionError(f"train-a: non-finite step {mk}")
+    for key, rtol in (("loss", A_LOSS_RTOL),
+                      ("grad_norm", A_GRAD_NORM_RTOL)):
+        a, b = mk[0][key], mp[0][key]
+        if abs(a - b) > rtol * abs(b):
+            raise AssertionError(f"train-a: first-step {key} {a} (K1) vs {b}"
+                                 f" (plain), rtol {rtol}")
+    log(f"[train-a] LLaDA-8B widths, 4 of 32 layers ({n_params / 1e9:.3f} B "
+        f"params f32, bf16 compute), AdamW + clip 4.0, B=1 x 2 microbatches "
+        f"x L={TRAIN_L}, remat whole_layer; first step loss "
+        f"{mk[0]['loss']:.6f} (K1) vs {mp[0]['loss']:.6f} (plain), grad norm "
+        f"{mk[0]['grad_norm']:.6f} vs {mp[0]['grad_norm']:.6f}; losses "
+        f"{[round(m['loss'], 6) for m in mk]} (K1) "
+        f"{[round(m['loss'], 6) for m in mp]} (plain); K1 launches per step "
+        f"{want['flash_attention_rope']}")
+    # steps 2-3 of each: the first pays the allocator's and cuBLAS's warm-up
+    best_k, best_p = min(sk[1:]), min(sp[1:])
+    log(f"[train-a] s/step {[round(x, 3) for x in sk]} (K1), "
+        f"{[round(x, 3) for x in sp]} (plain); tokens/s "
+        f"{tokens / best_k:.1f} (K1), {tokens / best_p:.1f} (plain), best of "
+        f"steps 2-3: K1 {100 * (best_k / best_p - 1):+.1f} % s/step against "
+        f"plain; peak {peak / 2 ** 30:.2f} GiB (K1), "
+        f"{peak_p / 2 ** 30:.2f} GiB (plain)")
+    _profile("train-a K1", lambda: step(state, batch))
+    return {"state": state, "cfg": cfg}
+
+
+def _m_train_batch(gen, L: int):
+    """A padded ``[t2i | lm | mmu]`` batch at length ``L``: each row is
+    text (``L - 1026`` ids) then ``<soi>``, 1024 image tokens, ``<eoi>``.
+    ``interleave_noising`` masks the image of the t2i and lm rows and the
+    text of every row; the lm/mmu losses are weighted by the mask
+    probability it drew; the t2i row is left-padded over its first 200
+    positions.  Returns the ``forward_process`` arguments."""
+    import torch
+    from mmada_parallel_tpu import tokens as tk
+    from mmada_parallel_torch.ops.sampling import cosine_schedule
+    from mmada_parallel_torch.training.masking import interleave_noising
+    T = tk.TOKENS_M
+    dev = gen.device
+    n_text = L - 1026
+    img = torch.randint(0, T.codebook_size, (3, 1024), generator=gen,
+                        device=dev) + T.vq_offset
+    text = torch.randint(1000, 120000, (3, n_text), generator=gen,
+                         device=dev)
+    nimg, ilab, ntext, tlab, t = interleave_noising(gen, img, text,
+                                                    mask_token=T.mask)
+    p_mask = torch.cos(cosine_schedule(t).clamp_min(1e-3) * math.pi / 2)
+    nimg[2], ilab[2] = img[2], -100                 # mmu: the image is given
+    tlab[0] = -100                                   # t2i: no text loss
+    ilab[1] = -100                                   # lm: no image loss
+    soi = torch.full((3, 1), T.soi, device=dev)
+    eoi = torch.full((3, 1), T.eoi, device=dev)
+    ids = torch.cat([ntext, soi, nimg, eoi], dim=1)
+    ign = torch.full((3, 1), -100, device=dev)
+    labels = torch.cat([tlab, ign, ilab, ign], dim=1)
+    t2i_masks = torch.ones(1, L, dtype=torch.bool, device=dev)
+    t2i_masks[0, :M_T2I_PAD] = False
+    ids[0, :M_T2I_PAD] = T.eos
+    labels[0, :M_T2I_PAD] = -100
+    return dict(input_ids=ids, labels=labels, batch_size_t2i=1,
+                batch_size_lm=1, batch_size_mmu=1, max_seq_length=n_text,
+                t2i_masks=t2i_masks, p_mask_lm=p_mask[1:2, None],
+                p_mask_mmu=p_mask[2:3, None],
+                answer_lengths_mmu=torch.full((1, 1), n_text, device=dev))
+
+
+def phase_train_m(a_run: dict) -> None:
+    """One M ``forward_process`` step at full width (4 layers, no remat) on
+    the A run's state: K1 runs once per layer with the t2i rows' pairwise
+    padding bias."""
+    import dataclasses
+    import torch
+    from mmada_parallel_torch.training.m_tasks import forward_process
+    from mmada_parallel_torch.training.trainer import (OptimizerConfig,
+                                                       make_optimizer,
+                                                       make_train_step)
+    L = _m_sequence_length()
+    cfg = dataclasses.replace(a_run["cfg"], remat="none")
+    state = a_run["state"]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    batch = _m_train_batch(gen, L)
+
+    def loss_fn(params, b, generator):
+        out = forward_process(params, cfg, **b)
+        loss = out["loss_t2i"] + out["loss_lm"] + out["loss_mmu"]
+        return loss, out
+
+    opt = make_optimizer(OptimizerConfig(lr=1e-4, grad_clip=4.0),
+                         state.params)
+    step = make_train_step(loss_fn, opt)
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.time()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.time() - t0)
+        check_launches("train-m", {"flash_attention_rope": cfg.n_layers})
+        vals = {k: float(v) for k, v in m.items()}
+        if not (all(math.isfinite(x) for x in vals.values())
+                and vals["nonfinite"] == 0):
+            raise AssertionError(f"train-m: non-finite step {vals}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[train-m] forward_process [t2i | lm | mmu] B=3 x L={L} (t2i row "
+        f"left-padded by {M_T2I_PAD}, interleave_noising on the card), 4 of "
+        f"32 layers, no remat: losses t2i {vals['loss_t2i']:.6f} lm "
+        f"{vals['loss_lm']:.6f} mmu {vals['loss_mmu']:.6f}, grad norm "
+        f"{vals['grad_norm']:.6f}; K1 launches per step {cfg.n_layers}")
+    log(f"[train-m] s/step {[round(x, 3) for x in secs]}, tokens/s "
+        f"{3 * L / secs[-1]:.1f} (second step), peak {peak / 2 ** 30:.2f} "
+        f"GiB")
+    _profile("train-m", lambda: step(state, batch))
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     import torch
+    import gc
     device = phase_device()
     phase_build()
     records = {"flash_attention_rope": phase_kernel(),
                "flash_attention_rope_qonly": phase_kernel_qonly(),
-               "flash_attention": phase_kernel_blhd()}
+               "flash_attention": phase_kernel_blhd(),
+               "flash_attention_rope_prefix": phase_kernel_prefix()}
+    prefix_launches = phase_prefix_crossover()
+    phase_kernel_grads()
     phase_small_slice()
+    phase_small_train()
     full = make_full_width(torch.Generator(device="cuda").manual_seed(0))
     launches = {"flash_attention_rope": phase_edit(full),
                 "flash_attention": phase_edit_lowprec_rope(full),
-                "flash_attention_rope_qonly": phase_cached_edit(full)}
+                "flash_attention_rope_qonly": phase_cached_edit(full),
+                "flash_attention_rope_prefix": prefix_launches}
     phase_interleave(full)
     phase_cached_interleave(full)
+    del full                      # the training phases need the memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    a_run = phase_train_a()
+    phase_train_m(a_run)
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches[name],
                 **records[name]}

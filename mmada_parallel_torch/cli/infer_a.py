@@ -1,6 +1,8 @@
 """TI2TI inference CLI (variant A) on PyTorch/CUDA.
 
-The flags of :mod:`mmada_parallel_tpu.cli.infer_a`; loads the HF checkpoint
+The flags of :mod:`mmada_parallel_tpu.cli.infer_a`, plus ``--device``
+(default ``cuda``; a missing card raises, the run does not move to the
+CPU).  Loads the HF checkpoint
 and the Amused-VQ ``vqvae`` subfolder through the port's converters and runs
 the exact sampler.  ``transformers`` and PIL are imported inside
 :func:`main` and :func:`load_pipeline`.
@@ -44,11 +46,13 @@ def build_parser():
                    help="edit-type-specific prompt/system template: e.g. "
                         "edit, canny_dense, control, subject, ref_transfer, "
                         "multi_view_left")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device to run on (cpu for the tests)")
     return p
 
 
-def load_pipeline(checkpoint: str, vae_ckpt: str, dtype="bfloat16",
-                  device=None):
+def load_pipeline(checkpoint: str, vae_ckpt: str, device: str,
+                  dtype="bfloat16"):
     import dataclasses
 
     import torch
@@ -57,8 +61,6 @@ def load_pipeline(checkpoint: str, vae_ckpt: str, dtype="bfloat16",
     from mmada_parallel_torch.models import convert as CV
     from mmada_parallel_torch.pipeline import TI2TIPipeline
 
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
     tdt = {"bfloat16": torch.bfloat16, "float32": torch.float32}[dtype]
     tokenizer = AutoTokenizer.from_pretrained(checkpoint,
                                               trust_remote_code=True)
@@ -84,7 +86,7 @@ def main(argv=None):
 
     args = build_parser().parse_args(argv)
     os.makedirs(args.output_dir, exist_ok=True)
-    pipe = load_pipeline(args.checkpoint, args.vae_ckpt)
+    pipe = load_pipeline(args.checkpoint, args.vae_ckpt, args.device)
 
     opts = TI2TIOptions(
         text_steps=args.text_steps, timesteps=args.timesteps,

@@ -1,7 +1,8 @@
 """Interleave inference CLI (variant M) on PyTorch/CUDA.
 
 The ``key=value`` flags and defaults of :mod:`mmada_parallel_tpu.cli.infer_m`,
-plus ``use_cache``: walk ``interleave_root`` for (image, ``.txt``
+plus ``use_cache`` and ``device`` (default ``cuda``; a missing card raises,
+the run does not move to the CPU): walk ``interleave_root`` for (image, ``.txt``
 instruction) pairs and run interleave generation.  The backbone loads through
 the port's ``load_llada_checkpoint``, the VQ through
 ``magvit_params_from_torch``.  ``yaml`` (through the shared config loader),
@@ -34,11 +35,12 @@ DEFAULTS = {
     "resolution": 512,
     "seed": 42,
     "use_cache": False,
+    "device": "cuda",
 }
 
 
-def load_pipeline(checkpoint: str, vq_checkpoint: str, dtype="bfloat16",
-                  device=None):
+def load_pipeline(checkpoint: str, vq_checkpoint: str, device: str,
+                  dtype="bfloat16"):
     import torch
     from transformers import AutoTokenizer
 
@@ -46,8 +48,6 @@ def load_pipeline(checkpoint: str, vq_checkpoint: str, dtype="bfloat16",
     from mmada_parallel_torch.models.magvit2 import MagvitConfig
     from mmada_parallel_torch.pipeline import InterleavePipeline
 
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
     tdt = {"bfloat16": torch.bfloat16, "float32": torch.float32}[dtype]
     tokenizer = AutoTokenizer.from_pretrained(checkpoint,
                                               trust_remote_code=True)
@@ -93,7 +93,7 @@ def main(argv=None):
     from mmada_parallel_torch.samplers.interleave import InterleaveOptions
 
     cfg = parse_config(argv)
-    pipe = load_pipeline(cfg.checkpoint, cfg.vq_checkpoint)
+    pipe = load_pipeline(cfg.checkpoint, cfg.vq_checkpoint, cfg.device)
     pipe.max_seq_length = cfg.max_seq_length
     pipe.num_vq_tokens = cfg.num_vq_tokens
     pipe.resolution = cfg.resolution

@@ -1,19 +1,25 @@
 // Packed bidirectional flash attention for Hopper (sm_90a), shared by the
-// three attention kernels of the port.  One template, two compile-time flags:
+// four attention kernels of the port.  One template, three compile-time
+// flags:
 //
-//   kRopeQ  rotate q on load (f32 Neox RoPE from sin_q/cos_q tables);
-//   kRopeK  rotate k on load (from sin_k/cos_k tables).
+//   kRopeQ    rotate q on load (f32 Neox RoPE from sin_q/cos_q tables);
+//   kRopeK    rotate k on load (from sin_k/cos_k tables);
+//   kPrefix   mask with per-row key bounds kv_hi [B, Lq] in place of a bias:
+//             row i attends to keys kv < clamp(kv_hi[b, i], 1, Lk), and key
+//             tiles past the q tile's highest bound are never loaded.
 //
-//   flash_attention_rope.cu        K1  kRopeQ, kRopeK   (pre-RoPE q and k)
-//   flash_attention_rope_qonly.cu  K2  kRopeQ           (k pre-rotated cache)
-//   flash_attention.cu             K3  neither          (BLHD, no RoPE)
+//   flash_attention_rope.cu         K1  kRopeQ, kRopeK     (pre-RoPE q and k)
+//   flash_attention_rope_qonly.cu   K2  kRopeQ             (k pre-rotated)
+//   flash_attention.cu              K3  none               (BLHD, no RoPE)
+//   flash_attention_rope_prefix.cu  K4  kRopeQ, kRopeK, kPrefix
 //
 // Contract of the template:
 //
 //   q [B, Lq, H*D], k/v [B, Lk, KV*D], bf16 or f32 (a contiguous BLHD
 //   [B, L, H, D] tensor is the same memory as packed [B, L, H*D]);
 //   sin/cos f32 tables [L, D] (shared) or [B, L, D] (per-row positions);
-//   optional additive f32 bias [B, 1, Lq, Lk];
+//   optional additive f32 bias [B, 1, Lq, Lk], or with kPrefix int32 bounds
+//   kv_hi [B, Lq] (no bias);
 //   out[b, i, h*D:(h+1)*D] = softmax(q'_h . k'_g^T * D^-1/2 + bias) . v_g
 //   with g = h / (H / KV) (GQA), q' / k' rotated or read as stored.
 //
@@ -24,13 +30,19 @@
 // divided out at the end.  Key columns >= Lk are skipped by bounds checks, so
 // a row whose bias is -1e30 everywhere returns mean(v) over the Lk real keys,
 // exactly as the plain reference does (the TPU kernels pad keys to 128).
+// With kPrefix a masked key is skipped the same way (p = 0); a row's bound is
+// at least 1, so key 0 is always in its first tile and no row is fully
+// masked.  That is the dense reference with bias 0 / -1e30 exactly, since
+// exp(-1e30 - m) is 0 in f32.
 //
 // What bounds it on this card: at the edit shape (L ~ 2424, H = 32, D = 128)
 // the Q.K^T and P.V products are 4*B*H*Lq*Lk*D ~ 96 GFLOP per batch row,
 // against ~40 MB of q/k/v traffic, so it is compute bound.  K/V tiles are
 // re-read once per 64-row q tile, which the 50 MB L2 absorbs.  At the cached
 // samplers' partial shapes (Lq = 16..308 against Lk ~ 2400) the grid is only
-// ceil(Lq/64) * B * H blocks, too few for 132 SMs.
+// ceil(Lq/64) * B * H blocks, too few for 132 SMs.  With kPrefix (K4) the
+// work of a q tile is proportional to its highest bound: a causal mask costs
+// about half of the dense product, and the tiles of one grid finish unevenly.
 //
 // What this first design does about it: one thread block per (b*h, 64 q rows),
 // 256 threads; the (rotated) Q tile stays in shared memory, K/V stream through
@@ -117,14 +129,15 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
-template <typename T, int D, bool kRopeQ, bool kRopeK>
+template <typename T, int D, bool kRopeQ, bool kRopeK, bool kPrefix>
 __global__ void __launch_bounds__(kThreads)
 attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ sin_q,
                  const float* __restrict__ cos_q,
                  const float* __restrict__ sin_k,
                  const float* __restrict__ cos_k,
-                 const float* __restrict__ bias, T* __restrict__ out, int Lq,
+                 const float* __restrict__ bias,
+                 const int* __restrict__ kv_hi, T* __restrict__ out, int Lq,
                  int Lk, int H, int KV, long long tq_bstride,
                  long long tk_bstride, float scale) {
   constexpr int P = D + 1;            // padded row: conflict-free column reads
@@ -133,6 +146,8 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   static_assert(kBlockQ * PS <= kBlockK * P, "P tile must fit in the K tile");
 
   extern __shared__ float smem[];
+  __shared__ int his[kBlockQ];        // kPrefix: clamped bound of each row
+  __shared__ int hi_max;              // kPrefix: the tile's highest bound
   float* Qs = smem;                   // [kBlockQ][P] q (rotated if kRopeQ)
   float* Ks = Qs + kBlockQ * P;       // [kBlockK][P] k (rotated if kRopeK)
   float* Vs = Ks + kBlockK * P;       // [kBlockK][P] v
@@ -158,6 +173,23 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float* ck = kRopeK ? cos_k + b * tk_bstride : nullptr;
   const float* bias_b = bias ? bias + (long long)b * Lq * Lk : nullptr;
 
+  // keys this tile reads: all Lk, or up to its highest prefix bound
+  int k_end = Lk;
+  if constexpr (kPrefix) {
+    if (tid == 0) hi_max = 1;
+    __syncthreads();
+    if (tid < kBlockQ) {
+      const int row = q0 + tid;
+      // rows past Lq are never written; bound 1 keeps them defined
+      const int hi = row < Lq
+          ? min(max(kv_hi[(long long)b * Lq + row], 1), Lk) : 1;
+      his[tid] = hi;
+      atomicMax(&hi_max, hi);
+    }
+    __syncthreads();
+    k_end = hi_max;
+  }
+
   for (int i = tid; i < kBlockQ * D; i += kThreads) {
     const int r = i / D, d = i % D;
     const int row = q0 + r;
@@ -176,7 +208,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < kCols; ++c) o[i][c] = 0.f;
   }
 
-  for (int k0 = 0; k0 < Lk; k0 += kBlockK) {
+  for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
     __syncthreads();  // previous tile's P/V reads are done (and Q is loaded)
     for (int i = tid; i < kBlockK * D; i += kThreads) {
       const int r = i / D, d = i % D;
@@ -213,25 +245,29 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = q0 + ty * 4 + i;
+      // key columns of this row: < Lk, or < its bound (which is <= Lk)
+      const int col_end = kPrefix ? his[ty * 4 + i] : Lk;
       float tile_max = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx + 16 * j;
-        if (col < Lk) {
+        if (col < col_end) {
           float x = s[i][j] * scale;
           if (bias_b && row < Lq) x += bias_b[(long long)row * Lk + col];
           s[i][j] = x;
           tile_max = fmaxf(tile_max, x);
         }
       }
-      // column k0 is always a real key, so the tile max is finite
+      // the first tile holds key 0, which every row attends to, so m_new is
+      // finite from the first tile on (a later tile may be all masked for
+      // this row: its max is -inf and m_new stays m[i])
       const float m_new = fmaxf(m[i], half_warp_max(tile_max));
       const float alpha = expf(m[i] - m_new);  // 0 on the first tile
       float row_sum = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx + 16 * j;
-        const float p = col < Lk ? expf(s[i][j] - m_new) : 0.f;
+        const float p = col < col_end ? expf(s[i][j] - m_new) : 0.f;
         row_sum += p;
         Ps[(ty * 4 + i) * PS + tx + 16 * j] = round_to<T>(p);
       }
@@ -267,50 +303,54 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D, bool kRopeQ, bool kRopeK>
+template <typename T, int D, bool kRopeQ, bool kRopeK, bool kPrefix>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* sin_q, const float* cos_q, const float* sin_k,
-                   const float* cos_k, const float* bias, void* out, int B,
-                   int Lq, int Lk, int H, int KV, long long tq_bstride,
-                   long long tk_bstride, float scale, cudaStream_t stream) {
+                   const float* cos_k, const float* bias, const int* kv_hi,
+                   void* out, int B, int Lq, int Lk, int H, int KV,
+                   long long tq_bstride, long long tk_bstride, float scale,
+                   cudaStream_t stream) {
   const int smem = (kBlockQ + 2 * kBlockK) * (D + 1) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<T, D, kRopeQ, kRopeK>,
+      attention_kernel<T, D, kRopeQ, kRopeK, kPrefix>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Lq + kBlockQ - 1) / kBlockQ, B * H);
-  attention_kernel<T, D, kRopeQ, kRopeK><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), sin_q, cos_q, sin_k, cos_k, bias,
-      static_cast<T*>(out), Lq, Lk, H, KV, tq_bstride, tk_bstride, scale);
+  attention_kernel<T, D, kRopeQ, kRopeK, kPrefix>
+      <<<grid, kThreads, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), sin_q, cos_q, sin_k, cos_k, bias, kv_hi,
+          static_cast<T*>(out), Lq, Lk, H, KV, tq_bstride, tk_bstride,
+          scale);
   return cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16; D in {64, 128}.  Returns the
-// cudaError_t of the launch (0 on success).
-template <bool kRopeQ, bool kRopeK>
+// dtype: 0 = float32, 1 = bfloat16; D in {64, 128}.  kv_hi is read only
+// with kPrefix, bias only without it.  Returns the cudaError_t of the launch
+// (0 on success).
+template <bool kRopeQ, bool kRopeK, bool kPrefix = false>
 int dispatch(const void* q, const void* k, const void* v, const float* sin_q,
              const float* cos_q, const float* sin_k, const float* cos_k,
-             const float* bias, void* out, int B, int Lq, int Lk, int H,
-             int KV, int D, long long tq_bstride, long long tk_bstride,
-             float scale, int dtype, void* stream) {
+             const float* bias, const int* kv_hi, void* out, int B, int Lq,
+             int Lk, int H, int KV, int D, long long tq_bstride,
+             long long tk_bstride, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && D == 128)
-    return (int)launch<__nv_bfloat16, 128, kRopeQ, kRopeK>(
-        q, k, v, sin_q, cos_q, sin_k, cos_k, bias, out, B, Lq, Lk, H, KV,
-        tq_bstride, tk_bstride, scale, s);
+    return (int)launch<__nv_bfloat16, 128, kRopeQ, kRopeK, kPrefix>(
+        q, k, v, sin_q, cos_q, sin_k, cos_k, bias, kv_hi, out, B, Lq, Lk, H,
+        KV, tq_bstride, tk_bstride, scale, s);
   if (dtype == 1 && D == 64)
-    return (int)launch<__nv_bfloat16, 64, kRopeQ, kRopeK>(
-        q, k, v, sin_q, cos_q, sin_k, cos_k, bias, out, B, Lq, Lk, H, KV,
-        tq_bstride, tk_bstride, scale, s);
+    return (int)launch<__nv_bfloat16, 64, kRopeQ, kRopeK, kPrefix>(
+        q, k, v, sin_q, cos_q, sin_k, cos_k, bias, kv_hi, out, B, Lq, Lk, H,
+        KV, tq_bstride, tk_bstride, scale, s);
   if (dtype == 0 && D == 128)
-    return (int)launch<float, 128, kRopeQ, kRopeK>(
-        q, k, v, sin_q, cos_q, sin_k, cos_k, bias, out, B, Lq, Lk, H, KV,
-        tq_bstride, tk_bstride, scale, s);
+    return (int)launch<float, 128, kRopeQ, kRopeK, kPrefix>(
+        q, k, v, sin_q, cos_q, sin_k, cos_k, bias, kv_hi, out, B, Lq, Lk, H,
+        KV, tq_bstride, tk_bstride, scale, s);
   if (dtype == 0 && D == 64)
-    return (int)launch<float, 64, kRopeQ, kRopeK>(
-        q, k, v, sin_q, cos_q, sin_k, cos_k, bias, out, B, Lq, Lk, H, KV,
-        tq_bstride, tk_bstride, scale, s);
+    return (int)launch<float, 64, kRopeQ, kRopeK, kPrefix>(
+        q, k, v, sin_q, cos_q, sin_k, cos_k, bias, kv_hi, out, B, Lq, Lk, H,
+        KV, tq_bstride, tk_bstride, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -20,6 +20,6 @@ extern "C" int mmada_flash_attention(const void* q, const void* k,
                                      int KV, int D, float scale, int dtype,
                                      void* stream) {
   return dispatch<false, false>(q, k, v, nullptr, nullptr, nullptr, nullptr,
-                                bias, out, B, Lq, Lk, H, KV, D, 0, 0, scale,
-                                dtype, stream);
+                                bias, nullptr, out, B, Lq, Lk, H, KV, D, 0, 0,
+                                scale, dtype, stream);
 }

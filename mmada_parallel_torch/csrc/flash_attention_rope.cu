@@ -19,7 +19,7 @@ extern "C" int mmada_flash_attention_rope(
     const float* bias, void* out, int B, int Lq, int Lk, int H, int KV, int D,
     long long tq_bstride, long long tk_bstride, float scale, int dtype,
     void* stream) {
-  return dispatch<true, true>(q, k, v, sin_q, cos_q, sin_k, cos_k, bias, out,
-                              B, Lq, Lk, H, KV, D, tq_bstride, tk_bstride,
-                              scale, dtype, stream);
+  return dispatch<true, true>(q, k, v, sin_q, cos_q, sin_k, cos_k, bias,
+                              nullptr, out, B, Lq, Lk, H, KV, D, tq_bstride,
+                              tk_bstride, scale, dtype, stream);
 }

@@ -23,6 +23,6 @@ extern "C" int mmada_flash_attention_rope_qonly(
     int H, int KV, int D, long long tq_bstride, float scale, int dtype,
     void* stream) {
   return dispatch<true, false>(q, k, v, sin_q, cos_q, nullptr, nullptr, bias,
-                               out, B, Lq, Lk, H, KV, D, tq_bstride, 0, scale,
-                               dtype, stream);
+                               nullptr, out, B, Lq, Lk, H, KV, D, tq_bstride,
+                               0, scale, dtype, stream);
 }

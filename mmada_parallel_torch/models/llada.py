@@ -1,4 +1,4 @@
-"""LLaDA masked-diffusion transformer backbone, forward only, in PyTorch.
+"""LLaDA masked-diffusion transformer backbone in PyTorch.
 
 Counterpart of :mod:`mmada_parallel_tpu.models.llada`: bidirectional
 attention, GQA, Neox RoPE, RMSNorm, SwiGLU-gated MLP, united text+image vocab
@@ -6,6 +6,12 @@ head.  Parameters are a plain dict whose names and shapes map 1:1 to the JAX
 pytree: per-layer weights stack on a leading ``[n_layers, ...]`` axis and
 linear weights keep the ``[d_in, d_out]`` layout, applied as ``x @ w``.  The
 layer stack is a Python loop over that axis (the JAX ``lax.scan``).
+
+The forwards are differentiable: f32 parameters are cast to
+``compute_dtype`` inside them, so their gradients come back in f32, and
+``remat`` checkpoints layers (``torch.utils.checkpoint``) as the JAX
+``jax.checkpoint`` strategies do.  The inference pipelines run them under
+``torch.inference_mode()``; nothing here turns grad off.
 
 Attention goes through :func:`mmada_parallel_torch.ops.attention.rope_attention`
 (and, for the feature-cached forwards, ``rope_attention_qonly``), which
@@ -21,6 +27,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from mmada_parallel_torch.ops.attention import (rope_attention,
                                                  rope_attention_qonly)
@@ -67,7 +74,7 @@ class LLaDAConfig:
     # --- execution policy (not part of the checkpoint contract) ---
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
-    remat: str = "none"                       # forward only: "none"
+    remat: str = "none"                       # "none" | "whole_layer" | "one_in_{two,three,four}"
     attention_impl: str = "auto"              # "auto" | "xla" | "pallas"
 
     @property
@@ -335,10 +342,19 @@ def llada_hidden(params: Dict[str, Any], cfg: LLaDAConfig,
     ``attn_mask``: optional ``[B, L]`` bool padding mask (True = real),
     folded into a pairwise f32 0 / -1e30 bias.  ``position_ids``: optional
     ``[B, L]`` per-row RoPE positions.  Out-of-range ids are clamped into the
-    embedding, as the JAX ``mode="clip"`` gather does."""
-    if cfg.remat != "none":
-        raise NotImplementedError("remat is a training option; the port is "
-                                  "forward only (remat='none')")
+    embedding, as the JAX ``mode="clip"`` gather does.
+
+    ``cfg.remat``: ``whole_layer`` recomputes each layer in backward;
+    ``one_in_{two,three,four}`` checkpoints only every k-th layer boundary
+    (groups of k layers recompute together) and needs ``n_layers``
+    divisible by k."""
+    group = _REMAT_GROUPS.get(cfg.remat)
+    if group is None:
+        raise ValueError(f"unknown remat strategy: {cfg.remat}")
+    if group > 1 and cfg.n_layers % group != 0:
+        raise ValueError(
+            f"remat={cfg.remat!r} needs n_layers divisible by {group} "
+            f"(got {cfg.n_layers}); use 'whole_layer' instead")
     cdt = cfg.compute_dtype
     B, L = input_ids.shape
     wte = params["wte"]
@@ -357,10 +373,26 @@ def llada_hidden(params: Dict[str, Any], cfg: LLaDAConfig,
         attn_bias = to_bias(pairwise_padding_mask(attn_mask))
 
     blocks = params["blocks"]
-    for i in range(cfg.n_layers):
-        lp = {name: p[i] for name, p in blocks.items()}
-        x = _block(x, lp, cfg, sin, cos, attn_bias)
+
+    def layers(x, start: int, stop: int):
+        for i in range(start, stop):
+            x = _block(x, {name: p[i] for name, p in blocks.items()}, cfg,
+                       sin, cos, attn_bias)
+        return x
+
+    step = max(group, 1)
+    for start in range(0, cfg.n_layers, step):
+        stop = start + step
+        if group == 0:
+            x = layers(x, start, stop)
+        else:
+            x = checkpoint(layers, x, start, stop, use_reentrant=False)
     return _norm(x, params["ln_f"], cfg)
+
+
+# layers per checkpointed group (0: no checkpointing), as in the JAX package
+_REMAT_GROUPS = {"none": 0, "whole_layer": 1, "one_in_two": 2,
+                 "one_in_three": 3, "one_in_four": 4}
 
 
 def llada_head(params: Dict[str, Any], cfg: LLaDAConfig,

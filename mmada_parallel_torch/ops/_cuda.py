@@ -38,6 +38,8 @@ _SIGNATURES = {
         [_P] * 7 + [_I] * 6 + [_LL, _F, _I, _P], _I),
     "mmada_flash_attention": (
         [_P] * 5 + [_I] * 6 + [_F, _I, _P], _I),
+    "mmada_flash_attention_rope_prefix": (
+        [_P] * 9 + [_I] * 6 + [_LL, _LL, _F, _I, _P], _I),
 }
 
 

@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from mmada_parallel_torch.ops.rope_attention import (_KERNEL_DTYPES,
+                                                     check_no_grad,
                                                      check_packed)
 
 __all__ = ["flash_attention"]
@@ -25,6 +26,7 @@ __all__ = ["flash_attention"]
 
 def _launch(q, k, v, bias):
     from mmada_parallel_torch.ops import _cuda
+    check_no_grad("flash_attention", q, k, v, bias)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.ndim != 4 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous [B, L, heads, D] "

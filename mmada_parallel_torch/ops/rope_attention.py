@@ -1,8 +1,8 @@
 """Fused-RoPE packed attention: the CUDA kernel wrappers and their plain
 versions.
 
-Counterpart of :mod:`mmada_parallel_tpu.ops.rope_attention`.  Its two TPU
-kernels on the inference path are ported as hand-written CUDA kernels:
+Counterpart of :mod:`mmada_parallel_tpu.ops.rope_attention`.  Its three TPU
+kernels are ported as hand-written CUDA kernels:
 
 * ``flash_attention_rope`` (K1, q and k rotated on load) as
   ``csrc/flash_attention_rope.cu``; :func:`flash_attention_rope` is its
@@ -10,7 +10,16 @@ kernels on the inference path are ported as hand-written CUDA kernels:
   version (reshape -> fp32 RoPE -> eager softmax attention -> reshape);
 * ``flash_attention_rope_qonly`` (K2, q rotated, k a pre-rotated cache) as
   ``csrc/flash_attention_rope_qonly.cu``; :func:`flash_attention_rope_qonly`
-  and :func:`flash_attention_rope_qonly_reference`.
+  and :func:`flash_attention_rope_qonly_reference`;
+* ``flash_attention_rope_prefix`` (K4, K1 with a per-row prefix mask
+  ``kv < kv_hi[b, q]`` in place of a bias, skipping key tiles past a q
+  tile's highest bound) as ``csrc/flash_attention_rope_prefix.cu``;
+  :func:`flash_attention_rope_prefix` and
+  :func:`flash_attention_rope_prefix_reference`.
+
+The raw launchers return tensors with no autograd history; they raise when
+grad is enabled and an input requires grad, so that gradients go through
+the ``torch.autograd.Function`` wrappers in :mod:`.attention`.
 
 The plain versions run for CPU tensors and are the oracles the kernels are
 held to.  On CUDA the packed ``[B, L, H*D]`` layout is only a stride, so the
@@ -25,7 +34,9 @@ import torch
 
 __all__ = ["rope_tensor", "apply_rope", "flash_attention_rope",
            "flash_attention_rope_reference", "flash_attention_rope_qonly",
-           "flash_attention_rope_qonly_reference"]
+           "flash_attention_rope_qonly_reference",
+           "flash_attention_rope_prefix",
+           "flash_attention_rope_prefix_reference"]
 
 NEG_INF = -1e30
 _KERNEL_HEAD_DIMS = (64, 128)
@@ -137,8 +148,21 @@ def check_packed(q, k, v, bias, H: int, KV: int):
     return B, Lq, Lk, D
 
 
+def check_no_grad(name: str, *tensors) -> None:
+    """Raise if autograd would need a gradient through a raw kernel launch:
+    its output has no history, so the gradient would be silently lost."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the raw CUDA launch returns a tensor with no autograd "
+            f"history, and an input requires grad; call it through "
+            f"mmada_parallel_torch.ops.attention (whose autograd Functions "
+            f"give it a backward) or under torch.no_grad()")
+
+
 def _launch(q, k, v, sin_q, cos_q, sin_k, cos_k, bias, H: int, KV: int):
     from mmada_parallel_torch.ops import _cuda
+    check_no_grad("flash_attention_rope", q, k, v, sin_q, cos_q, bias)
     B, Lq, Lk, D = check_packed(q, k, v, bias, H, KV)
     tq = _check_table("sin_q", sin_q, B, Lq, D, q.device)
     _check_table("cos_q", cos_q, B, Lq, D, q.device)
@@ -164,6 +188,7 @@ def _launch(q, k, v, sin_q, cos_q, sin_k, cos_k, bias, H: int, KV: int):
 
 def _launch_qonly(q, k, v, sin_q, cos_q, bias, H: int, KV: int):
     from mmada_parallel_torch.ops import _cuda
+    check_no_grad("flash_attention_rope_qonly", q, k, v, sin_q, cos_q, bias)
     B, Lq, Lk, D = check_packed(q, k, v, bias, H, KV)
     tq = _check_table("sin_q", sin_q, B, Lq, D, q.device)
     _check_table("cos_q", cos_q, B, Lq, D, q.device)
@@ -259,3 +284,93 @@ def flash_attention_rope_qonly(q: torch.Tensor, k: torch.Tensor,
 
 
 flash_attention_rope_qonly.launches = 0
+
+
+def _check_bounds(kv_hi, B: int, Lq: int, device) -> torch.Tensor:
+    if tuple(kv_hi.shape) != (B, Lq):
+        raise ValueError(f"kv_hi must be [B={B}, Lq={Lq}] per-row bounds, "
+                         f"got {tuple(kv_hi.shape)}")
+    if kv_hi.dtype.is_floating_point or kv_hi.dtype == torch.bool:
+        raise ValueError(f"kv_hi must be an integer tensor, got "
+                         f"{kv_hi.dtype}")
+    return kv_hi.to(device=device, dtype=torch.int32).contiguous()
+
+
+def flash_attention_rope_prefix_reference(q: torch.Tensor, k: torch.Tensor,
+                                          v: torch.Tensor,
+                                          sin: torch.Tensor,
+                                          cos: torch.Tensor,
+                                          kv_hi: torch.Tensor, *,
+                                          n_heads: int,
+                                          n_kv_heads: Optional[int] = None
+                                          ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`flash_attention_rope_prefix`, same
+    arguments, any device: the dense bias of the clamped bounds
+    (``ops.attention._prefix_dense_bias``) into the packed fp32-RoPE chain."""
+    from mmada_parallel_torch.ops.attention import _prefix_dense_bias
+    from mmada_parallel_torch.ops.masks import to_bias
+    _check_bounds(kv_hi, q.shape[0], q.shape[1], kv_hi.device)
+    bias = to_bias(_prefix_dense_bias(kv_hi, k.shape[1]))
+    return flash_attention_rope_reference(q, k, v, sin, cos, bias,
+                                          n_heads=n_heads,
+                                          n_kv_heads=n_kv_heads)
+
+
+def _launch_prefix(q, k, v, sin_q, cos_q, sin_k, cos_k, kv_hi, H: int,
+                   KV: int):
+    from mmada_parallel_torch.ops import _cuda
+    check_no_grad("flash_attention_rope_prefix", q, k, v, sin_q, cos_q)
+    B, Lq, Lk, D = check_packed(q, k, v, None, H, KV)
+    hi = _check_bounds(kv_hi, B, Lq, q.device)
+    tq = _check_table("sin_q", sin_q, B, Lq, D, q.device)
+    _check_table("cos_q", cos_q, B, Lq, D, q.device)
+    tk = _check_table("sin_k", sin_k, B, Lk, D, q.device)
+    _check_table("cos_k", cos_k, B, Lk, D, q.device)
+    if cos_q.shape != sin_q.shape or cos_k.shape != sin_k.shape:
+        raise ValueError("sin and cos tables must have one shape")
+    out = torch.empty_like(q)
+    lib = _cuda.library()
+    with torch.cuda.device(q.device):
+        err = lib.mmada_flash_attention_rope_prefix(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), sin_q.data_ptr(),
+            cos_q.data_ptr(), sin_k.data_ptr(), cos_k.data_ptr(),
+            hi.data_ptr(), out.data_ptr(), B, Lq, Lk, H, KV, D, tq, tk,
+            D ** -0.5, _KERNEL_DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_rope_prefix CUDA launch failed: "
+                           f"cudaError_t {err}")
+    flash_attention_rope_prefix.launches += 1
+    return out
+
+
+def flash_attention_rope_prefix(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, sin: torch.Tensor,
+                                cos: torch.Tensor, kv_hi: torch.Tensor, *,
+                                n_heads: int, n_kv_heads: Optional[int] = None
+                                ) -> torch.Tensor:
+    """Prefix-masked packed attention: :func:`flash_attention_rope` with the
+    per-row mask ``kv < clip(kv_hi[b, q], 1, Lk)`` in place of a bias.
+
+    ``kv_hi`` is an integer ``[B, Lq]`` (``masks.prefix_bounds`` /
+    ``mixed_prefix_bounds``); the kernel skips every key tile past a q
+    tile's highest bound, so a causal mask costs about half of the dense
+    one.  ``sin``/``cos`` as for :func:`flash_attention_rope` (per-row
+    ``[B, L, D]`` tables only when Lq == Lk).  A CUDA tensor launches the
+    kernel (bf16 or f32, D in {64, 128}, any Lk and GQA ratio) and raises on
+    anything it does not take; a CPU tensor runs
+    :func:`flash_attention_rope_prefix_reference`.
+    ``flash_attention_rope_prefix.launches`` counts kernel launches."""
+    H = n_heads
+    KV = n_kv_heads if n_kv_heads is not None else H
+    if q.device.type == "cpu":
+        return flash_attention_rope_prefix_reference(
+            q, k, v, sin, cos, kv_hi, n_heads=H, n_kv_heads=KV)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_rope_prefix runs on cuda or cpu, "
+                         f"not {q.device}")
+    tables = _split_tables(sin, cos, q.shape[1], k.shape[1])
+    return _launch_prefix(q, k, v, *tables, kv_hi, H, KV)
+
+
+flash_attention_rope_prefix.launches = 0

@@ -249,9 +249,10 @@ def test_magvit_safetensors_roundtrip(tmp_path):
 def test_infer_cli_keeps_the_jax_flags(tmp_path):
     from mmada_parallel_tpu.cli import infer_m as jcli
     from mmada_parallel_torch.cli import infer_m as tcli
-    assert {k: v for k, v in tcli.DEFAULTS.items() if k != "use_cache"} \
-        == jcli.DEFAULTS
+    assert {k: v for k, v in tcli.DEFAULTS.items()
+            if k not in ("use_cache", "device")} == jcli.DEFAULTS
     assert tcli.DEFAULTS["use_cache"] is False
+    assert tcli.DEFAULTS["device"] == "cuda"
     path = tmp_path / "m.yaml"
     path.write_text(json.dumps({"text_steps": 64, "image_steps": 10}))
     cfg = tcli.parse_config([f"config={path}", "use_cache=true",

@@ -114,9 +114,17 @@ def test_random_init_shapes_and_errors():
         {k: ({n: tuple(t.shape) for n, t in v.items()} if isinstance(v, dict)
              else tuple(v.shape)) for k, v in p.items()}
     assert TL.count_params(p) == JL.count_params(jp)
-    with pytest.raises(NotImplementedError):
+    ids = torch.zeros(1, 4, dtype=torch.long)
+    with pytest.raises(ValueError, match="unknown remat"):
+        TL.llada_hidden(p, dataclasses.replace(cfg, remat="sometimes"), ids)
+    with pytest.raises(ValueError, match="divisible by 3"):
+        TL.llada_hidden(p, dataclasses.replace(cfg, remat="one_in_three"),
+                        ids)
+    # remat is a training option now; the forward is unchanged by it
+    np.testing.assert_array_equal(
         TL.llada_hidden(p, dataclasses.replace(cfg, remat="whole_layer"),
-                        torch.zeros(1, 4, dtype=torch.long))
+                        ids).detach().numpy(),
+        TL.llada_hidden(p, cfg, ids).numpy())
     quantized = dict(p, head={"w_q": p["head"], "scale": p["head"]})
     with pytest.raises(NotImplementedError):
         TL.llada_head(quantized, cfg, torch.zeros(1, 64))

@@ -6,7 +6,8 @@ tiny generations on the CPU with an array image (PIL is installed here, so
 its absence from ``sys.modules`` shows the path never imported it), and
 reports what got imported.  The paths: the exact and the cached
 ``TI2TIPipeline`` edit, and the exact and the cached ``InterleavePipeline``
-with an array already at the resolution."""
+with an array already at the resolution; and a tiny variant-A train step
+(with remat, masking, the M forward and the task bounds)."""
 
 import json
 import os
@@ -107,6 +108,59 @@ def test_port_main_path_imports_no_jax_and_no_pil():
         assert len(m["codes"][0]) == 64
         assert all(0 <= c < 16 for c in m["codes"][0])
         assert isinstance(m["text"], str) and m["text"]
+
+
+TRAIN_SCRIPT = r"""
+import importlib.abc, json, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib"):
+            raise ImportError(f"{name} is blocked here")
+        return None
+
+sys.meta_path.insert(0, Block())
+
+import dataclasses
+import torch
+torch.set_num_threads(1)
+from mmada_parallel_torch.cli.train_a import build_train_step
+from mmada_parallel_torch.models.llada import LLaDAConfig, init_llada_params
+from mmada_parallel_torch.ops.masks import mixed_prefix_bounds
+from mmada_parallel_torch.training import checkpoint, ema, m_tasks, masking
+
+g = torch.Generator().manual_seed(0)
+cfg = LLaDAConfig.tiny(vocab_size=512, remat="whole_layer")
+state, step, _ = build_train_step(
+    cfg, init_llada_params(cfg, g), lr=1e-3, min_lr=0.0, wd=0.1,
+    clip_grad=4.0, warmup_steps=1, total_steps=4, accum_steps=2)
+codes = torch.randint(0, 512, (4, 24), generator=g)
+ids, labels = masking.mask_codes(g, codes, mask_token=cfg.mask_token_id)
+losses = []
+for _ in range(2):
+    state, metrics = step(state, (ids, labels, torch.full((4,), 24)))
+    losses.append(float(metrics["loss"]))
+m = m_tasks.forward_process(state.params, cfg, ids, labels, 1, 2, 1, 8)
+print(json.dumps({
+    "jax": sorted(m for m in sys.modules if m.split(".")[0] in
+                  ("jax", "jaxlib")),
+    "losses": losses, "step": state.step,
+    "m_losses": sorted(m), "bounds": list(mixed_prefix_bounds(
+        6, 1, 1, 1, ((1, 3),), 2).shape)}))
+"""
+
+
+def test_train_step_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", TRAIN_SCRIPT], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["jax"] == [] and res["step"] == 2
+    assert all(0 < x < 20 for x in res["losses"])
+    assert res["m_losses"] == ["loss_lm", "loss_mmu", "loss_t2i"]
+    assert res["bounds"] == [3, 6]
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
