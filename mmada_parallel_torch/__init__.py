@@ -10,15 +10,14 @@ kernels for Hopper under ``csrc/``, built with ``nvcc`` at their first CUDA
 call and bound with ``ctypes`` (:mod:`mmada_parallel_torch.ops._cuda`), each
 behind an autograd Function whose backward recomputes the plain chain.
 
-Framework-free host code is imported from the JAX package rather than copied:
-:mod:`mmada_parallel_tpu.tokens` and :mod:`mmada_parallel_tpu.utils.image`
-(neither imports ``jax``), and inside the CLIs' ``main`` only
-:mod:`mmada_parallel_tpu.config` (variant M; it needs ``yaml``) and
-:mod:`mmada_parallel_tpu.data` / :mod:`mmada_parallel_tpu.utils.logging`
-(the A trainer's data pipeline and metric logging).  Nothing else of
-``mmada_parallel_tpu`` is imported here.
+The port imports nothing of the JAX package, not even its framework-free
+host modules: it keeps its own copies of them at the same relative paths
+(:mod:`.tokens`, :mod:`.config`, :mod:`.utils.image`, :mod:`.utils.logging`
+and the A trainer's :mod:`.data`), held against their originals by
+``tests/test_torch_host_modules.py``.  ``tests/test_torch_no_jax.py`` runs
+its paths with ``jax`` and ``mmada_parallel_tpu`` blocked.
 """
 
 __version__ = "0.1.0"
 
-from mmada_parallel_tpu import tokens  # noqa: F401
+from mmada_parallel_torch import tokens  # noqa: F401

@@ -81,7 +81,7 @@ def load_pipeline(checkpoint: str, vae_ckpt: str, device: str,
 def main(argv=None):
     from PIL import Image
 
-    from mmada_parallel_tpu.utils.image import preprocess_image
+    from mmada_parallel_torch.utils.image import preprocess_image
     from mmada_parallel_torch.samplers.parallel_ti2ti import TI2TIOptions
 
     args = build_parser().parse_args(argv)
@@ -98,7 +98,7 @@ def main(argv=None):
     prompt = args.prompt
     pipe_kw = {}
     if args.edit_type:
-        from mmada_parallel_tpu import tokens as tk
+        from mmada_parallel_torch import tokens as tk
         if "multiturn" in args.edit_type:
             raise SystemExit(
                 "--edit_type *_multiturn_* needs a list of turns; use "

@@ -73,9 +73,9 @@ def load_pipeline(checkpoint: str, vq_checkpoint: str, device: str,
 
 def parse_config(argv=None):
     """``config=path.yaml`` plus ``key=value`` overrides over
-    :data:`DEFAULTS` (the shared loader of the JAX package, which needs
-    ``yaml``: imported here, reached from :func:`main` only)."""
-    from mmada_parallel_tpu.config import load_config
+    :data:`DEFAULTS` (the port's copy of the JAX package's loader, which
+    needs ``yaml``: imported here, reached from :func:`main` only)."""
+    from mmada_parallel_torch.config import load_config
     argv = list(sys.argv[1:] if argv is None else argv)
     path = None
     overrides = []

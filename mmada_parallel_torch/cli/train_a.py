@@ -136,13 +136,13 @@ def _padcat(micro, k: int):
 def main(argv=None):
     import torch
 
-    from mmada_parallel_tpu.data.dataset import (LengthClusteredSampler,
-                                                 MetaDataset)
-    from mmada_parallel_tpu.data.item_processor import AItemProcessor
-    from mmada_parallel_tpu.utils.logging import MetricLogger, ScalarWriter
+    from mmada_parallel_torch.data.dataset import (LengthClusteredSampler,
+                                                   MetaDataset)
+    from mmada_parallel_torch.data.item_processor import AItemProcessor
     from mmada_parallel_torch.models.llada import (LLaDAConfig,
                                                    init_llada_params)
     from mmada_parallel_torch.training.checkpoint import CheckpointManager
+    from mmada_parallel_torch.utils.logging import MetricLogger, ScalarWriter
 
     args = build_parser().parse_args(argv)
     if (args.mesh_fsdp != 1 or args.mesh_tensor != 1 or args.tp_ring

@@ -184,7 +184,7 @@ def amused_img_span(encode_fn, cfg: AmusedVQConfig, pixels, tokens):
     counterpart takes the PIL image and converts it itself); ``encode_fn``
     maps it to ``[1, h*w]`` codes."""
     import numpy as np
-    from mmada_parallel_tpu import tokens as tk
+    from mmada_parallel_torch import tokens as tk
 
     codes = np.asarray(encode_fn(pixels))[0]
     h = pixels.shape[1] // cfg.scale

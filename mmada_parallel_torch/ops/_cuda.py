@@ -33,7 +33,8 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 # stream as c_void_p, or ctypes would cut them to 32 bits)
 _SIGNATURES = {
     "mmada_flash_attention_rope": (
-        [_P] * 9 + [_I] * 6 + [_LL, _LL, _F, _I, _P], _I),
+        [_P] * 11 + [_I] * 6 + [_LL, _LL, _F, _I, _P], _I),
+    "mmada_rope_rotate": ([_P] * 4 + [_I] * 4 + [_LL, _P], _I),
     "mmada_flash_attention_rope_qonly": (
         [_P] * 7 + [_I] * 6 + [_LL, _F, _I, _P], _I),
     "mmada_flash_attention": (

@@ -7,8 +7,9 @@ plain PyTorch version is ``ops.attention._xla_attention``, which CPU tensors
 run and which the kernel is held to.
 
 A contiguous ``[B, L, H, D]`` tensor is the same memory as packed
-``[B, L, H*D]``, so the kernel shares K1's template with RoPE off and reads
-the heads in place.
+``[B, L, H*D]``, so the kernel reads the heads in place.  bf16 runs the
+tensor-core body ``csrc/attention_mma.cuh`` (shared with K1), f32 the FMA
+template ``csrc/attention_kernel.cuh`` with RoPE off.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Optional
 import torch
 
 from mmada_parallel_torch.ops.rope_attention import (_KERNEL_DTYPES,
+                                                     check_aligned,
                                                      check_no_grad,
                                                      check_packed)
 
@@ -38,6 +40,9 @@ def _launch(q, k, v, bias):
                          f"{list(k.shape)} and {list(v.shape)}")
     packed = [t.view(t.shape[0], t.shape[1], -1) for t in (q, k, v)]
     B, Lq, Lk, D = check_packed(*packed, bias, H, KV)
+    if q.dtype == torch.bfloat16:               # the tensor-core body
+        check_aligned("flash_attention", 16, q, k, v)
+        check_aligned("flash_attention", 8, bias)
     out = torch.empty_like(q)
     lib = _cuda.library()
     with torch.cuda.device(q.device):
@@ -58,9 +63,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``[B, Lq, H, D] x [B, Lk, KV, D] -> [B, Lq, H, D]``, non-causal.
 
     ``bias`` is an optional additive f32 ``[B, 1, Lq, Lk]``.  A CUDA tensor
-    launches the kernel (bf16 or f32, D in {64, 128}, contiguous inputs, any
-    Lq, Lk and GQA ratio) and raises on anything it does not take; a CPU
-    tensor runs the plain ``_xla_attention``.  ``flash_attention.launches``
+    launches the kernel (bf16 on the tensor cores or f32 on the FMA pipes,
+    D in {64, 128}, contiguous inputs, any Lq, Lk and GQA ratio) and raises
+    on anything it does not take; a CPU tensor runs the plain
+    ``_xla_attention``.  ``flash_attention.launches``
     counts kernel launches."""
     if q.device.type == "cpu":
         from mmada_parallel_torch.ops.attention import _xla_attention

@@ -4,10 +4,14 @@ versions.
 Counterpart of :mod:`mmada_parallel_tpu.ops.rope_attention`.  Its three TPU
 kernels are ported as hand-written CUDA kernels:
 
-* ``flash_attention_rope`` (K1, q and k rotated on load) as
+* ``flash_attention_rope`` (K1, q and k rotated in f32) as
   ``csrc/flash_attention_rope.cu``; :func:`flash_attention_rope` is its
   wrapper and :func:`flash_attention_rope_reference` its plain PyTorch
-  version (reshape -> fp32 RoPE -> eager softmax attention -> reshape);
+  version (reshape -> fp32 RoPE -> eager softmax attention -> reshape).  In
+  bf16 it rotates q and k once per call into scratch tensors
+  (:func:`rope_rotate` runs that pre-pass alone) and runs the tensor-core
+  body ``csrc/attention_mma.cuh``; in f32 it rotates on load in the FMA
+  template ``csrc/attention_kernel.cuh``;
 * ``flash_attention_rope_qonly`` (K2, q rotated, k a pre-rotated cache) as
   ``csrc/flash_attention_rope_qonly.cu``; :func:`flash_attention_rope_qonly`
   and :func:`flash_attention_rope_qonly_reference`;
@@ -32,7 +36,8 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["rope_tensor", "apply_rope", "flash_attention_rope",
+__all__ = ["rope_tensor", "apply_rope", "rope_rotate",
+           "flash_attention_rope",
            "flash_attention_rope_reference", "flash_attention_rope_qonly",
            "flash_attention_rope_qonly_reference",
            "flash_attention_rope_prefix",
@@ -148,6 +153,17 @@ def check_packed(q, k, v, bias, H: int, KV: int):
     return B, Lq, Lk, D
 
 
+def check_aligned(name: str, align: int, *tensors) -> None:
+    """Raise unless every tensor's data starts on an ``align``-byte boundary:
+    the bf16 tensor-core body and the rotation pre-pass load 16 bytes at a
+    time (8 for the f32 bias rows)."""
+    for t in tensors:
+        if t is not None and t.data_ptr() % align:
+            raise ValueError(f"{name}: the bf16 CUDA kernel needs "
+                             f"{align}-byte aligned inputs (a fresh or "
+                             f".clone()d tensor is)")
+
+
 def check_no_grad(name: str, *tensors) -> None:
     """Raise if autograd would need a gradient through a raw kernel launch:
     its output has no history, so the gradient would be silently lost."""
@@ -170,19 +186,62 @@ def _launch(q, k, v, sin_q, cos_q, sin_k, cos_k, bias, H: int, KV: int):
     _check_table("cos_k", cos_k, B, Lk, D, q.device)
     if cos_q.shape != sin_q.shape or cos_k.shape != sin_k.shape:
         raise ValueError("sin and cos tables must have one shape")
+    q_rot = k_rot = None
+    if q.dtype == torch.bfloat16:
+        # the tensor-core body: q and k rotated once into bf16 scratch
+        check_aligned("flash_attention_rope", 16, q, k, v, sin_q, cos_q,
+                      sin_k, cos_k)
+        check_aligned("flash_attention_rope", 8, bias)
+        q_rot, k_rot = torch.empty_like(q), torch.empty_like(k)
     out = torch.empty_like(q)
     lib = _cuda.library()
     with torch.cuda.device(q.device):
         err = lib.mmada_flash_attention_rope(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), sin_q.data_ptr(),
             cos_q.data_ptr(), sin_k.data_ptr(), cos_k.data_ptr(),
-            bias.data_ptr() if bias is not None else None, out.data_ptr(),
+            bias.data_ptr() if bias is not None else None,
+            q_rot.data_ptr() if q_rot is not None else None,
+            k_rot.data_ptr() if k_rot is not None else None, out.data_ptr(),
             B, Lq, Lk, H, KV, D, tq, tk, D ** -0.5, _KERNEL_DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_rope CUDA launch failed: "
                            f"cudaError_t {err}")
     flash_attention_rope.launches += 1
+    return out
+
+
+def rope_rotate(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor, *,
+                n_heads: int) -> torch.Tensor:
+    """K1's bf16 rotation pre-pass on its own: packed ``x [B, L, n_heads*D]``
+    rotated with the f32 Neox tables ``sin``/``cos`` (``[L, D]`` or
+    ``[B, L, D]``) and rounded to ``x``'s dtype.  A CPU tensor runs
+    :func:`rope_tensor` (``full_precision=True``), which the kernel equals bit
+    for bit; a CUDA tensor must be bf16 with D in {64, 128}.  K1 runs this
+    pass inside its own call, so it counts no launch of its own."""
+    from mmada_parallel_torch.ops import _cuda
+    B, L, HD = x.shape
+    D = HD // n_heads
+    sin, cos = sin.float(), cos.float()
+    if x.device.type == "cpu":
+        return rope_tensor(x.reshape(B, L, n_heads, D), sin, cos,
+                           True).reshape(B, L, HD)
+    if x.dtype != torch.bfloat16 or D not in _KERNEL_HEAD_DIMS \
+            or HD != n_heads * D or not x.is_contiguous():
+        raise ValueError(f"rope_rotate on CUDA takes contiguous bf16 "
+                         f"[B, L, H*D] with D in {_KERNEL_HEAD_DIMS}, got "
+                         f"{x.dtype} {list(x.shape)}, n_heads={n_heads}")
+    tb = _check_table("sin", sin, B, L, D, x.device)
+    _check_table("cos", cos, B, L, D, x.device)
+    check_aligned("rope_rotate", 16, x, sin, cos)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = _cuda.library().mmada_rope_rotate(
+            x.data_ptr(), sin.data_ptr(), cos.data_ptr(), out.data_ptr(), B,
+            L, n_heads, D, tb, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rope_rotate CUDA launch failed: cudaError_t "
+                           f"{err}")
     return out
 
 
@@ -220,10 +279,12 @@ def flash_attention_rope(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``sin``/``cos`` are the fp32 Neox tables ``[L, D]`` or ``[B, L, D]``;
     ``bias`` an optional additive f32 ``[B, 1, Lq, Lk]``.  A CUDA tensor
-    launches the kernel (bf16 or f32, D in {64, 128}, any Lk and GQA ratio)
-    and raises on anything the kernel does not take; a CPU tensor runs
+    launches the kernel (bf16: rotation pre-pass + tensor-core body; f32:
+    the FMA template; D in {64, 128}, any Lq, Lk and GQA ratio) and raises on
+    anything the kernel does not take; a CPU tensor runs
     :func:`flash_attention_rope_reference`.  ``flash_attention_rope.launches``
-    counts kernel launches."""
+    counts calls that launched the kernel (one per call, whatever the number
+    of CUDA kernels the call starts)."""
     H = n_heads
     KV = n_kv_heads if n_kv_heads is not None else H
     tables = _split_tables(sin, cos, q.shape[1], k.shape[1])

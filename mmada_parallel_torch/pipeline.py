@@ -22,7 +22,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from mmada_parallel_tpu import tokens as tk
+from mmada_parallel_torch import tokens as tk
 from mmada_parallel_torch.models import amused_vq as AVQ
 from mmada_parallel_torch.models import magvit2 as MVQ
 from mmada_parallel_torch.models.llada import LLaDAConfig
@@ -42,7 +42,7 @@ def _pixels01(image) -> np.ndarray:
     or a PIL image."""
     if isinstance(image, np.ndarray):
         return image.astype(np.float32)[None] / 255.0
-    from mmada_parallel_tpu.utils.image import image_to_array
+    from mmada_parallel_torch.utils.image import image_to_array
     return image_to_array(image, "zero_one")
 
 
@@ -77,7 +77,7 @@ class TI2TIPipeline:
                               mask_w_ratio: float,
                               mask_mode: str = "inpainting") -> list:
         """Painting-mode span (no boi/eoi)."""
-        from mmada_parallel_tpu.utils import image as IM
+        from mmada_parallel_torch.utils import image as IM
         px = _pixels01(img)
         H, W = px.shape[1], px.shape[2]
         codes = self._encode(px)[0]
@@ -118,7 +118,7 @@ class TI2TIPipeline:
         uncond_ids = self.tokenizer(uncond_txt)["input_ids"]
 
         if isinstance(image, str):
-            from mmada_parallel_tpu.utils import image as IM
+            from mmada_parallel_torch.utils import image as IM
             image = IM.preprocess_image(image)
         input_img_token = self.encode_img_with_breaks(image)
         con_input = prompt_ids[:-1] + input_img_token + prompt_ids[-1:]
@@ -157,7 +157,7 @@ class TI2TIPipeline:
         pixels = self.decode_vq_to_pixels(codes, height, width)
         out_img = None
         if not isinstance(image, np.ndarray):
-            from mmada_parallel_tpu.utils import image as IM
+            from mmada_parallel_torch.utils import image as IM
             out_img = IM.array_to_image(pixels)
         return out_img, text, {"elapsed": elapsed, "layout": layout,
                                "codes": codes, "ids": fin.cpu().numpy(),
@@ -172,7 +172,7 @@ def _pixels_pm_one(image, resolution: int) -> np.ndarray:
     if isinstance(image, np.ndarray) and image.shape[:2] == (resolution,
                                                              resolution):
         return image.astype(np.float32)[None] / 255.0 * 2.0 - 1.0
-    from mmada_parallel_tpu.utils import image as IM
+    from mmada_parallel_torch.utils import image as IM
     if isinstance(image, np.ndarray):
         from PIL import Image
         image = Image.fromarray(image)
@@ -277,7 +277,7 @@ class InterleavePipeline:
         pixels = self.decode_codes_to_pixels(codes)
         out_img = None
         if not isinstance(image, np.ndarray):
-            from mmada_parallel_tpu.utils import image as IM
+            from mmada_parallel_torch.utils import image as IM
             out_img = IM.array_to_image(pixels)
         return out_img, text, {"elapsed": elapsed, "layout": layout,
                                "codes": codes, "ids": fin,

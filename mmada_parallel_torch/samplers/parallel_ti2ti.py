@@ -25,7 +25,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from mmada_parallel_tpu.tokens import SequenceLayout
+from mmada_parallel_torch.tokens import SequenceLayout
 from mmada_parallel_torch.models.llada import (LLaDAConfig, llada_head,
                                                llada_hidden,
                                                llada_hidden_partial,

@@ -1,0 +1,221 @@
+"""The port's copies of the JAX package's framework-free host modules
+(``tokens``, ``utils/image``, ``config``, ``utils/logging`` and the A
+trainer's ``data``) give what their originals give on the same inputs.
+
+The port imports nothing of ``mmada_parallel_tpu``; these tests may, to hold
+each copy against the module it was copied from."""
+
+import dataclasses
+import json
+import pickle
+import random
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from mmada_parallel_torch import config as PC
+from mmada_parallel_torch import tokens as PT
+from mmada_parallel_torch.data import dataset as PD
+from mmada_parallel_torch.data import item_processor as PIP
+from mmada_parallel_torch.utils import image as PIM
+from mmada_parallel_torch.utils import logging as PL
+from mmada_parallel_tpu import config as JC
+from mmada_parallel_tpu import tokens as JT
+from mmada_parallel_tpu.data import dataset as JD
+from mmada_parallel_tpu.data import item_processor as JIP
+from mmada_parallel_tpu.utils import image as JIM
+from mmada_parallel_tpu.utils import logging as JL
+
+
+@pytest.mark.parametrize("name", ["TOKENS_A", "TOKENS_M"])
+def test_token_constants(name):
+    port, ref = getattr(PT, name), getattr(JT, name)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert port.vq_offset == ref.vq_offset
+    assert port.full_vocab_size == ref.full_vocab_size
+
+
+def test_variant_m_tokens_with_overrides():
+    kw = dict(mask=250, soi=251, eoi=252, bos=249, eos=248, interleave=247,
+              text_vocab_size=256, codebook_size=16)
+    port, ref = PT.VariantMTokens(**kw), JT.VariantMTokens(**kw)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert (port.vq_offset, port.full_vocab_size) == (ref.vq_offset,
+                                                      ref.full_vocab_size)
+
+
+@pytest.mark.parametrize("grid,text_len,end", [((32, 32), 256, [126081]),
+                                               ((16, 24), 8, [7, 8, 9]),
+                                               ((3, 5), 0, [1])])
+def test_assemble_ti2ti_sequence(grid, text_len, end):
+    rng = np.random.default_rng(grid[0] * 100 + text_len)
+    prompt = rng.integers(0, 126000, size=57).tolist()
+    ids_p, lay_p = PT.assemble_ti2ti_sequence(prompt, text_len, *grid, end)
+    ids_j, lay_j = JT.assemble_ti2ti_sequence(prompt, text_len, *grid, end)
+    np.testing.assert_array_equal(ids_p, ids_j)
+    assert dataclasses.asdict(lay_p) == dataclasses.asdict(lay_j)
+    np.testing.assert_array_equal(lay_p.image_positions(),
+                                  lay_j.image_positions())
+
+
+@pytest.mark.parametrize("num_vq,max_seq", [(1024, 256), (64, 6), (12, 3)])
+def test_assemble_interleave_sequence(num_vq, max_seq):
+    rng = np.random.default_rng(num_vq)
+    prompt = rng.integers(0, 126000, size=51).tolist()
+    ids_p, lay_p = PT.assemble_interleave_sequence(prompt, num_vq, max_seq)
+    ids_j, lay_j = JT.assemble_interleave_sequence(prompt, num_vq, max_seq)
+    np.testing.assert_array_equal(ids_p, ids_j)
+    assert dataclasses.asdict(lay_p) == dataclasses.asdict(lay_j)
+    np.testing.assert_array_equal(lay_p.image_positions(),
+                                  lay_j.image_positions())
+
+
+def test_prompts_and_text_ids():
+    for fn, args in (("make_ti2ti_prompt", ("add a hat", "sys")),
+                     ("edit_type_prompt", ("style", "add a hat")),
+                     ("edit_type_system_prompt", ("style",)),
+                     ("make_mmu_prompt", ("what is this?",))):
+        assert getattr(PT, fn)(*args) == getattr(JT, fn)(*args)
+    ids = [5, 1, 7, 9, 2, 2]
+    assert list(PT.normalize_text_ids(ids, 1, 2)) == \
+        list(JT.normalize_text_ids(ids, 1, 2))
+
+
+def _seeded_image(h, w, seed=0):
+    rng = np.random.default_rng(seed)
+    return Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+
+
+@pytest.mark.parametrize("hw,target", [((600, 800), 512), ((512, 512), 512),
+                                       ((300, 200), 256)])
+def test_preprocess_image_and_image_to_array(hw, target):
+    img = _seeded_image(*hw)
+    out = []
+    for mod in (PIM, JIM):
+        random.seed(1)                  # center_crop draws its offset
+        crop = mod.preprocess_image(img, (target, target))
+        out.append((crop.size, mod.image_to_array(crop),
+                    mod.image_to_array(crop, "pm_one"),
+                    mod.image_transform_squash(img, 64)))
+    (sp, ap, pp, qp), (sj, aj, pj, qj) = out
+    assert sp == sj
+    for a, b in ((ap, aj), (pp, pj), (qp, qj)):
+        assert a.dtype == np.float32
+        np.testing.assert_array_equal(a, b)
+
+
+def test_array_to_image_and_painting_mask():
+    x = np.random.default_rng(2).random((1, 16, 16, 3)).astype(np.float32)
+    np.testing.assert_array_equal(np.asarray(PIM.array_to_image(x)),
+                                  np.asarray(JIM.array_to_image(x)))
+    for mode in ("inpainting", "outpainting"):
+        np.testing.assert_array_equal(
+            PIM.painting_latent_mask((64, 64), (8, 8), 0.5, 0.3, mode, 1),
+            JIM.painting_latent_mask((64, 64), (8, 8), 0.5, 0.3, mode, 1))
+
+
+@pytest.mark.parametrize("name", ["data_a.yaml", "infer_m.yaml",
+                                  "train_m.yaml"])
+def test_load_config(name):
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs", name)
+    overrides = ["training.lr=1e-4", "extra.list=[1,2]", "a.b.c=x"]
+    defaults = {"training": {"lr": 1.0, "steps": 3}}
+    got = PC.load_config(path, overrides, defaults)
+    want = JC.load_config(path, overrides, defaults)
+    assert json.dumps(got, sort_keys=True) == json.dumps(want,
+                                                         sort_keys=True)
+    assert got.training.lr == 1e-4 and isinstance(got, PC.ConfigNode)
+
+
+class _Tok:
+    """HF-style stand-in: characters to ids; ``</answer>`` is one id."""
+
+    def __call__(self, text, add_special_tokens=True, truncation=False,
+                 max_length=None, padding=False):
+        if not add_special_tokens:
+            return {"input_ids": [126081]}
+        ids = [1] + [10 + ord(c) % 500 for c in text] + [2]
+        return {"input_ids": ids[:max_length] if truncation else ids}
+
+
+def _grid_file(tmp_path, name, h, w, seed):
+    rng = np.random.default_rng(seed)
+    rec = {"input_ids": rng.integers(0, 8192, (h // 16) * (w // 16)).tolist(),
+           "height": h, "width": w}
+    path = tmp_path / name
+    with open(path, "wb") as f:
+        pickle.dump(rec, f)
+    return str(path)
+
+
+@pytest.mark.parametrize("kind", ["mmu", "t2i", "ti2ti", "ti2ti-no-text"])
+def test_a_item_processor(tmp_path, kind):
+    user = _grid_file(tmp_path, "user.pkl", 64, 96, 0)
+    ans = _grid_file(tmp_path, "ans.pkl", 96, 64, 1)
+    item = {"system_prompt": "edit the image", "user_prompt": "add a hat",
+            "answer_text": "a hat, red, on the head"}
+    if kind != "t2i":
+        item["user_image"] = user
+    if kind != "mmu":
+        item["answer_image"] = ans
+    if kind == "ti2ti-no-text":
+        item["answer_text"] = ""
+    outs = []
+    for mod in (PIP, JIP):
+        proc = mod.AItemProcessor(_Tok(), max_len=4096, answer_pad_len=64,
+                                  rng=random.Random(3))
+        # several items in a row: the rng's state carries across them
+        outs.append([proc.process_item(item) for _ in range(4)]
+                    + [proc.predict_length({"len": 77})])
+    assert outs[0] == outs[1]
+
+
+def test_mask_codes():
+    codes = list(range(100, 140))
+    for sch in ("cosine", "linear"):
+        assert PIP.mask_codes(codes, sch, rng=random.Random(5)) == \
+            JIP.mask_codes(codes, sch, rng=random.Random(5))
+
+
+def test_meta_dataset_and_sampler(tmp_path):
+    items = [{"len": 100 + 7 * i, "token": list(range(i % 5 + 1))}
+             for i in range(40)]
+    (tmp_path / "a.jsonl").write_text(
+        "\n".join(json.dumps(x) for x in items[:25]))
+    (tmp_path / "b.json").write_text(json.dumps(items[25:]))
+    cfg = tmp_path / "data.yaml"
+    cfg.write_text(f"META:\n  - path: {tmp_path / 'a.jsonl'}\n    type: x\n"
+                   f"  - path: {tmp_path / 'b.json'}\n    type: y\n"
+                   f"    ratio: 0.6\n")
+    dsp, dsj = PD.MetaDataset(str(cfg)), JD.MetaDataset(str(cfg))
+    assert dsp.types == dsj.types and len(dsp) == len(dsj)
+    assert [dsp[i] for i in range(len(dsp))] == \
+        [dsj[i] for i in range(len(dsj))]
+    assert dsp.lengths() == dsj.lengths()
+    kw = dict(batch_size=2, world_size=1, rank=0, acc_grad=2, seed=4,
+              cluster_window=2)
+    sp = PD.LengthClusteredSampler(dsp.lengths(), dsp.types, **kw)
+    sj = JD.LengthClusteredSampler(dsj.lengths(), dsj.types, **kw)
+    for epoch, start in ((0, 0), (1, 2)):
+        sp.set_epoch(epoch, start)
+        sj.set_epoch(epoch, start)
+        assert list(sp) == list(sj) and len(sp) == len(sj)
+
+
+def test_metric_logger(tmp_path):
+    loggers = [PL.MetricLogger(), JL.MetricLogger()]
+    for i in range(30):
+        for lg in loggers:
+            lg.update(loss=1.0 / (i + 1), lr=1e-4 * i)
+    for lg in loggers:
+        lg.synchronize_between_processes()      # one process: a no-op
+    assert str(loggers[0]) == str(loggers[1])
+    assert loggers[0].state_dict() == loggers[1].state_dict()
+    w = PL.ScalarWriter(str(tmp_path / "tb"), use_tensorboard=False)
+    w.write(3, {"loss": 0.5})
+    w.close()
+    assert json.loads((tmp_path / "tb" / "log.txt").read_text()) == \
+        {"step": 3, "loss": 0.5}

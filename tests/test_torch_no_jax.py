@@ -1,13 +1,16 @@
-"""The port's paths import neither JAX nor PIL.
+"""The port's paths import neither JAX, nor the JAX package, nor PIL.
 
 ``tests/conftest.py`` imports jax into every test process, so each check runs
-in a subprocess in which importing ``jax`` raises: it imports the port, runs
+in a subprocess in which importing ``jax``, ``jaxlib`` or
+``mmada_parallel_tpu`` raises: it imports the port, runs
 tiny generations on the CPU with an array image (PIL is installed here, so
 its absence from ``sys.modules`` shows the path never imported it), and
 reports what got imported.  The paths: the exact and the cached
 ``TI2TIPipeline`` edit, and the exact and the cached ``InterleavePipeline``
 with an array already at the resolution; and a tiny variant-A train step
-(with remat, masking, the M forward and the task bounds)."""
+(with remat, masking, the M forward and the task bounds); and the imports
+of ``chip_smoke.py`` and of the A trainer's CLI, data pipeline and
+logging."""
 
 import json
 import os
@@ -22,7 +25,7 @@ import importlib.abc, json, sys
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in ("jax", "jaxlib", "mmada_parallel_tpu"):
             raise ImportError(f"{name} is blocked here")
         return None
 
@@ -31,7 +34,7 @@ sys.meta_path.insert(0, Block())
 import numpy as np
 import torch
 torch.set_num_threads(1)
-from mmada_parallel_tpu import tokens as tk
+from mmada_parallel_torch import tokens as tk
 from mmada_parallel_torch.models import amused_vq as AVQ
 from mmada_parallel_torch.models.llada import LLaDAConfig, init_llada_params
 from mmada_parallel_torch.pipeline import TI2TIPipeline
@@ -76,7 +79,7 @@ m_runs = [mpipe("add a hat", img, mopts, seed=3, use_cache=c)
           for c in (False, True)]
 print(json.dumps({
     "jax": sorted(m for m in sys.modules if m.split(".")[0] in
-                  ("jax", "jaxlib")),
+                  ("jax", "jaxlib", "mmada_parallel_tpu")),
     "pil": sorted(m for m in sys.modules if m.split(".")[0] == "PIL"),
     "yaml": "yaml" in sys.modules,
     "image": out is None, "pixels": list(info["pixels"].shape),
@@ -115,7 +118,7 @@ import importlib.abc, json, sys
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in ("jax", "jaxlib", "mmada_parallel_tpu"):
             raise ImportError(f"{name} is blocked here")
         return None
 
@@ -143,7 +146,7 @@ for _ in range(2):
 m = m_tasks.forward_process(state.params, cfg, ids, labels, 1, 2, 1, 8)
 print(json.dumps({
     "jax": sorted(m for m in sys.modules if m.split(".")[0] in
-                  ("jax", "jaxlib")),
+                  ("jax", "jaxlib", "mmada_parallel_tpu")),
     "losses": losses, "step": state.step,
     "m_losses": sorted(m), "bounds": list(mixed_prefix_bounds(
         6, 1, 1, 1, ((1, 3),), 2).shape)}))
@@ -161,6 +164,45 @@ def test_train_step_imports_no_jax():
     assert all(0 < x < 20 for x in res["losses"])
     assert res["m_losses"] == ["loss_lm", "loss_mmu", "loss_t2i"]
     assert res["bounds"] == [3, 6]
+
+
+IMPORT_SCRIPT = r"""
+import importlib.abc, json, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "mmada_parallel_tpu"):
+            raise ImportError(f"{name} is blocked here")
+        return None
+
+sys.meta_path.insert(0, Block())
+
+import chip_smoke
+from mmada_parallel_torch.cli import train_a
+# what train_a.main() imports before it reads its data
+from mmada_parallel_torch.data import AItemProcessor, MetaDataset
+from mmada_parallel_torch.utils.logging import MetricLogger, ScalarWriter
+from mmada_parallel_torch.config import load_config
+counters = sorted(chip_smoke._launch_counters())
+print(json.dumps({
+    "jax": sorted(m for m in sys.modules if m.split(".")[0] in
+                  ("jax", "jaxlib", "mmada_parallel_tpu")),
+    "counters": counters, "m_len": chip_smoke._m_sequence_length()}))
+"""
+
+
+def test_chip_smoke_and_train_cli_import_no_jax_package():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", IMPORT_SCRIPT], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["jax"] == []
+    assert res["counters"] == sorted(
+        ["flash_attention", "flash_attention_rope",
+         "flash_attention_rope_prefix", "flash_attention_rope_qonly"])
+    assert res["m_len"] == 2360         # the interleave length chip_smoke uses
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):

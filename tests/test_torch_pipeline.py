@@ -7,6 +7,7 @@ end, and each package fills those from its own generator (JAX from its key,
 the port from its ``torch.Generator``), so they are compared through that
 rule.  Decoded pixels agree at atol/rtol 1e-4 (f32 convolutions)."""
 
+import dataclasses
 import json
 
 import numpy as np
@@ -83,7 +84,9 @@ def test_pipeline_edit_matches_jax(pipes, cfg_scale, cfg_img, painting):
     t_img, t_text, t_info = port("add a hat", arr, 32, 32,
                                  TI2TIOptions(**kw), **call)
     assert t_text == j_text and len(t_text) > 0
-    assert t_info["layout"] == j_info["layout"]
+    # the port's SequenceLayout is its own copy of the class: compare fields
+    assert dataclasses.asdict(t_info["layout"]) == \
+        dataclasses.asdict(j_info["layout"])
 
     lay = t_info["layout"]
     still = t_info["ids"][0, lay.image_positions()] == T.mask

@@ -197,3 +197,93 @@ def test_kernel_matches_plain_on_cuda(cuda_device):
         want = TR.flash_attention_rope_reference(q, k, v, s, c, n_heads=H,
                                                  n_kv_heads=KV)
         torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+# The bf16 tensor-core body's edges (csrc/attention_mma.cuh): D=64; Lq and
+# Lk that are not multiples of the 128-row q tile or the 64-key tile, and
+# Lq != Lk; GQA; per-row tables with a padding bias and a fully masked row;
+# an odd Lk with a bias (scalar bias loads).  (B, Lq, Lk, H, KV, D, ragged)
+BF16_EDGES = [(2, 333, 333, 8, 8, 64, False), (1, 197, 517, 8, 2, 128, False),
+              (2, 301, 301, 4, 2, 64, True), (2, 130, 130, 32, 8, 128, True)]
+BF16_TOL = dict(atol=1e-2, rtol=1e-2)
+
+
+def _ragged_inputs(B, L, D, device, lengths):
+    """Per-row positions cumsum(mask) - 1 and the pairwise padding bias of
+    rows padded from ``lengths``; row 5 of batch row 1 fully masked."""
+    mask = torch.zeros(B, L, dtype=torch.bool, device=device)
+    for b, n in enumerate(lengths):
+        mask[b, :n] = True
+    pos = (torch.cumsum(mask.long(), dim=1) - 1).clamp_min(0)
+    pair = (mask[:, :, None] & mask[:, None, :])[:, None]
+    bias = torch.where(pair, 0.0, -1e30).to(torch.float32)
+    bias[1, 0, 5, :] = -1e30
+    return pos, bias.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Lq,Lk,H,KV,D,ragged", BF16_EDGES)
+def test_tensor_core_body_edges_on_cuda(cuda_device, B, Lq, Lk, H, KV, D,
+                                        ragged):
+    """K1 in bf16 (rotation pre-pass + tensor-core body) against its plain
+    version at the body's edges, one launch counted per call."""
+    from mmada_parallel_torch.models.llada import _rope_sin_cos
+    g = torch.Generator(device=cuda_device).manual_seed(Lq)
+    q, k, v = (torch.randn(B, n, h * D, generator=g, device=cuda_device
+                           ).bfloat16() for n, h in ((Lq, H), (Lk, KV),
+                                                     (Lk, KV)))
+    s, c = _rope_sin_cos(max(Lq, Lk), D, 10000.0, cuda_device)
+    bias = None
+    if ragged:
+        pos, bias = _ragged_inputs(B, Lq, D, cuda_device, (Lq, Lq // 2 + 3))
+        s, c = s[pos].contiguous(), c[pos].contiguous()
+    kw = dict(n_heads=H, n_kv_heads=KV)
+    before = TR.flash_attention_rope.launches
+    got = TR.flash_attention_rope(q, k, v, s, c, bias, **kw)
+    assert TR.flash_attention_rope.launches == before + 1
+    want = TR.flash_attention_rope_reference(q, k, v, s, c, bias, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_row", [False, True])
+def test_rope_prepass_bitwise_on_cuda(cuda_device, per_row):
+    """K1's bf16 rotation pre-pass equals rope_tensor bit for bit."""
+    from mmada_parallel_torch.models.llada import _rope_sin_cos
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    B, L, H, D = 2, 300, 4, 128
+    x = torch.randn(B, L, H * D, generator=g, device=cuda_device).bfloat16()
+    s, c = _rope_sin_cos(L, D, 10000.0, cuda_device)
+    if per_row:
+        pos = torch.randint(0, L, (B, L), generator=g, device=cuda_device)
+        s, c = s[pos].contiguous(), c[pos].contiguous()
+    want = TR.rope_tensor(x.view(B, L, H, D), s, c, True).view(B, L, H * D)
+    assert torch.equal(TR.rope_rotate(x, s, c, n_heads=H), want)
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+def test_rope_rotate_on_cpu_is_rope_tensor_and_jax(per_row):
+    """On the CPU ``rope_rotate`` is ``rope_tensor(full_precision=True)`` on
+    the packed layout, which is JAX's ``rope_tensor``."""
+    B, L, H, D = 2, 24, 4, 64
+    x = _rand((B, L, H * D), 40)
+    s, c = _tables(L, D)
+    if per_row:
+        pos = np.random.default_rng(41).integers(0, L, (B, L))
+        s, c = s[pos], c[pos]
+    got = TR.rope_rotate(torch.tensor(x), torch.tensor(s), torch.tensor(c),
+                         n_heads=H).numpy()
+    want = np.asarray(JR.rope_tensor(jnp.asarray(x.reshape(B, L, H, D)),
+                                     jnp.asarray(s), jnp.asarray(c), True))
+    np.testing.assert_allclose(got, want.reshape(B, L, H * D), **TOL)
+
+
+def test_bf16_body_refuses_misaligned_inputs():
+    """The tensor-core body and the pre-pass load 16 bytes at a time: a view
+    that starts off a 16-byte boundary is refused before any launch."""
+    base = torch.zeros(65, dtype=torch.bfloat16)
+    TR.check_aligned("k", 16, base[:64], None)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        TR.check_aligned("k", 16, base[1:])
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        TR.check_aligned("k", 8, torch.zeros(9)[1:])
