@@ -15,17 +15,24 @@ Phases (each prints its own lines; any failure exits non-zero):
    larger of FLOPs over the 989 TFLOP/s bf16 peak and bytes over 3.35 TB/s):
    K1's bf16 rotation pre-pass bitwise against ``rope_tensor``; K1 fused
    RoPE at the edit's shapes (bf16: pre-pass + the tensor-core body), K2
-   q-only RoPE at the cached samplers' partial and full shapes, K3 BLHD at
-   the edit shape (bf16: the tensor-core body) with one
+   q-only RoPE at the cached samplers' partial and full shapes (bf16:
+   pre-pass + the tensor-core body, split-K with its combine kernel where
+   the planner splits; each case prints its split count), K3 BLHD at the
+   edit shape (bf16: the tensor-core body) with one
    ``scaled_dot_product_attention`` call beside it as the library yardstick,
-   K4 prefix bounds at the A-train shape and a mixed task batch (with K1 on
-   the equivalent dense bias beside it at 2424 and 5120, the crossover
+   K4 prefix bounds at the A-train shape and a mixed task batch (bf16:
+   pre-pass + the tensor-core body with the bounds; with K1 on the
+   equivalent dense bias beside it at 2424 and 5120, the crossover
    ``rope_attention_prefix``'s ``auto`` would want, and ``auto``'s choice at
-   both lengths checked by launch counts), each at small f32 shapes, K1 and
-   K3 at the tensor-core body's bf16 edges (D=64, ragged Lq/Lk, GQA, fully
-   masked rows, per-row tables, odd Lk with a bias), and K1 at the A and M
-   train steps' shapes; then each kernel's autograd Function: q/k/v
-   gradients against plain autograd, bf16 and f32;
+   both lengths checked by launch counts), each at small f32 shapes, every
+   kernel at the tensor-core body's bf16 edges (D=64, ragged Lq/Lk, GQA,
+   fully masked rows, per-row tables, odd Lk with a bias, forced splits,
+   bounds 0 and past Lk), and K1 at the A and M train steps' shapes; SDPA
+   on pre-rotated inputs beside K2 and K4 as a yardstick for their
+   attention part (not the same function: no rotation); the device kernel
+   names of one K2 and one K4 bf16 call (the tensor-core body, not the FMA
+   template); then each kernel's autograd Function: q/k/v gradients
+   against plain autograd, bf16 and f32;
 3. small f32 models (head_dim 64): the kernel path gives the same tokens as
    the plain attention at temperature 0 on the exact edit, the cached edit,
    the exact and cached interleave, and the exact edit with bf16-style
@@ -37,8 +44,8 @@ Phases (each prints its own lines; any failure exits non-zero):
    K1), the exact interleave (K1) and the cached interleave (K2).  Each run
    sets every launch count to 0 just before it and checks them just after;
    codes, pixels, wall time and peak memory are checked and printed; the
-   exact edit runs once more under ``torch.profiler`` (device time by
-   kernel class, idle share);
+   exact and the cached edit run once more under ``torch.profiler`` (device
+   time by kernel class, idle share);
 5. training at full width, 4 of the 32 layers (f32 params, bf16 compute,
    AdamW, clip 4.0), after the inference weights are freed: the A SFT step
    of ``cli/train_a.py`` (B=1, L=5120, 2 accumulation microbatches, remat
@@ -56,6 +63,7 @@ device, or outside the repository, the script fails and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -415,12 +423,16 @@ def phase_kernel() -> dict:
 
 
 def _qonly_case(name, B, Lq, Lk, H, KV, D, dtype, tol, gen, *,
-                per_row=True, bias=None, timed=False) -> dict:
+                 per_row=True, bias=None, timed=False, n_split=None,
+                 sdpa=False) -> dict:
     """K2 vs plain: q at Lq sorted distinct positions of an Lk sequence
-    (per-row tables) or at positions 0..Lq-1 (shared), pre-rotated k."""
+    (per-row tables) or at positions 0..Lq-1 (shared), pre-rotated k;
+    ``n_split`` forces the split-K count (None: the planner's).  With
+    ``sdpa``, one SDPA call on the pre-rotated q beside it."""
     import torch
     from mmada_parallel_torch.ops.rope_attention import (
-        flash_attention_rope_qonly, flash_attention_rope_qonly_reference)
+        _sm_count, flash_attention_rope_qonly,
+        flash_attention_rope_qonly_reference, plan_splits)
     dev = torch.device("cuda")
     q = torch.randn(B, Lq, H * D, generator=gen, device=dev).to(dtype)
     k = torch.randn(B, Lk, KV * D, generator=gen, device=dev).to(dtype)
@@ -433,15 +445,104 @@ def _qonly_case(name, B, Lq, Lk, H, KV, D, dtype, tol, gen, *,
     else:
         sin, cos = sin[:Lq].contiguous(), cos[:Lq].contiguous()
     kw = dict(n_heads=H, n_kv_heads=KV)
+    splits = 1 if dtype == torch.float32 else (
+        n_split or plan_splits(B, H, Lq, Lk, _sm_count(dev)))
     desc = (f"{_desc(B, Lq, Lk, H, KV, D, dtype)} "
             f"{'per-row' if per_row else 'shared'} tables"
-            f"{' bias' if bias is not None else ''}")
-    return _compare(
-        f"K2 {name}", desc,
-        lambda: flash_attention_rope_qonly(q, k, v, sin, cos, bias, **kw),
-        lambda: flash_attention_rope_qonly_reference(q, k, v, sin, cos,
-                                                     bias, **kw), tol, timed,
-        _work(q, k, v, H, bias, sin, cos), dtype)
+            f"{' bias' if bias is not None else ''}, split {splits}"
+            f"{' (forced)' if n_split else ''}")
+    with _forced_splits(n_split):
+        rec = _compare(
+            f"K2 {name}", desc,
+            lambda: flash_attention_rope_qonly(q, k, v, sin, cos, bias,
+                                               **kw),
+            lambda: flash_attention_rope_qonly_reference(q, k, v, sin, cos,
+                                                         bias, **kw),
+            tol, timed, _work(q, k, v, H, bias, sin, cos), dtype)
+    if sdpa:
+        from mmada_parallel_torch.ops.rope_attention import rope_tensor
+        q4 = rope_tensor(q.reshape(B, Lq, H, D), sin, cos, True)
+        want = flash_attention_rope_qonly_reference(q, k, v, sin, cos, bias,
+                                                    **kw)
+        _sdpa_ms(f"K2 {name}", q4, k.reshape(B, Lk, KV, D),
+                 v.reshape(B, Lk, KV, D), bias,
+                 want=want.reshape(B, Lq, H, D),
+                 what="on the pre-rotated q: the attention part without the "
+                      "q rotation, not the same function")
+    rec["splits"] = splits
+    return rec
+
+
+@contextlib.contextmanager
+def _forced_splits(n_split):
+    """K2's split-K planner replaced by the constant ``n_split`` (None: left
+    as it is) for the duration of the block."""
+    from mmada_parallel_torch.ops import rope_attention as R
+    plan = R.plan_splits
+    if n_split is not None:
+        R.plan_splits = lambda *args: n_split
+    try:
+        yield
+    finally:
+        R.plan_splits = plan
+
+
+def _device_kernels(fn) -> dict:
+    """``{name: device us}`` of the kernels one call of ``fn`` runs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us[e.name] = us.get(e.name, 0.0) + (e.time_range.end
+                                                - e.time_range.start)
+    return us
+
+
+def _check_tensor_core_body(name: str, fn) -> None:
+    """A bf16 call of ``fn`` must run the tensor-core body
+    (``attention_mma_kernel``) and no FMA-template ``attention_kernel``;
+    prints each device kernel's time in that call (profiler on)."""
+    names = _device_kernels(fn)
+    body = [n for n in names if "attention_mma_kernel" in n]
+    fma = [n for n in names if "::attention_kernel<" in n]
+    if not body or fma:
+        raise AssertionError(f"{name}: bf16 device kernels {list(names)}, "
+                             f"expected the tensor-core body and no FMA "
+                             f"template")
+    short = [n.replace("(anonymous namespace)::", "").split("(")[0]
+             .removeprefix("void ") + f" {us:.1f} us"
+             for n, us in names.items()]
+    log(f"[kernel] {name} bf16 device kernels: {short}")
+
+
+def _split_sweep(B, Lq, Lk, H, D, counts) -> None:
+    """K2 in bf16 at one shape with its split count forced to each of
+    ``counts``: the device time of one call (all its kernels, profiler on),
+    beside the planner's choice."""
+    import torch
+    from mmada_parallel_torch.ops.rope_attention import (
+        _sm_count, flash_attention_rope_qonly, plan_splits)
+    dev = torch.device("cuda")
+    q = torch.randn(B, Lq, H * D, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(B, Lk, H * D, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    sin, cos = (t[:Lq].contiguous() for t in _rope_tables(Lk, D, dev))
+    us = {}
+    for n in counts:
+        with _forced_splits(n):
+            def call():
+                return flash_attention_rope_qonly(q, k, v, sin, cos,
+                                                  n_heads=H)
+            call()
+            us[n] = sum(_device_kernels(call).values())
+    log(f"[kernel] K2 split sweep B={B} Lq={Lq} Lk={Lk}: device us by "
+        f"split count {{{', '.join(f'{n}: {t:.1f}' for n, t in us.items())}}}"
+        f"; planner {plan_splits(B, H, Lq, Lk, _sm_count(dev))}")
 
 
 def _m_sequence_length() -> int:
@@ -458,23 +559,28 @@ def _m_sequence_length() -> int:
 def phase_kernel_qonly() -> dict:
     """K2 against its plain version at the cached samplers' shapes."""
     import torch
+    from mmada_parallel_torch.ops.rope_attention import (
+        flash_attention_rope_qonly)
     gen = torch.Generator(device="cuda").manual_seed(2)
     bf16, f32 = torch.bfloat16, torch.float32
     L, H, D = EDIT_L, EDIT_H, EDIT_D
     Lm = _m_sequence_length()
+    dev = torch.device("cuda")
     recs = []
     # (a) the A partial step at the reference settings: 3 + 13 = 16 slots
-    recs.append(_qonly_case("a/A-partial", 1, 16, L, H, H, D, bf16, BF16_TOL,
-                            gen, timed=True))
+    a = _qonly_case("a/A-partial", 1, 16, L, H, H, D, bf16, BF16_TOL, gen,
+                    timed=True, sdpa=True)
     # (b) the A full step with the cache: Lq = Lk, shared tables
     full = _qonly_case("b/A-full", 1, L, L, H, H, D, bf16, BF16_TOL, gen,
-                       per_row=False, timed=True)
-    recs.append(full)
+                       per_row=False, timed=True, sdpa=True)
     # (c) the M partial step: 256 text + 52 image slots, cond + uncond rows
-    recs.append(_qonly_case("c/M-partial", 2, 256 + 52, Lm, H, H, D, bf16,
-                            BF16_TOL, gen, timed=True))
+    c = _qonly_case("c/M-partial", 2, 256 + 52, Lm, H, H, D, bf16, BF16_TOL,
+                    gen, timed=True)
+    # (f) the M full refresh: cond + uncond rows, Lq = Lk, shared tables
+    f = _qonly_case("f/M-full", 2, Lm, Lm, H, H, D, bf16, BF16_TOL, gen,
+                    per_row=False, timed=True)
+    recs += [a, full, c, f]
     # (d) GQA 32/8 with a padding bias (rows keep 2360 and 1800 keys)
-    dev = torch.device("cuda")
     bias = _pad_bias([Lm, 1800], 308, Lm, dev)
     recs.append(_qonly_case("d/gqa-bias", 2, 308, Lm, H, 8, D, bf16,
                             BF16_TOL, gen, bias=bias.contiguous()))
@@ -484,19 +590,55 @@ def phase_kernel_qonly() -> dict:
         bias=_pad_bias([300, 250], 40, 300, dev).contiguous()))
     recs.append(_qonly_case("e/f32-D64", 1, 100, 260, 4, 4, 64, f32,
                             F32_TOL, gen))
+    # (g) the tensor-core body's bf16 edges: one q row; 65 rows (one row
+    # into the second warpgroup); a forced split with a padding bias and a
+    # row masked on every key (mean(v) across splits, and splits masked for
+    # every row of batch row 1); GQA 32/8 split by the planner; D=64 split;
+    # a forced split of ragged Lq/Lk with GQA
+    recs.append(_qonly_case("g/Lq1", 1, 1, L, H, H, D, bf16, BF16_TOL, gen))
+    recs.append(_qonly_case("g/Lq65", 1, 65, L, H, H, D, bf16, BF16_TOL,
+                            gen))
+    b7 = _pad_bias([300, 170], 40, 300, dev)
+    b7[0, 0, 7, :] = -1e30
+    recs.append(_qonly_case("g/split-masked", 2, 40, 300, 4, 2, D, bf16,
+                            BF16_TOL, gen, bias=b7.contiguous(), n_split=5))
+    recs.append(_qonly_case("g/gqa-split", 1, 22, L, H, 8, D, bf16,
+                            BF16_TOL, gen))
+    recs.append(_qonly_case("g/D64-split", 2, 17, 333, 8, 8, 64, bf16,
+                            BF16_TOL, gen, n_split=3))
+    recs.append(_qonly_case("g/full-forced-split", 1, 333, 517, 8, 2, D,
+                            bf16, BF16_TOL, gen, n_split=4))
+    # the device kernels of a split and of an unsplit bf16 call
+    q, k = (torch.randn(1, n, H * D, device=dev).to(bf16) for n in (16, L))
+    sin, cos = _rope_tables(16, D, dev)
+    for n_split in (None, 1):
+        with _forced_splits(n_split):
+            _check_tensor_core_body(
+                f"K2 Lq=16 Lk={L} split "
+                f"{'planned' if n_split is None else 1}",
+                lambda: flash_attention_rope_qonly(q, k, k, sin, cos,
+                                                   n_heads=H))
+    # the planner's choice against other split counts, by device time
+    for B, Lq, Lk, counts in ((1, 16, L, (1, 2, 4, 5, 8, 12, 19, 38)),
+                              (2, 308, Lm, (1, 2, 3, 4))):
+        _split_sweep(B, Lq, Lk, H, D, counts)
+    log(f"[kernel] K2 A-partial B=1 Lq=16 (split {a['splits']}): "
+        f"{a['ms']:.3f} ms; A-full B=1 L={L}: {full['ms']:.3f} ms; "
+        f"M-partial B=2 Lq=308 (split {c['splits']}): {c['ms']:.3f} ms; "
+        f"M-full B=2 L={Lm}: {f['ms']:.3f} ms")
     return dict(full, max_abs_err=max(r["max_abs_err"] for r in recs),
                 library_ms=None)
 
 
-def _sdpa_ms(q, k, v, bias) -> float:
-    """One ``torch.nn.functional.scaled_dot_product_attention`` call on the
-    inputs of a K3 case (BLHD viewed as BHLD; the bias as ``attn_mask``;
-    ``enable_gqa`` when KV < H): the library yardstick, timed, held to the
-    kernel's tolerance against the plain version, and the backend it took
-    read from the profiler's kernel names.  The port never calls it."""
-    import torch
+def _sdpa_ms(label: str, q, k, v, bias=None, *, is_causal=False,
+             want=None, what="the library yardstick") -> float:
+    """One ``torch.nn.functional.scaled_dot_product_attention`` call on
+    BLHD inputs (viewed as BHLD; the bias as ``attn_mask``, or
+    ``is_causal``; ``enable_gqa`` when KV < H), timed, its max |err|
+    against ``want`` (default: the plain chain on the same inputs), and the
+    backend it took read from the profiler's kernel names.  The port never
+    calls it."""
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
     from mmada_parallel_torch.ops.attention import _xla_attention
     gqa = k.shape[2] < q.shape[2]
     mask = bias.to(q.dtype) if bias is not None else None
@@ -504,19 +646,17 @@ def _sdpa_ms(q, k, v, bias) -> float:
     def call():
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=mask, enable_gqa=gqa).transpose(1, 2)
+            attn_mask=mask, is_causal=is_causal,
+            enable_gqa=gqa).transpose(1, 2)
 
-    err = float((call().float() - _xla_attention(q, k, v, bias).float()
-                 ).abs().max())
+    if want is None:
+        want = _xla_attention(q, k, v, bias)
+    err = float((call().float() - want.float()).abs().max())
     ms = time_ms(call)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        call()
-        torch.cuda.synchronize()
-    names = sorted({e.name for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA})
-    log(f"[kernel] K3 yardstick: scaled_dot_product_attention {ms:.3f} ms, "
-        f"max |err| against the plain version {err:.3e}, device kernels "
-        f"{[n[:80] for n in names]}")
+    names = sorted(_device_kernels(call))
+    log(f"[kernel] {label} yardstick: scaled_dot_product_attention "
+        f"{ms:.3f} ms ({what}), max |err| against the plain version "
+        f"{err:.3e}, device kernels {[n[:80] for n in names]}")
     return ms
 
 
@@ -537,7 +677,8 @@ def _blhd_case(name, B, Lq, Lk, H, KV, D, dtype, tol, gen, *, bias=None,
                    lambda: flash_attention(q, k, v, bias),
                    lambda: _xla_attention(q, k, v, bias), tol, timed,
                    _work(q, k, v, H, bias), dtype)
-    rec["library_ms"] = _sdpa_ms(q, k, v, bias) if library else None
+    rec["library_ms"] = _sdpa_ms(f"K3 {name}", q, k, v, bias) \
+        if library else None
     return rec
 
 
@@ -579,12 +720,14 @@ def phase_kernel_blhd() -> dict:
 
 
 def _prefix_case(name, B, Lq, Lk, H, KV, D, dtype, tol, gen, hi, *,
-                 timed=False) -> dict:
+                 timed=False, sdpa=False) -> dict:
     """K4 vs plain on one shape with bounds ``hi`` [B, Lq]; its work counts
-    the keys the clamped bounds admit."""
+    the keys the clamped bounds admit.  With ``sdpa`` (causal bounds), one
+    causal SDPA call on the pre-rotated q and k beside it."""
     import torch
     from mmada_parallel_torch.ops.rope_attention import (
-        flash_attention_rope_prefix, flash_attention_rope_prefix_reference)
+        flash_attention_rope_prefix, flash_attention_rope_prefix_reference,
+        rope_tensor)
     dev = torch.device("cuda")
     q = torch.randn(B, Lq, H * D, generator=gen, device=dev).to(dtype)
     k = torch.randn(B, Lk, KV * D, generator=gen, device=dev).to(dtype)
@@ -594,12 +737,26 @@ def _prefix_case(name, B, Lq, Lk, H, KV, D, dtype, tol, gen, hi, *,
     desc = (f"{_desc(B, Lq, Lk, H, KV, D, dtype)} bounds in "
             f"[{int(hi.min())}, {int(hi.max())}]")
     keys = int(hi.clamp(1, Lk).sum())
-    return _compare(
+    rec = _compare(
         f"K4 {name}", desc,
         lambda: flash_attention_rope_prefix(q, k, v, sin, cos, hi, **kw),
         lambda: flash_attention_rope_prefix_reference(q, k, v, sin, cos, hi,
                                                       **kw), tol, timed,
         _work(q, k, v, H, sin, cos, hi, keys=keys), dtype)
+    if sdpa:
+        want = flash_attention_rope_prefix_reference(q, k, v, sin, cos, hi,
+                                                     **kw)
+        _sdpa_ms(f"K4 {name}",
+                 rope_tensor(q.reshape(B, Lq, H, D), sin, cos, True),
+                 rope_tensor(k.reshape(B, Lk, KV, D), sin, cos, True),
+                 v.reshape(B, Lk, KV, D), is_causal=True,
+                 want=want.reshape(B, Lq, H, D),
+                 what="is_causal on the pre-rotated q and k: the attention "
+                      "part without the rotation, not the same function")
+        _check_tensor_core_body(
+            f"K4 {name}",
+            lambda: flash_attention_rope_prefix(q, k, v, sin, cos, hi, **kw))
+    return rec
 
 
 def _causal_bounds(B, L, device):
@@ -618,7 +775,7 @@ def phase_kernel_prefix() -> dict:
     dev = torch.device("cuda")
     # (a) the A-train shape, causal bounds
     a = _prefix_case("a/A-train causal", 1, L, L, H, H, D, bf16, BF16_TOL,
-                     gen, _causal_bounds(1, L, dev), timed=True)
+                     gen, _causal_bounds(1, L, dev), timed=True, sdpa=True)
     # (b) a mixed [t2i | lm | mmu] batch: t2i rows see the image span
     # bidirectionally, mmu rows the whole 1056-token image prefix
     hi = mixed_prefix_bounds(L, 1, 1, 1, ((1024, 2080),), 1056,
@@ -642,6 +799,18 @@ def phase_kernel_prefix() -> dict:
     hi[1, :7] = 10_000
     recs.append(_prefix_case("e/edge bounds", 2, 200, 260, 4, 4, 128, f32,
                              F32_TOL, gen, hi.to(torch.int32)))
+    # (f) the tensor-core body's bf16 edges: D=64 causal with GQA 8/2 at an
+    # Lq that is no multiple of the 128-row q tile; bounds 0, negative and
+    # past Lk with Lq != Lk; a mixed batch at D=64
+    recs.append(_prefix_case("f/D64-causal-gqa", 2, 333, 333, 8, 2, 64,
+                             bf16, BF16_TOL, gen, _causal_bounds(2, 333,
+                                                                 dev)))
+    recs.append(_prefix_case("f/edge bounds", 2, 200, 260, 4, 4, 128, bf16,
+                             BF16_TOL, gen, hi.to(torch.int32)))
+    recs.append(_prefix_case(
+        "f/mixed-D64", 3, 300, 300, 4, 2, 64, bf16, BF16_TOL, gen,
+        mixed_prefix_bounds(300, 1, 1, 1, ((20, 140),), 60,
+                            device=dev).contiguous()))
     log(f"[kernel] K4 A-train causal B=1 L={L}: kernel {a['ms']:.3f} ms "
         f"plain {a['plain_ms']:.3f} ms; mixed B=3: kernel {b['ms']:.3f} ms "
         f"plain {b['plain_ms']:.3f} ms")
@@ -1034,6 +1203,7 @@ def phase_small_train() -> None:
 # tensor-core GEMM (``nvjet``, other ``gemm``) takes bf16 operands.
 _KERNEL_CLASSES = (
     ("attention kernels K1-K4", ("attention_kernel", "attention_mma_kernel",
+                                 "split_combine_kernel",
                                  "rope_rotate_kernel")),
     ("f32 GEMMs (FMA)", ("sgemm", "f32f32")),
     ("bf16 tensor-core GEMMs", ("nvjet", "gemm")),
@@ -1244,6 +1414,10 @@ def phase_cached_edit(full) -> int:
         f"{n_partial} partial + {n_img} uncond B=2) = "
         f"{forwards / info['elapsed']:.2f} forwards/s, kernel launches "
         f"{launches}, peak memory {peak / 2 ** 30:.2f} GiB")
+    # the same cached edit once more under the profiler
+    _profile("cached-edit", lambda: _a_pipe(full)(
+        "make the sky purple", _edit_image(512), 512, 512, opts,
+        text_gen_length=256, seed=1, use_cache=True))
     return launches["flash_attention_rope_qonly"]
 
 

@@ -1,6 +1,7 @@
-// Packed bidirectional flash attention for Hopper (sm_90a), shared by the
-// four attention kernels of the port.  One template, three compile-time
-// flags:
+// Packed bidirectional flash attention for Hopper (sm_90a) in f32 on the
+// FMA pipes: the f32 path of the four attention kernels of the port (their
+// bf16 path is the tensor-core body of attention_mma.cuh; tensor cores
+// would compute f32 in TF32).  One template, three compile-time flags:
 //
 //   kRopeQ    rotate q on load (f32 Neox RoPE from sin_q/cos_q tables);
 //   kRopeK    rotate k on load (from sin_k/cos_k tables);
@@ -15,8 +16,8 @@
 //
 // Contract of the template:
 //
-//   q [B, Lq, H*D], k/v [B, Lk, KV*D], bf16 or f32 (a contiguous BLHD
-//   [B, L, H, D] tensor is the same memory as packed [B, L, H*D]);
+//   q [B, Lq, H*D], k/v [B, Lk, KV*D], f32 (a contiguous BLHD [B, L, H, D]
+//   tensor is the same memory as packed [B, L, H*D]);
 //   sin/cos f32 tables [L, D] (shared) or [B, L, D] (per-row positions);
 //   optional additive f32 bias [B, 1, Lq, Lk], or with kPrefix int32 bounds
 //   kv_hi [B, Lq] (no bias);
@@ -24,37 +25,26 @@
 //   with g = h / (H / KV) (GQA), q' / k' rotated or read as stored.
 //
 // Numerics follow the TPU kernels: a rotation is done in f32 with no FMA
-// contraction and rounded back to the input dtype before the dot product
-// (rope_attention.py _rope_rows); scores and the softmax run in f32; p is
-// rounded to v's dtype before p.v, which accumulates in f32; the row sum is
-// divided out at the end.  Key columns >= Lk are skipped by bounds checks, so
-// a row whose bias is -1e30 everywhere returns mean(v) over the Lk real keys,
-// exactly as the plain reference does (the TPU kernels pad keys to 128).
-// With kPrefix a masked key is skipped the same way (p = 0); a row's bound is
-// at least 1, so key 0 is always in its first tile and no row is fully
-// masked.  That is the dense reference with bias 0 / -1e30 exactly, since
-// exp(-1e30 - m) is 0 in f32.
+// contraction (rope_attention.py _rope_rows); scores and the softmax run in
+// f32; p.v accumulates in f32; the row sum is divided out at the end.  Key
+// columns >= Lk are skipped by bounds checks, so a row whose bias is -1e30
+// everywhere returns mean(v) over the Lk real keys, exactly as the plain
+// reference does (the TPU kernels pad keys to 128).  With kPrefix a masked
+// key is skipped the same way (p = 0); a row's bound is at least 1, so key 0
+// is always in its first tile and no row is fully masked.  That is the dense
+// reference with bias 0 / -1e30 exactly, since exp(-1e30 - m) is 0 in f32.
 //
-// What bounds it on this card: at the edit shape (L ~ 2424, H = 32, D = 128)
-// the Q.K^T and P.V products are 4*B*H*Lq*Lk*D ~ 96 GFLOP per batch row,
-// against ~40 MB of q/k/v traffic, so it is compute bound.  K/V tiles are
-// re-read once per 64-row q tile, which the 50 MB L2 absorbs.  At the cached
-// samplers' partial shapes (Lq = 16..308 against Lk ~ 2400) the grid is only
-// ceil(Lq/64) * B * H blocks, too few for 132 SMs.  With kPrefix (K4) the
-// work of a q tile is proportional to its highest bound: a causal mask costs
-// about half of the dense product, and the tiles of one grid finish unevenly.
-//
-// What this first design does about it: one thread block per (b*h, 64 q rows),
-// 256 threads; the (rotated) Q tile stays in shared memory, K/V stream through
-// shared memory in 64-key tiles with the online-softmax recurrence (no L x L
-// scores anywhere, no length cap, any GQA ratio), and each thread keeps a 4x4
-// score tile and a 4x(D/16) output tile in registers.  The products run on
-// the f32 FMA pipes, not the tensor cores: wgmma/mma.sync, TMA, warp
-// specialisation and a split-K grid for small Lq are the next steps for speed.
+// What bounds it on this card: the f32 products on the FMA pipes (67
+// TFLOP/s; 4*B*H*Lq*Lk*D flops).  f32 is the precision of the tests and the
+// small models, not of serving, so the design stays simple: one thread
+// block per (b*h, 64 q rows), 256 threads; the (rotated) Q tile stays in
+// shared memory, K/V stream through shared memory in 64-key tiles with the
+// online-softmax recurrence (no L x L scores anywhere, no length cap, any
+// GQA ratio), and each thread keeps a 4x4 score tile and a 4x(D/16) output
+// tile in registers.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -64,54 +54,29 @@ constexpr int kBlockQ = 64;    // q rows per thread block
 constexpr int kBlockK = 64;    // keys per shared-memory tile
 constexpr int kThreads = 256;  // 16 x 16 threads, each owning 4 q rows
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// Round an f32 value through the storage dtype T (identity for f32).
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32<T>(from_f32<T>(x));
-}
-
 // Element d of the f32 Neox rotation of one head row x[0:D]:
 // x*cos + rotate_half(x)*sin with rotate_half([x1, x2]) = [-x2, x1], as two
-// rounded products and a rounded sum (no FMA contraction), then rounded to T.
-template <typename T, int D>
-__device__ __forceinline__ float rope_elem(const T* __restrict__ x,
+// rounded products and a rounded sum (no FMA contraction).
+template <int D>
+__device__ __forceinline__ float rope_elem(const float* __restrict__ x,
                                            const float* __restrict__ s,
                                            const float* __restrict__ c,
                                            int d) {
-  const float xv = to_f32<T>(x[d]);
-  const float rot = d < D / 2 ? -to_f32<T>(x[d + D / 2]) : to_f32<T>(x[d - D / 2]);
-  return round_to<T>(__fadd_rn(__fmul_rn(xv, c[d]), __fmul_rn(rot, s[d])));
+  const float rot = d < D / 2 ? -x[d + D / 2] : x[d - D / 2];
+  return __fadd_rn(__fmul_rn(x[d], c[d]), __fmul_rn(rot, s[d]));
 }
 
 // Element d of one head row, rotated at table row `pos` when kRope, else as
 // stored (the tables are then never read).
-template <typename T, int D, bool kRope>
-__device__ __forceinline__ float load_elem(const T* __restrict__ x,
+template <int D, bool kRope>
+__device__ __forceinline__ float load_elem(const float* __restrict__ x,
                                            const float* __restrict__ s,
                                            const float* __restrict__ c,
                                            long long pos, int d) {
   if constexpr (kRope) {
-    return rope_elem<T, D>(x, s + pos * D, c + pos * D, d);
+    return rope_elem<D>(x, s + pos * D, c + pos * D, d);
   } else {
-    return to_f32<T>(x[d]);
+    return x[d];
   }
 }
 
@@ -129,16 +94,16 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
-template <typename T, int D, bool kRopeQ, bool kRopeK, bool kPrefix>
+template <int D, bool kRopeQ, bool kRopeK, bool kPrefix>
 __global__ void __launch_bounds__(kThreads)
-attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ sin_q,
+attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ sin_q,
                  const float* __restrict__ cos_q,
                  const float* __restrict__ sin_k,
                  const float* __restrict__ cos_k,
                  const float* __restrict__ bias,
-                 const int* __restrict__ kv_hi, T* __restrict__ out, int Lq,
-                 int Lk, int H, int KV, long long tq_bstride,
+                 const int* __restrict__ kv_hi, float* __restrict__ out,
+                 int Lq, int Lk, int H, int KV, long long tq_bstride,
                  long long tk_bstride, float scale) {
   constexpr int P = D + 1;            // padded row: conflict-free column reads
   constexpr int kCols = D / 16;       // output columns per thread
@@ -163,9 +128,9 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const long long q_row = (long long)H * D;
   const long long kv_row = (long long)KV * D;
-  const T* qb = q + (long long)b * Lq * q_row + (long long)h * D;
-  const T* kb = k + (long long)b * Lk * kv_row + (long long)g * D;
-  const T* vb = v + (long long)b * Lk * kv_row + (long long)g * D;
+  const float* qb = q + (long long)b * Lq * q_row + (long long)h * D;
+  const float* kb = k + (long long)b * Lk * kv_row + (long long)g * D;
+  const float* vb = v + (long long)b * Lk * kv_row + (long long)g * D;
   // tables: only dereferenced when the matching flag is on
   const float* sq = kRopeQ ? sin_q + b * tq_bstride : nullptr;
   const float* cq = kRopeQ ? cos_q + b * tq_bstride : nullptr;
@@ -194,7 +159,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = i / D, d = i % D;
     const int row = q0 + r;
     Qs[r * P + d] = row < Lq
-        ? load_elem<T, D, kRopeQ>(qb + row * q_row, sq, cq, row, d)
+        ? load_elem<D, kRopeQ>(qb + row * q_row, sq, cq, row, d)
         : 0.f;
   }
 
@@ -215,8 +180,8 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int row = k0 + r;
       float kv = 0.f, vv = 0.f;
       if (row < Lk) {
-        kv = load_elem<T, D, kRopeK>(kb + row * kv_row, sk, ck, row, d);
-        vv = to_f32<T>(vb[row * kv_row + d]);
+        kv = load_elem<D, kRopeK>(kb + row * kv_row, sk, ck, row, d);
+        vv = vb[row * kv_row + d];
       }
       Ks[r * P + d] = kv;
       Vs[r * P + d] = vv;
@@ -269,7 +234,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int col = k0 + tx + 16 * j;
         const float p = col < col_end ? expf(s[i][j] - m_new) : 0.f;
         row_sum += p;
-        Ps[(ty * 4 + i) * PS + tx + 16 * j] = round_to<T>(p);
+        Ps[(ty * 4 + i) * PS + tx + 16 * j] = p;
       }
       l[i] = l[i] * alpha + half_warp_sum(row_sum);
       m[i] = m_new;
@@ -292,18 +257,18 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* ob = out + (long long)b * Lq * q_row + (long long)h * D;
+  float* ob = out + (long long)b * Lq * q_row + (long long)h * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= Lq) continue;
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
-      ob[row * q_row + tx + 16 * c] = from_f32<T>(o[i][c] / l[i]);
+      ob[row * q_row + tx + 16 * c] = o[i][c] / l[i];
   }
 }
 
-template <typename T, int D, bool kRopeQ, bool kRopeK, bool kPrefix>
+template <int D, bool kRopeQ, bool kRopeK, bool kPrefix>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* sin_q, const float* cos_q, const float* sin_k,
                    const float* cos_k, const float* bias, const int* kv_hi,
@@ -312,22 +277,22 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    cudaStream_t stream) {
   const int smem = (kBlockQ + 2 * kBlockK) * (D + 1) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<T, D, kRopeQ, kRopeK, kPrefix>,
+      attention_kernel<D, kRopeQ, kRopeK, kPrefix>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Lq + kBlockQ - 1) / kBlockQ, B * H);
-  attention_kernel<T, D, kRopeQ, kRopeK, kPrefix>
+  attention_kernel<D, kRopeQ, kRopeK, kPrefix>
       <<<grid, kThreads, smem, stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), sin_q, cos_q, sin_k, cos_k, bias, kv_hi,
-          static_cast<T*>(out), Lq, Lk, H, KV, tq_bstride, tk_bstride,
-          scale);
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), sin_q, cos_q, sin_k, cos_k, bias,
+          kv_hi, static_cast<float*>(out), Lq, Lk, H, KV, tq_bstride,
+          tk_bstride, scale);
   return cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16; D in {64, 128}.  kv_hi is read only
-// with kPrefix, bias only without it.  Returns the cudaError_t of the launch
-// (0 on success).
+// dtype must be 0 (float32; bf16 runs the tensor-core body); D in {64,
+// 128}.  kv_hi is read only with kPrefix, bias only without it.  Returns the
+// cudaError_t of the launch (0 on success).
 template <bool kRopeQ, bool kRopeK, bool kPrefix = false>
 int dispatch(const void* q, const void* k, const void* v, const float* sin_q,
              const float* cos_q, const float* sin_k, const float* cos_k,
@@ -335,20 +300,12 @@ int dispatch(const void* q, const void* k, const void* v, const float* sin_q,
              int Lk, int H, int KV, int D, long long tq_bstride,
              long long tk_bstride, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && D == 128)
-    return (int)launch<__nv_bfloat16, 128, kRopeQ, kRopeK, kPrefix>(
-        q, k, v, sin_q, cos_q, sin_k, cos_k, bias, kv_hi, out, B, Lq, Lk, H,
-        KV, tq_bstride, tk_bstride, scale, s);
-  if (dtype == 1 && D == 64)
-    return (int)launch<__nv_bfloat16, 64, kRopeQ, kRopeK, kPrefix>(
-        q, k, v, sin_q, cos_q, sin_k, cos_k, bias, kv_hi, out, B, Lq, Lk, H,
-        KV, tq_bstride, tk_bstride, scale, s);
   if (dtype == 0 && D == 128)
-    return (int)launch<float, 128, kRopeQ, kRopeK, kPrefix>(
+    return (int)launch<128, kRopeQ, kRopeK, kPrefix>(
         q, k, v, sin_q, cos_q, sin_k, cos_k, bias, kv_hi, out, B, Lq, Lk, H,
         KV, tq_bstride, tk_bstride, scale, s);
   if (dtype == 0 && D == 64)
-    return (int)launch<float, 64, kRopeQ, kRopeK, kPrefix>(
+    return (int)launch<64, kRopeQ, kRopeK, kPrefix>(
         q, k, v, sin_q, cos_q, sin_k, cos_k, bias, kv_hi, out, B, Lq, Lk, H,
         KV, tq_bstride, tk_bstride, scale, s);
   return (int)cudaErrorInvalidValue;

@@ -1,10 +1,16 @@
 // Packed bidirectional flash attention on Hopper's tensor cores (sm_90a),
-// bf16 only, head dim D in {64, 128}.  The bf16 body of K1 and K3; their f32
-// paths, K2 and K4 stay on the FMA template of attention_kernel.cuh.
+// bf16 only, head dim D in {64, 128}.  The bf16 body of all four attention
+// kernels; their f32 paths stay on the FMA template of attention_kernel.cuh
+// (tensor cores would compute f32 in TF32).
 //
-//   flash_attention.cu        K3  q, k, v as stored
-//   flash_attention_rope.cu   K1  q and k rotated once per call by a pre-pass
-//                                 (rope_rotate_kernel there), then this body
+//   flash_attention.cu               K3  q, k, v as stored
+//   flash_attention_rope.cu          K1  q and k rotated once per call by the
+//                                        pre-pass (rope_rotate.cuh)
+//   flash_attention_rope_qonly.cu    K2  q rotated by the pre-pass, k/v the
+//                                        pre-rotated caches; kSplit (split-K
+//                                        grid) when the grid is small
+//   flash_attention_rope_prefix.cu   K4  q and k rotated by the pre-pass;
+//                                        kPrefix (per-row key bounds)
 //
 // Contract (that of attention_kernel.cuh without the rotation flags):
 //
@@ -16,6 +22,26 @@
 //   out[b, i, h*D:(h+1)*D] = softmax(q_h . k_g^T * scale + bias) . v_g,
 //   g = h / (H / KV) (any GQA ratio).
 //
+// Two compile-time flags, both off for K1 and K3:
+//
+//   kPrefix  (K4) int32 bounds kv_hi [B, Lq] in place of a bias: row i
+//            attends to keys kv < clamp(kv_hi[b, i], 1, Lk) (rows >= Lq to
+//            key 0).  The block reduces its rows' bounds to their maximum and
+//            loops over only ceil(max / 64) key tiles; a column at or past a
+//            row's bound gets -inf where a column >= Lk does.  The q tiles
+//            are issued last one first: under a causal mask they are the
+//            longest, so the heaviest blocks start first.
+//   kSplit   (K2) split-K: the key tiles of each (head, q tile, batch row) are
+//            cut into n_split contiguous, non-empty ranges, tiles
+//            [s*n/S, (s+1)*n/S) for split s of S over n tiles, one block
+//            each (grid y = q tile * S + s).  A block writes its unnormalised
+//            f32 o and its rows' (m, l) (max and sum, base 2) to scratch, and
+//            split_combine_kernel forms out = sum_s 2^(m_s - m*) o_s /
+//            sum_s 2^(m_s - m*) l_s with m* = max_s m_s.  The planner
+//            (rope_attention.py plan_splits) takes it when B*H*ceil(Lq/128)
+//            blocks would leave SMs idle: a cached partial step (Lq = 16)
+//            has 32 blocks on 132 SMs.
+//
 // Numerics are the template's: scores and the softmax in f32 (with a bias,
 // scores scaled with a rounded multiply and the bias added, as the plain
 // chain does); p is exp(x - m) with the running row max m, taken as
@@ -25,13 +51,16 @@
 // end.  Key columns >= Lk get -inf before the max and are
 // never scored, and K/V rows past Lk are zero-filled in shared memory (so
 // 0 * garbage cannot make a NaN): a row whose bias is -1e30 everywhere gives
-// mean(v) over the Lk real keys, as the plain reference does.  Rows >= Lq
-// are computed on zero q and never written.
+// mean(v) over the Lk real keys, as the plain reference does (across splits
+// too: every split of such a row has the same m, so each weight is 2^0).
+// Rows >= Lq are computed on zero q and never written.
 //
 // What bounds it: at the edit shape (B=1, L=2424, H=32, D=128) the two
 // products are 4*B*H*Lq*Lk*D = 96 GFLOP against ~40 MB of q/k/v/out, so it is
-// bound by the tensor cores' 989 TFLOP/s (bf16 dense): 0.097 ms.  The design,
-// FlashAttention-2's dataflow on Hopper's warpgroup MMA:
+// bound by the tensor cores' 989 TFLOP/s (bf16 dense): 0.097 ms.  At K2's
+// partial shapes (Lq = 16 against Lk ~ 2400) it is bound by reading K/V once
+// (40 MB: 0.012 ms), which only a grid that covers the SMs can do.  The
+// design, FlashAttention-2's dataflow on Hopper's warpgroup MMA:
 //
 // * one block per (head, 128-row q tile, batch row), head the fastest grid
 //   index, so the H heads of one (b, q tile) run side by side and share the
@@ -50,8 +79,9 @@
 //   from shared memory, so a K/V tile is read from shared memory once per
 //   warpgroup instead of once per warp (with mma.sync and ldmatrix the first
 //   version of this body was bound by those reads: 0.48 ms at the edit
-//   shape on an H100, against 0.36 ms now).  The S accumulator is exponentiated in place and repacked as P's
-//   A fragments, so P never leaves registers;
+//   shape on an H100, against 0.36 ms now).  The S accumulator is
+//   exponentiated in place and repacked as P's A fragments, so P never
+//   leaves registers;
 // * software pipelining: S_{t+1} = Q.K_{t+1}^T is issued before tile t's
 //   softmax, so the tensor cores work while the softmax runs (one wgmma
 //   wait per tile, for S_{t+1} and P_t.V_t together);
@@ -235,13 +265,21 @@ __device__ __forceinline__ float quad_sum(float v) {
 // Accumulator layout of wgmma m64nN (and of mma.m16n8 per n8 block): for
 // warp w of the warpgroup and lane = 4 * gid + tig, d[4 * j + e] sits at row
 // 16 * w + gid + 8 * (e >> 1), column 8 * j + 2 * tig + (e & 1).
-template <int D, bool kBias>
+//
+// kSplit: o_part [S, B*Lq*H, D] f32 and ml [S, B*Lq*H] (m, l) float2, row
+// (b * Lq + i) * H + h of split s, written for rows < Lq; out unused.
+template <int D, bool kBias, bool kPrefix, bool kSplit>
 __global__ void __launch_bounds__(kThreads)
 attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v,
-                     const float* __restrict__ bias, bf16* __restrict__ out,
-                     int Lq, int Lk, int H, int KV, float scale) {
+                     const float* __restrict__ bias,
+                     const int* __restrict__ kv_hi, bf16* __restrict__ out,
+                     float* __restrict__ o_part, float2* __restrict__ ml,
+                     int Lq, int Lk, int H, int KV, int n_split,
+                     float scale) {
   static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static_assert(!(kPrefix && (kBias || kSplit)),
+                "prefix bounds take no bias and no split");
   constexpr int kChunks = D / 8;        // 16-byte chunks per row
   constexpr int kTile = kKeys * D;      // elements of one K or V tile
   constexpr int kN = kKeys / 8;         // n8 blocks of S
@@ -257,7 +295,13 @@ attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int h = blockIdx.x, b = blockIdx.z;
-  const int q0 = blockIdx.y * kRows;
+  int q_tile = blockIdx.y, split = 0;
+  if constexpr (kSplit) {
+    q_tile = blockIdx.y / n_split;
+    split = blockIdx.y % n_split;
+  }
+  if constexpr (kPrefix) q_tile = gridDim.y - 1 - blockIdx.y;
+  const int q0 = q_tile * kRows;
   const int g = h / (H / KV);
   const long long q_row = (long long)H * D, kv_row = (long long)KV * D;
   const bf16* qb = q + (long long)b * Lq * q_row + (long long)h * D;
@@ -286,15 +330,42 @@ attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   };
 
-  const int n_tiles = (Lk + kKeys - 1) / kKeys;
-  load_kv(0, 0);
+  // this thread's two q rows
+  const int row_lo = q0 + warp * 16 + gid, row_hi = row_lo + 8;
+
+  // the key tiles this block reads: [t_begin, t_end)
+  int t_begin = 0, t_end = (Lk + kKeys - 1) / kKeys;
+  // kPrefix: the rows' key bounds, clamped to [1, Lk] (rows >= Lq are never
+  // written; bound 1 keeps them defined), and the block's highest bound
+  int lim_lo = Lk, lim_hi = Lk;
+  if constexpr (kPrefix) {
+    __shared__ int hi_max;
+    auto bound = [&](int row) {
+      return row < Lq ? min(max(kv_hi[(long long)b * Lq + row], 1), Lk) : 1;
+    };
+    lim_lo = bound(row_lo);
+    lim_hi = bound(row_hi);
+    if (tid == 0) hi_max = 1;
+    __syncthreads();
+    const int mx = __reduce_max_sync(0xffffffffu, max(lim_lo, lim_hi));
+    if (lane == 0) atomicMax(&hi_max, mx);
+    __syncthreads();
+    t_end = (hi_max + kKeys - 1) / kKeys;
+  }
+  if constexpr (kSplit) {  // n_split <= t_end: every range is non-empty
+    const int n = t_end;
+    t_begin = split * n / n_split;
+    t_end = (split + 1) * n / n_split;
+  }
+  const int n_tiles = t_end - t_begin;
+
+  load_kv(t_begin, 0);
   cp_async_commit();
-  if (n_tiles > 1) load_kv(1, 1);
+  if (n_tiles > 1) load_kv(t_begin + 1, 1);
   cp_async_commit();
 
-  // this thread's two q rows; bias rows clamped into range (rows >= Lq are
-  // never written, their bias is read only to keep them finite)
-  const int row_lo = q0 + warp * 16 + gid, row_hi = row_lo + 8;
+  // bias rows clamped into range (rows >= Lq are never written, their bias
+  // is read only to keep them finite)
   const float* bias_lo = nullptr;
   const float* bias_hi = nullptr;
   if constexpr (kBias) {
@@ -327,7 +398,7 @@ attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_commit();
   };
 
-  // prologue: Q and tile 0 landed, S_0
+  // prologue: Q and the first tile landed, its S
   cp_async_wait<1>();
   fence_async_smem();
   __syncthreads();
@@ -341,17 +412,17 @@ attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   wgmma_wait<0>();
   fence_regs(s);
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kKeys;
-    const bool next = t + 1 < n_tiles;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = (t_begin + j) * kKeys;
+    const bool next = j + 1 < n_tiles;
 
-    // the bias of tile t in the accumulator's layout, issued first so that
-    // its latency hides behind the barrier and S_{t+1}
+    // the bias of this tile in the accumulator's layout, issued first so
+    // that its latency hides behind the barrier and the next S
     float bz[kN * 4];
     if constexpr (kBias) {
 #pragma unroll
-      for (int j = 0; j < kN; ++j) {
-        const int col = k0 + j * 8 + 2 * tig;
+      for (int jn = 0; jn < kN; ++jn) {
+        const int col = k0 + jn * 8 + 2 * tig;
         float2 lo = make_float2(0.f, 0.f), hi = make_float2(0.f, 0.f);
         if (bias_vec) {
           if (col < Lk) {  // Lk even and col even: col + 1 < Lk as well
@@ -368,28 +439,33 @@ attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             hi.y = bias_hi[col + 1];
           }
         }
-        bz[4 * j] = lo.x;
-        bz[4 * j + 1] = lo.y;
-        bz[4 * j + 2] = hi.x;
-        bz[4 * j + 3] = hi.y;
+        bz[4 * jn] = lo.x;
+        bz[4 * jn + 1] = lo.y;
+        bz[4 * jn + 2] = hi.x;
+        bz[4 * jn + 3] = hi.y;
       }
     }
 
-    // Tile t+1 has landed (its group is the newest); after the barrier
-    // every warp is done with tile t-1, whose stage takes tile t+2.
+    // Tile j+1 has landed (its group is the newest); after the barrier
+    // every warp is done with tile j-1, whose stage takes tile j+2.
     if (next) cp_async_wait<0>();
     fence_async_smem();
     __syncthreads();
-    if (t + 2 < n_tiles) load_kv(t + 2, (t + 2) % kStages);
+    if (j + 2 < n_tiles) load_kv(t_begin + j + 2, (j + 2) % kStages);
     cp_async_commit();
 
-    // S_{t+1} runs on the tensor cores while tile t's softmax runs here
+    // S_{j+1} runs on the tensor cores while tile j's softmax runs here
     float sn[kN * 4];
-    if (next) issue_s(sn, (t + 1) % kStages);
+    if (next) issue_s(sn, (j + 1) % kStages);
 
-    // online softmax of tile t in f32, on x * log2(e) (exp(x - m) =
-    // 2^(x log2 e - m log2 e)); only the last tile has columns >= Lk
-    const bool edge = k0 + kKeys > Lk;
+    // online softmax of tile j in f32, on x * log2(e) (exp(x - m) =
+    // 2^(x log2 e - m log2 e)).  Columns >= Lk (only in the sequence's last
+    // tile) and, with kPrefix, at or past the row's bound get -inf.
+    bool edge;
+    if constexpr (kPrefix)
+      edge = k0 + kKeys > min(lim_lo, lim_hi);
+    else
+      edge = k0 + kKeys > Lk;
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int i = 0; i < kN * 4; ++i) {
@@ -398,13 +474,20 @@ attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         x = __fmul_rn(__fadd_rn(__fmul_rn(s[i], scale), bz[i]), kLog2e);
       else
         x = __fmul_rn(s[i], scale_log2);
-      if (edge && k0 + (i >> 2) * 8 + 2 * tig + (i & 1) >= Lk) x = -INFINITY;
+      const int col = k0 + (i >> 2) * 8 + 2 * tig + (i & 1);
+      if constexpr (kPrefix) {
+        if (edge && col >= ((i >> 1) & 1 ? lim_hi : lim_lo)) x = -INFINITY;
+      } else {
+        if (edge && col >= Lk) x = -INFINITY;
+      }
       s[i] = x;
       mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
     }
-    // tile 0 holds key 0 with a finite score, so m is finite from tile 0 on
-    // (alpha = exp(-inf) = 0 there); a later tile whose real columns are all
-    // -1e30 leaves m as it is
+    // a block's first tile holds a key with a finite score for every row
+    // (a split starts below Lk; under kPrefix key 0 is in tile 0 and every
+    // bound is >= 1), so m is finite from it on (alpha = exp(-inf) = 0
+    // there); a later tile whose columns are all -1e30 or all masked for a
+    // row leaves its m as it is
     float alpha[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -436,13 +519,13 @@ attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // O += P . V: MN-major V, 16 keys (two 8-row groups) per step
     const uint32_t vs =
-        smem_u32(KVs + (t % kStages) * 2 * kTile + kTile);
+        smem_u32(KVs + (j % kStages) * 2 * kTile + kTile);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kN / 2; ++kk)
       wgmma_pv<D>(o, pf[kk], desc_sw128(vs + kk * 2048, kBlockBytes, 1024));
     wgmma_commit();
-    wgmma_wait<0>();  // S_{t+1} and P_t . V_t
+    wgmma_wait<0>();  // S_{j+1} and P_j . V_j
     fence_regs(o);
     if (next) {
       fence_regs(sn);
@@ -453,6 +536,28 @@ attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_wait<0>();
 
   const float l_lo = quad_sum(l[0]), l_hi = quad_sum(l[1]);
+  if constexpr (kSplit) {
+    // unnormalised o and (m, l) of this split, for split_combine_kernel
+    const long long n_rows = (long long)gridDim.z * Lq * H;
+    const long long r_lo =
+        split * n_rows + ((long long)b * Lq + row_lo) * H + h;
+    const long long r_hi = r_lo + 8LL * H;
+#pragma unroll
+    for (int n = 0; n < kDn; ++n) {
+      const int col = n * 8 + 2 * tig;
+      if (row_lo < Lq)
+        *reinterpret_cast<float2*>(o_part + r_lo * D + col) =
+            make_float2(o[4 * n], o[4 * n + 1]);
+      if (row_hi < Lq)
+        *reinterpret_cast<float2*>(o_part + r_hi * D + col) =
+            make_float2(o[4 * n + 2], o[4 * n + 3]);
+    }
+    if (tig == 0) {
+      if (row_lo < Lq) ml[r_lo] = make_float2(m[0], l_lo);
+      if (row_hi < Lq) ml[r_hi] = make_float2(m[1], l_hi);
+    }
+    return;
+  }
   bf16* ob = out + (long long)b * Lq * q_row + (long long)h * D;
 #pragma unroll
   for (int n = 0; n < kDn; ++n) {
@@ -466,41 +571,112 @@ attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D, bool kBias>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const float* bias, void* out, int B, int Lq, int Lk, int H,
-                   int KV, float scale, cudaStream_t stream) {
+// The split-K combine: for each of the n_rows = B*Lq*H rows r (out's
+// [B, Lq, H*D] memory is [n_rows, D]), m* = max_s m_s[r] and
+// out[r] = sum_s 2^(m_s - m*) o_s[r] / sum_s 2^(m_s - m*) l_s[r], rounded
+// to bf16.  Each m_s is finite (every split holds a real key of every row).
+// One thread per 4 dims of a row, so a row's (m, l) reads are a broadcast.
+template <int D>
+__global__ void __launch_bounds__(256)
+split_combine_kernel(const float* __restrict__ o_part,
+                     const float2* __restrict__ ml, bf16* __restrict__ out,
+                     long long n_rows, int n_split) {
+  constexpr int kPer = D / 4;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_rows * kPer) return;
+  const long long r = i / kPer;
+  const int d0 = (int)(i % kPer) * 4;
+  float m_max = -INFINITY;
+  for (int s = 0; s < n_split; ++s) m_max = fmaxf(m_max, ml[s * n_rows + r].x);
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  float den = 0.f;
+  for (int s = 0; s < n_split; ++s) {
+    const float2 p = ml[s * n_rows + r];
+    const float w = ex2(p.x - m_max);
+    const float4 os =
+        *reinterpret_cast<const float4*>(o_part + (s * n_rows + r) * D + d0);
+    den += w * p.y;
+    acc[0] += w * os.x;
+    acc[1] += w * os.y;
+    acc[2] += w * os.z;
+    acc[3] += w * os.w;
+  }
+  __nv_bfloat162 res[2] = {__floats2bfloat162_rn(acc[0] / den, acc[1] / den),
+                           __floats2bfloat162_rn(acc[2] / den, acc[3] / den)};
+  *reinterpret_cast<uint2*>(out + r * D + d0) =
+      *reinterpret_cast<const uint2*>(res);
+}
+
+// Host side: the arguments of one call.  kv_hi only with kPrefix; o_part
+// and ml (f32 scratch, n_split x [B*Lq*H, D] and n_split x [B*Lq*H, 2]) only
+// with n_split > 1.
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* bias;
+  const int* kv_hi;
+  void* out;
+  float* o_part;
+  float* ml;
+  int B, Lq, Lk, H, KV, n_split;
+  float scale;
+};
+
+template <int D, bool kBias, bool kPrefix, bool kSplit>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
   // + 1024 bytes to align the K/V ring to the swizzle atom
   const int smem =
       (kStages * 2 * kKeys + kRows) * D * (int)sizeof(bf16) + 1024;
   cudaError_t err = cudaFuncSetAttribute(
-      attention_mma_kernel<D, kBias>,
+      attention_mma_kernel<D, kBias, kPrefix, kSplit>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(H, (Lq + kRows - 1) / kRows, B);
-  attention_mma_kernel<D, kBias><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), bias, static_cast<bf16*>(out), Lq, Lk, H,
-      KV, scale);
+  const int n_q = (a.Lq + kRows - 1) / kRows;
+  const dim3 grid(a.H, kSplit ? n_q * a.n_split : n_q, a.B);
+  attention_mma_kernel<D, kBias, kPrefix, kSplit>
+      <<<grid, kThreads, smem, stream>>>(
+          static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+          static_cast<const bf16*>(a.v), a.bias, a.kv_hi,
+          static_cast<bf16*>(a.out), a.o_part,
+          reinterpret_cast<float2*>(a.ml), a.Lq, a.Lk, a.H, a.KV, a.n_split,
+          a.scale);
+  err = cudaGetLastError();
+  if (!kSplit || err != cudaSuccess) return err;
+  const long long n_rows = (long long)a.B * a.Lq * a.H;
+  const long long n_threads = n_rows * (D / 4);
+  split_combine_kernel<D><<<(unsigned)((n_threads + 255) / 256), 256, 0,
+                            stream>>>(
+      a.o_part, reinterpret_cast<const float2*>(a.ml),
+      static_cast<bf16*>(a.out), n_rows, a.n_split);
   return cudaGetLastError();
 }
 
+template <int D, bool kPrefix, bool kSplit>
+cudaError_t launch_bias(const Args& a, cudaStream_t stream) {
+  if constexpr (kPrefix)
+    return launch<D, false, true, false>(a, stream);
+  else
+    return a.bias ? launch<D, true, false, kSplit>(a, stream)
+                  : launch<D, false, false, kSplit>(a, stream);
+}
+
 // bf16 q/k/v/out; D in {64, 128}; bias may be null.  Returns the
-// cudaError_t of the launch (0 on success).
+// cudaError_t of the first failing launch (0 on success).
+template <bool kPrefix = false, bool kSplit = false>
+int run(const Args& a, int D, cudaStream_t stream) {
+  if (D == 128) return (int)launch_bias<128, kPrefix, kSplit>(a, stream);
+  if (D == 64) return (int)launch_bias<64, kPrefix, kSplit>(a, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K1 and K3: no bounds, no split.
 inline int dispatch(const void* q, const void* k, const void* v,
                     const float* bias, void* out, int B, int Lq, int Lk, int H,
                     int KV, int D, float scale, cudaStream_t stream) {
-  if (D == 128)
-    return (int)(bias ? launch<128, true>(q, k, v, bias, out, B, Lq, Lk, H,
-                                          KV, scale, stream)
-                      : launch<128, false>(q, k, v, bias, out, B, Lq, Lk, H,
-                                           KV, scale, stream));
-  if (D == 64)
-    return (int)(bias ? launch<64, true>(q, k, v, bias, out, B, Lq, Lk, H,
-                                         KV, scale, stream)
-                      : launch<64, false>(q, k, v, bias, out, B, Lq, Lk, H,
-                                          KV, scale, stream));
-  return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, bias, nullptr, out, nullptr, nullptr,
+               B, Lq, Lk, H, KV, 1, scale};
+  return run(a, D, stream);
 }
 
 }  // namespace tc

@@ -36,11 +36,11 @@ _SIGNATURES = {
         [_P] * 11 + [_I] * 6 + [_LL, _LL, _F, _I, _P], _I),
     "mmada_rope_rotate": ([_P] * 4 + [_I] * 4 + [_LL, _P], _I),
     "mmada_flash_attention_rope_qonly": (
-        [_P] * 7 + [_I] * 6 + [_LL, _F, _I, _P], _I),
+        [_P] * 10 + [_I] * 7 + [_LL, _F, _I, _P], _I),
     "mmada_flash_attention": (
         [_P] * 5 + [_I] * 6 + [_F, _I, _P], _I),
     "mmada_flash_attention_rope_prefix": (
-        [_P] * 9 + [_I] * 6 + [_LL, _LL, _F, _I, _P], _I),
+        [_P] * 11 + [_I] * 6 + [_LL, _LL, _F, _I, _P], _I),
 }
 
 

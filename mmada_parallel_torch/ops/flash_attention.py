@@ -8,8 +8,8 @@ run and which the kernel is held to.
 
 A contiguous ``[B, L, H, D]`` tensor is the same memory as packed
 ``[B, L, H*D]``, so the kernel reads the heads in place.  bf16 runs the
-tensor-core body ``csrc/attention_mma.cuh`` (shared with K1), f32 the FMA
-template ``csrc/attention_kernel.cuh`` with RoPE off.
+tensor-core body ``csrc/attention_mma.cuh`` (shared with K1, K2 and K4),
+f32 the FMA template ``csrc/attention_kernel.cuh`` with RoPE off.
 """
 
 from __future__ import annotations

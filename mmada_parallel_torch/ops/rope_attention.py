@@ -14,12 +14,20 @@ kernels are ported as hand-written CUDA kernels:
   template ``csrc/attention_kernel.cuh``;
 * ``flash_attention_rope_qonly`` (K2, q rotated, k a pre-rotated cache) as
   ``csrc/flash_attention_rope_qonly.cu``; :func:`flash_attention_rope_qonly`
-  and :func:`flash_attention_rope_qonly_reference`;
+  and :func:`flash_attention_rope_qonly_reference`.  In bf16 it rotates q
+  once into scratch and runs the tensor-core body; where the grid would
+  leave SMs idle (a cached partial step), :func:`plan_splits` says into how
+  many contiguous ranges the kernel cuts each head's key tiles (split-K);
+  a second kernel combines their partial softmax states;
 * ``flash_attention_rope_prefix`` (K4, K1 with a per-row prefix mask
   ``kv < kv_hi[b, q]`` in place of a bias, skipping key tiles past a q
   tile's highest bound) as ``csrc/flash_attention_rope_prefix.cu``;
   :func:`flash_attention_rope_prefix` and
-  :func:`flash_attention_rope_prefix_reference`.
+  :func:`flash_attention_rope_prefix_reference`.  In bf16 it rotates q and
+  k once, as K1, and runs the tensor-core body with the bounds.
+
+All four kernels run the tensor-core body ``csrc/attention_mma.cuh`` in
+bf16 and the FMA template ``csrc/attention_kernel.cuh`` in f32.
 
 The raw launchers return tensors with no autograd history; they raise when
 grad is enabled and an input requires grad, so that gradients go through
@@ -32,11 +40,13 @@ kernels read each head's column slice in place: no reshape, no copy.
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["rope_tensor", "apply_rope", "rope_rotate",
+__all__ = ["rope_tensor", "apply_rope", "rope_rotate", "plan_splits",
            "flash_attention_rope",
            "flash_attention_rope_reference", "flash_attention_rope_qonly",
            "flash_attention_rope_qonly_reference",
@@ -46,6 +56,8 @@ __all__ = ["rope_tensor", "apply_rope", "rope_rotate",
 NEG_INF = -1e30
 _KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the tensor-core body's tiles (csrc/attention_mma.cuh kRows, kKeys)
+Q_TILE, K_TILE = 128, 64
 
 
 def _rotate_half(x: torch.Tensor) -> torch.Tensor:
@@ -245,6 +257,36 @@ def rope_rotate(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor, *,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def plan_splits(B: int, H: int, Lq: int, Lk: int, sm_count: int) -> int:
+    """How many key ranges (split-K) K2's bf16 launch cuts each (head, q
+    tile, batch row) into, for a card with ``sm_count`` SMs.
+
+    The body runs one block per (head, 128-row q tile, batch row), one
+    block per SM.  With at least ``sm_count`` such blocks the grid covers
+    the card: 1.  Fewer (a cached partial step: B=1, H=32, Lq=16 gives 32)
+    leave SMs idle, so the key tiles are split (split ``s`` of ``S`` takes
+    tiles ``[s*n//S, (s+1)*n//S)`` of the ``n`` 64-key tiles), at least
+    enough for the grid to cover every SM and at most one tile per split,
+    so no range is empty; among those counts the one with the fewest
+    tile-times (waves of blocks x the longest range) wins, the smallest on
+    a tie.  Cached: a sampler asks for the same few shapes at every
+    step."""
+    blocks = B * H * math.ceil(Lq / Q_TILE)
+    n_tiles = math.ceil(Lk / K_TILE)
+    if blocks >= sm_count or n_tiles <= 1:
+        return 1
+    least = min(math.ceil(sm_count / blocks), n_tiles)
+    return min(range(least, n_tiles + 1),
+               key=lambda S: (math.ceil(blocks * S / sm_count)
+                              * math.ceil(n_tiles / S), S))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _launch_qonly(q, k, v, sin_q, cos_q, bias, H: int, KV: int):
     from mmada_parallel_torch.ops import _cuda
     check_no_grad("flash_attention_rope_qonly", q, k, v, sin_q, cos_q, bias)
@@ -253,13 +295,30 @@ def _launch_qonly(q, k, v, sin_q, cos_q, bias, H: int, KV: int):
     _check_table("cos_q", cos_q, B, Lq, D, q.device)
     if cos_q.shape != sin_q.shape:
         raise ValueError("sin and cos tables must have one shape")
+    q_rot = o_part = ml = None
+    n_split = 1                  # the f32 FMA template has no split
+    if q.dtype == torch.bfloat16:
+        # the tensor-core body: q rotated once into bf16 scratch; split-K's
+        # partial o [S*B*Lq*H, D] and (m, l) [S*B*Lq*H, 2] in one f32 block
+        check_aligned("flash_attention_rope_qonly", 16, q, k, v, sin_q,
+                      cos_q)
+        check_aligned("flash_attention_rope_qonly", 8, bias)
+        n_split = plan_splits(B, H, Lq, Lk, _sm_count(q.device))
+        q_rot = torch.empty_like(q)
+        if n_split > 1:
+            rows = n_split * B * Lq * H
+            part = torch.empty(rows * (D + 2), dtype=torch.float32,
+                               device=q.device)
+            o_part = part.data_ptr()
+            ml = o_part + rows * D * part.element_size()
     out = torch.empty_like(q)
     lib = _cuda.library()
     with torch.cuda.device(q.device):
         err = lib.mmada_flash_attention_rope_qonly(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), sin_q.data_ptr(),
             cos_q.data_ptr(), bias.data_ptr() if bias is not None else None,
-            out.data_ptr(), B, Lq, Lk, H, KV, D, tq, D ** -0.5,
+            q_rot.data_ptr() if q_rot is not None else None, o_part, ml,
+            out.data_ptr(), B, Lq, Lk, H, KV, D, n_split, tq, D ** -0.5,
             _KERNEL_DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
@@ -331,8 +390,10 @@ def flash_attention_rope_qonly(q: torch.Tensor, k: torch.Tensor,
     ``Lq`` and ``Lk`` are independent.  ``bias`` is an optional f32
     ``[B, 1, Lq, Lk]``.  A CUDA tensor launches the kernel (bf16 or f32,
     D in {64, 128}, any GQA ratio) and raises on anything it does not take;
-    a CPU tensor runs :func:`flash_attention_rope_qonly_reference`.
-    ``flash_attention_rope_qonly.launches`` counts kernel launches."""
+    a CPU tensor runs :func:`flash_attention_rope_qonly_reference`.  A bf16
+    launch splits the key tiles as :func:`plan_splits` says for this card.
+    ``flash_attention_rope_qonly.launches`` counts calls that launched the
+    kernel (one per call: the pre-pass, the body and the combine)."""
     H = n_heads
     KV = n_kv_heads if n_kv_heads is not None else H
     if q.device.type == "cpu":
@@ -389,13 +450,21 @@ def _launch_prefix(q, k, v, sin_q, cos_q, sin_k, cos_k, kv_hi, H: int,
     _check_table("cos_k", cos_k, B, Lk, D, q.device)
     if cos_q.shape != sin_q.shape or cos_k.shape != sin_k.shape:
         raise ValueError("sin and cos tables must have one shape")
+    q_rot = k_rot = None
+    if q.dtype == torch.bfloat16:
+        # the tensor-core body: q and k rotated once into bf16 scratch
+        check_aligned("flash_attention_rope_prefix", 16, q, k, v, sin_q,
+                      cos_q, sin_k, cos_k)
+        q_rot, k_rot = torch.empty_like(q), torch.empty_like(k)
     out = torch.empty_like(q)
     lib = _cuda.library()
     with torch.cuda.device(q.device):
         err = lib.mmada_flash_attention_rope_prefix(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), sin_q.data_ptr(),
             cos_q.data_ptr(), sin_k.data_ptr(), cos_k.data_ptr(),
-            hi.data_ptr(), out.data_ptr(), B, Lq, Lk, H, KV, D, tq, tk,
+            hi.data_ptr(), q_rot.data_ptr() if q_rot is not None else None,
+            k_rot.data_ptr() if k_rot is not None else None,
+            out.data_ptr(), B, Lq, Lk, H, KV, D, tq, tk,
             D ** -0.5, _KERNEL_DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
@@ -418,10 +487,12 @@ def flash_attention_rope_prefix(q: torch.Tensor, k: torch.Tensor,
     tile's highest bound, so a causal mask costs about half of the dense
     one.  ``sin``/``cos`` as for :func:`flash_attention_rope` (per-row
     ``[B, L, D]`` tables only when Lq == Lk).  A CUDA tensor launches the
-    kernel (bf16 or f32, D in {64, 128}, any Lk and GQA ratio) and raises on
-    anything it does not take; a CPU tensor runs
+    kernel (bf16: rotation pre-pass + tensor-core body; f32: the FMA
+    template; D in {64, 128}, any Lk and GQA ratio) and raises on anything
+    it does not take; a CPU tensor runs
     :func:`flash_attention_rope_prefix_reference`.
-    ``flash_attention_rope_prefix.launches`` counts kernel launches."""
+    ``flash_attention_rope_prefix.launches`` counts calls that launched the
+    kernel (one per call)."""
     H = n_heads
     KV = n_kv_heads if n_kv_heads is not None else H
     if q.device.type == "cpu":

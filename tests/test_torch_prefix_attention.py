@@ -209,3 +209,38 @@ def test_kernel_matches_plain_on_cuda(cuda_device):
         torch.cuda.synchronize()
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                    rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,D,KV", [("causal", 128, 8), ("causal", 64, 2),
+                                       ("mixed", 128, 2), ("edge", 64, 8),
+                                       ("edge", 128, 2)])
+def test_kernel_bf16_bounds_on_cuda(cuda_device, kind, D, KV):
+    """K4's bf16 tensor-core path against its plain version: causal, mixed
+    and edge bounds (0, negative and past Lk), D=64 and GQA, an Lq that is
+    no multiple of the 128-row q tile."""
+    from mmada_parallel_torch.models.llada import _rope_sin_cos
+    g = torch.Generator(device=cuda_device).manual_seed(D + KV)
+    B, L, H = 3, 333, 8
+    q, k, v = (torch.randn(B, L, n * D, generator=g, device=cuda_device
+                           ).bfloat16() for n in (H, KV, KV))
+    s, c = _rope_sin_cos(L, D, 10000.0, cuda_device)
+    if kind == "causal":
+        hi = TM.prefix_bounds(L, device=cuda_device)[None].expand(B, L)
+    elif kind == "mixed":
+        hi = TM.mixed_prefix_bounds(L, 1, 1, 1, ((20, 140),), 60,
+                                    device=cuda_device)
+    else:
+        hi = torch.randint(-3, L + 50, (B, L), generator=g,
+                           device=cuda_device)
+        hi[0, :7], hi[1, :7] = 0, 10_000
+    hi = hi.to(torch.int32).contiguous()
+    before = TR.flash_attention_rope_prefix.launches
+    got = TR.flash_attention_rope_prefix(q, k, v, s, c, hi, n_heads=H,
+                                         n_kv_heads=KV)
+    assert TR.flash_attention_rope_prefix.launches == before + 1
+    want = TR.flash_attention_rope_prefix_reference(q, k, v, s, c, hi,
+                                                    n_heads=H, n_kv_heads=KV)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2,
+                               rtol=1e-2)

@@ -196,6 +196,41 @@ def test_kernels_match_plain_on_cuda(cuda_device):
         torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_split", [1, 3, None])
+@pytest.mark.parametrize("Lq", [1, 16, 65, 308, 600])
+def test_qonly_bf16_split_on_cuda(cuda_device, monkeypatch, Lq, n_split):
+    """K2's bf16 tensor-core path against its plain version: partial and
+    full shapes, split-K forced off (1), on (3) and planned (None); GQA 8/2,
+    per-row tables, a padding bias and one row masked on every key."""
+    from mmada_parallel_torch.models.llada import _rope_sin_cos
+    if n_split is not None:
+        monkeypatch.setattr(TR, "plan_splits", lambda *args: n_split)
+    g = torch.Generator(device=cuda_device).manual_seed(Lq)
+    B, Lk, H, KV, D = 2, 600, 8, 2, 128
+    q, k, v = (torch.randn(B, L, n * D, generator=g, device=cuda_device
+                           ).bfloat16() for L, n in ((Lq, H), (Lk, KV),
+                                                     (Lk, KV)))
+    s, c = _rope_sin_cos(Lk, D, 10000.0, cuda_device)
+    pos = torch.stack([torch.randperm(Lk, generator=g, device=cuda_device
+                                      )[:Lq] for _ in range(B)]).sort().values
+    sq, cq = s[pos].contiguous(), c[pos].contiguous()
+    keep = torch.arange(Lk, device=cuda_device) < torch.tensor(
+        [Lk, 350], device=cuda_device)[:, None]
+    bias = torch.where(keep[:, None, None, :], 0.0, -1e30).expand(
+        B, 1, Lq, Lk).contiguous()
+    bias[1, 0, Lq // 2, :] = -1e30
+    kw = dict(n_heads=H, n_kv_heads=KV)
+    before = TR.flash_attention_rope_qonly.launches
+    got = TR.flash_attention_rope_qonly(q, k, v, sq, cq, bias, **kw)
+    assert TR.flash_attention_rope_qonly.launches == before + 1
+    want = TR.flash_attention_rope_qonly_reference(q, k, v, sq, cq, bias,
+                                                   **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2,
+                               rtol=1e-2)
+
+
 def test_masks_match_jax():
     from mmada_parallel_tpu.ops import masks as JM
     from mmada_parallel_torch.ops import masks as TM
