@@ -1,7 +1,9 @@
 """On-card proof that the PyTorch/CUDA port builds, is right and runs its
 paths: the variant-A thinking-aware edit (exact and feature-cached), the
-variant-M interleave generation (exact and feature-cached), and the A and M
-train steps with gradients through the attention kernels.
+variant-M interleave generation (exact and feature-cached), text-to-image
+(A exact and cached, M), understanding, the streaming demo, the four
+servers, and the A and M train steps with gradients through the attention
+kernels.
 
     python3 chip_smoke.py        # from the repository root, one H100
 
@@ -33,24 +35,38 @@ Phases (each prints its own lines; any failure exits non-zero):
    names of one K2 and one K4 bf16 call (the tensor-core body, not the FMA
    template); then each kernel's autograd Function: q/k/v gradients
    against plain autograd, bf16 and f32;
+   K1 and K2 also at the text-to-image and understanding servers' shapes
+   (the T2I server's left-padded B=4 batch, the MMU server's right-padded
+   B=2 batch with re-ranked positions, the cached A T2I partial step);
 3. small f32 models (head_dim 64): the kernel path gives the same tokens as
    the plain attention at temperature 0 on the exact edit, the cached edit,
-   the exact and cached interleave, and the exact edit with bf16-style
-   (non-fp32) RoPE, which runs K3; and three A train steps through the
+   the exact and cached interleave, the exact edit with bf16-style
+   (non-fp32) RoPE, which runs K3, and the A text-to-image (exact and
+   cached); each server's ragged batch (TI2TI, interleave, T2I with its
+   padding masks, MMU ragged) gives the plain attention's rows and each row
+   its unpadded solo run's tokens; and three A train steps through the
    kernel path equal the plain path's;
 4. at the full width of the 8B backbone (all 32 layers, one set of random
    bf16 weights from a seed) with the full-size tokenizers: the exact edit
    (K1), the exact edit with non-fp32 RoPE (K3), the cached edit (K2 and
-   K1), the exact interleave (K1) and the cached interleave (K2).  Each run
-   sets every launch count to 0 just before it and checks them just after;
-   codes, pixels, wall time and peak memory are checked and printed; the
-   exact and the cached edit run once more under ``torch.profiler`` (device
-   time by kernel class, idle share);
+   K1), the exact interleave (K1) and the cached interleave (K2); the vocab
+   head with bf16 operands and an f32 result against the f32 upcast at the
+   MMU and T2I head shapes; the VQ codes of one image with TF32 on and off
+   and the pipelines' encoders held to the TF32-off codes; the A
+   text-to-image (K1) and its cached sampler (K2), the M text-to-image
+   server (K1 with the bias), the MMU server and ``mmu_generate_fast``, the
+   streaming demo on the A edit, and the A and M (exact and cached) servers
+   with two requests from two threads.  Each run sets every launch count to
+   0 just before it and checks them just after; codes, pixels, wall time
+   and peak memory are checked and printed; the exact and the cached edit
+   and the cached A text-to-image run once more under ``torch.profiler``
+   (device time by kernel class, idle share);
 5. training at full width, 4 of the 32 layers (f32 params, bf16 compute,
    AdamW, clip 4.0), after the inference weights are freed: the A SFT step
    of ``cli/train_a.py`` (B=1, L=5120, 2 accumulation microbatches, remat
    ``whole_layer``: exactly 16 K1 launches, loss and grad norm against the
-   plain attention path, 3 finite steps of each) and the M
+   plain attention path, 3 finite steps of each, and 3 more with the vocab
+   head's old f32 upcast for its before and after) and the M
    ``forward_process`` step on a padded ``[t2i | lm | mmu]`` batch at the
    interleave length, with seconds per step, tokens per second and peak
    memory; one more step of each (A plain, A K1, M) under ``torch.profiler``
@@ -366,6 +382,7 @@ def phase_kernel() -> dict:
     """K1 against its plain version at the edit shapes; returns the
     record's measured fields (B=1 edit shape timings: the cond forward)."""
     import torch
+    from mmada_parallel_torch.ops.masks import ragged_positions
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
     L, H, D = EDIT_L, EDIT_H, EDIT_D
@@ -413,11 +430,28 @@ def phase_kernel() -> dict:
     recs.append(_kernel_case("g/odd-Lk bias D64", 2, 301, 301, 4, 2, 64,
                              bf16, BF16_TOL, gen, bias=b3,
                              per_row_pos=pos3))
+    # (h) the [t2i-m] server batch: 2 text prompts left-padded to their
+    # bucket, cond and uncond rows (B=4), shared tables, the padding bias;
+    # (i) the [mmu] server batch: 2 prompts right-padded to their bucket,
+    # per-row re-ranked positions, the padding bias
+    t2i_mask = _t2i_m_mask(dev)
+    Lt = t2i_mask.shape[1]
+    h = _kernel_case("h/t2i-server", 4, Lt, Lt, H, H, D, bf16, BF16_TOL, gen,
+                     bias=_mask_bias(t2i_mask), timed=True)
+    mmu_mask = _mmu_mask(dev)
+    Lu = mmu_mask.shape[1]
+    i = _kernel_case("i/mmu-server", 2, Lu, Lu, H, H, D, bf16, BF16_TOL, gen,
+                     bias=_mask_bias(mmu_mask), timed=True,
+                     per_row_pos=ragged_positions(mmu_mask))
+    recs += [h, i]
     log(f"[kernel] K1 edit shape B=1: kernel {a1['ms']:.3f} ms plain "
         f"{a1['plain_ms']:.3f} ms; B=2: kernel {a2['ms']:.3f} ms plain "
         f"{a2['plain_ms']:.3f} ms; A-train B=1 L={TRAIN_L}: kernel "
         f"{e['ms']:.3f} ms plain {e['plain_ms']:.3f} ms; M-train B=3 L={Lm}: "
-        f"kernel {f['ms']:.3f} ms plain {f['plain_ms']:.3f} ms")
+        f"kernel {f['ms']:.3f} ms plain {f['plain_ms']:.3f} ms; t2i-server "
+        f"B=4 L={Lt}: kernel {h['ms']:.3f} ms plain {h['plain_ms']:.3f} ms; "
+        f"mmu-server B=2 L={Lu}: kernel {i['ms']:.3f} ms plain "
+        f"{i['plain_ms']:.3f} ms")
     return dict(a1, max_abs_err=max(r["max_abs_err"] for r in recs),
                 library_ms=None)
 
@@ -556,6 +590,90 @@ def _m_sequence_length() -> int:
     return tk.assemble_interleave_sequence(prompt, 1024, 256, T)[1].total_len
 
 
+# The full-width text-to-image and understanding requests (phase 4), whose
+# shapes phase 2 also runs the kernels at
+T2I_PROMPT = "a red apple on a wooden table"
+MMU_QUESTION = "what is in the image?"
+T2I_A_PARTIAL = math.ceil((1 - 0.9) * 1024)  # 103 slots at cache_ratio 0.9
+MMU_NEW = 128                                # max_new_tokens
+
+
+def _t2i_a_request():
+    """``(ids, layout, uncond prefix)`` of the variant-A text-to-image
+    request: the prompt through the stand-in tokenizer, then the 32 x 32
+    all-mask image span of a 512x512 image."""
+    import numpy as np
+    from mmada_parallel_torch import tokens as tk
+    tok = StandInTokenizer()
+    cond, uncond = tk.make_t2i_prompt(T2I_PROMPT)
+    ids, layout = tk.assemble_ti2ti_sequence(tok(cond)["input_ids"], 0, 32,
+                                             32, [])
+    return ids, layout, np.asarray(tok(uncond)["input_ids"], np.int64)
+
+
+def _t2i_a_lengths():
+    """Lengths of the cond and the uncond sequence of the A T2I request."""
+    ids, layout, un = _t2i_a_request()
+    return len(ids), len(un) + len(ids) - layout.code_start
+
+
+def _t2i_m_texts():
+    """The two variant-M T2I texts, templated to 52 and 42 tokens: one
+    64-token bucket."""
+    ids = StandInTokenizer()(T2I_PROMPT)["input_ids"]
+    return [ids, ids[:40]]
+
+
+def _t2i_m_mask(device):
+    """The padding mask ``T2IServer`` builds for the two texts: the cond
+    rows left-padded to the bucket, then the uncond rows."""
+    import torch
+    from mmada_parallel_torch import tokens as tk
+    from mmada_parallel_torch.serving import _round_bucket
+    T = tk.TOKENS_M
+    lens = [1 + len(tk.normalize_text_ids(t, T.bos, T.eos))
+            for t in _t2i_m_texts()]
+    plen = _round_bucket(max(lens), 32, 512)
+    mask = torch.zeros(4, plen + 1026, dtype=torch.bool)
+    for i, n in enumerate(lens):
+        mask[i, plen - n:] = True
+    mask[2:, plen - 3:] = True
+    return mask.to(device)
+
+
+def _mmu_prompts():
+    """Two understanding prompts, ``[mmu][soi] 1024 seeded codes [eoi]``
+    then a 50- or a 21-id question: one 64-token bucket (1088)."""
+    import numpy as np
+    from mmada_parallel_torch import tokens as tk
+    T = tk.TOKENS_M
+    rng = np.random.default_rng(0)
+    q = tk.normalize_text_ids(StandInTokenizer()(MMU_QUESTION)["input_ids"],
+                              T.bos, T.eos, append_eos_always=False)
+    return [[T.mmu, T.soi]
+            + (rng.integers(0, T.codebook_size, 1024) + T.vq_offset).tolist()
+            + [T.eoi] + question for question in (q, q[:20] + [T.eos])]
+
+
+def _mmu_mask(device):
+    """The padding mask ``mmu_generate`` gets from ``MMUServer`` for the two
+    prompts, extended over the answer span."""
+    import torch
+    from mmada_parallel_torch.serving import _round_bucket
+    prompts = _mmu_prompts()
+    plen = _round_bucket(max(map(len, prompts)), 64, 2048)
+    mask = torch.ones(2, plen + MMU_NEW, dtype=torch.bool)
+    for i, p in enumerate(prompts):
+        mask[i, len(p):plen] = False
+    return mask.to(device)
+
+
+def _mask_bias(mask):
+    """The pairwise f32 bias ``llada_hidden`` builds from a padding mask."""
+    from mmada_parallel_torch.ops.masks import pairwise_padding_mask, to_bias
+    return to_bias(pairwise_padding_mask(mask)).contiguous()
+
+
 def phase_kernel_qonly() -> dict:
     """K2 against its plain version at the cached samplers' shapes."""
     import torch
@@ -608,6 +726,12 @@ def phase_kernel_qonly() -> dict:
                             BF16_TOL, gen, n_split=3))
     recs.append(_qonly_case("g/full-forced-split", 1, 333, 517, 8, 2, D,
                             bf16, BF16_TOL, gen, n_split=4))
+    # (h) the cached A text-to-image partial step: ceil(0.1 * 1024) = 103
+    # image slots against the cond and the uncond sequence
+    t2i = [_qonly_case(f"h/t2i-a-partial Lk={Lk}", 1, T2I_A_PARTIAL, Lk, H,
+                       H, D, bf16, BF16_TOL, gen, timed=True)
+           for Lk in sorted(set(_t2i_a_lengths()))]
+    recs += t2i
     # the device kernels of a split and of an unsplit bf16 call
     q, k = (torch.randn(1, n, H * D, device=dev).to(bf16) for n in (16, L))
     sin, cos = _rope_tables(16, D, dev)
@@ -620,12 +744,16 @@ def phase_kernel_qonly() -> dict:
                                                    n_heads=H))
     # the planner's choice against other split counts, by device time
     for B, Lq, Lk, counts in ((1, 16, L, (1, 2, 4, 5, 8, 12, 19, 38)),
-                              (2, 308, Lm, (1, 2, 3, 4))):
+                              (2, 308, Lm, (1, 2, 3, 4)),
+                              (1, T2I_A_PARTIAL, max(_t2i_a_lengths()),
+                               (1, 2, 3, 5, 9, 18))):
         _split_sweep(B, Lq, Lk, H, D, counts)
     log(f"[kernel] K2 A-partial B=1 Lq=16 (split {a['splits']}): "
         f"{a['ms']:.3f} ms; A-full B=1 L={L}: {full['ms']:.3f} ms; "
         f"M-partial B=2 Lq=308 (split {c['splits']}): {c['ms']:.3f} ms; "
-        f"M-full B=2 L={Lm}: {f['ms']:.3f} ms")
+        f"M-full B=2 L={Lm}: {f['ms']:.3f} ms; " + "; ".join(
+            f"t2i-a-partial B=1 Lq={T2I_A_PARTIAL} (split {r['splits']}): "
+            f"{r['ms']:.3f} ms" for r in t2i))
     return dict(full, max_abs_err=max(r["max_abs_err"] for r in recs),
                 library_ms=None)
 
@@ -980,9 +1108,9 @@ def _small_llada(gen, vocab_size: int, **overrides):
 
 
 def _token_exact(name: str, run, kernels) -> None:
-    """``run(impl) -> (text, info)`` under ``auto`` (kernels) and ``xla``
-    (plain): the ids, codes and text must be equal, and the named kernels
-    must have launched under ``auto`` only."""
+    """``run(impl) -> {name: array or text}`` under ``auto`` (kernels) and
+    ``xla`` (plain): every output must be equal, and the named kernels must
+    have launched under ``auto`` only."""
     import numpy as np
     outs = []
     for impl in ("auto", "xla"):
@@ -995,15 +1123,22 @@ def _token_exact(name: str, run, kernels) -> None:
         if impl == "xla" and any(counts.values()):
             raise AssertionError(f"{name}: the plain path launched kernels "
                                  f"({counts})")
-    (text_k, info_k), (text_p, info_p) = outs
-    if not (np.array_equal(info_k["ids"], info_p["ids"])
-            and np.array_equal(info_k["codes"], info_p["codes"])
-            and text_k == text_p):
+    got, want = outs
+    if not all(np.array_equal(np.asarray(got[k]), np.asarray(want[k]))
+               for k in want):
         raise AssertionError(f"{name}: kernel path and plain attention gave "
                              f"different tokens at temperature 0")
-    log(f"[slice-small] {name}, {info_k['ids'].shape[1]} tokens: kernel "
-        f"path ({', '.join(kernels)}) == plain attention, token-exact at "
+    shapes = ", ".join(f"{k} {list(np.shape(v))}" for k, v in got.items()
+                       if not isinstance(v, str))
+    log(f"[slice-small] {name} ({shapes}): kernel path "
+        f"({', '.join(kernels)}) == plain attention, token-exact at "
         f"temperature 0")
+
+
+def _pipe_outputs(out) -> dict:
+    """A pipeline's ``(image, text, info)`` as the outputs to compare."""
+    _, text, info = out
+    return {"ids": info["ids"], "codes": info["codes"], "text": text}
 
 
 def phase_small_slice() -> None:
@@ -1029,8 +1164,9 @@ def phase_small_slice() -> None:
     def edit(c, use_cache=False, text_steps=8):
         pipe = TI2TIPipeline(c, params, vcfg, vparams, StandInTokenizer())
         o = dataclasses.replace(opts, text_steps=text_steps)
-        return pipe("make the sky purple", _edit_image(32), 32, 32, o,
-                    text_gen_length=16, seed=3, use_cache=use_cache)[1:]
+        return _pipe_outputs(pipe("make the sky purple", _edit_image(32), 32,
+                                  32, o, text_gen_length=16, seed=3,
+                                  use_cache=use_cache))
 
     def impl_cfg(c, impl):
         return dataclasses.replace(c, attention_impl=impl)
@@ -1058,8 +1194,8 @@ def phase_small_slice() -> None:
         pipe = InterleavePipeline(c, mparams, mvcfg, mvparams,
                                   StandInTokenizer(), num_vq_tokens=256,
                                   max_seq_length=16, resolution=32)
-        return pipe("make the sky purple", _edit_image(32), mopts, seed=3,
-                    use_cache=use_cache)[1:]
+        return _pipe_outputs(pipe("make the sky purple", _edit_image(32),
+                                  mopts, seed=3, use_cache=use_cache))
 
     # (ii) exact and (iii) cached interleave (partial steps 6, 7, 10, 13, 14)
     _token_exact("exact interleave",
@@ -1068,6 +1204,203 @@ def phase_small_slice() -> None:
     _token_exact("cached interleave",
                  lambda impl: interleave(impl_cfg(mcfg, impl), True),
                  ["flash_attention_rope_qonly"])
+
+
+def _concurrently(server, requests) -> list:
+    """Submit each ``(args, kwargs)`` request from its own thread; the
+    results in order."""
+    import threading
+    out = [None] * len(requests)
+
+    def call(i):
+        a, kw = requests[i]
+        out[i] = server.submit(*a, timeout=900, **kw)
+
+    threads = [threading.Thread(target=call, args=(i,))
+               for i in range(len(requests))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if any(o is None for o in out):
+        raise AssertionError("a request got no result")
+    return out
+
+
+def _server_case(name: str, make_server, requests, solo, keys,
+                 kernels) -> None:
+    """One ragged batch of ``requests`` from concurrent threads, through
+    ``make_server(impl)`` under the kernels (``auto``) and the plain
+    attention (``xla``): the rows must agree on ``keys`` at temperature 0,
+    and each must equal ``solo(request)``, its unpadded run on the kernel
+    path."""
+    import numpy as np
+    outs, stats = {}, {}
+    for impl in ("auto", "xla"):
+        server = make_server(impl)
+        reset_launches()
+        try:
+            outs[impl] = _concurrently(server, requests)
+            stats[impl] = server.stats()
+        finally:
+            server.close()
+        counts = read_launches()
+        if impl == "auto" and not all(counts[k] > 0 for k in kernels):
+            raise AssertionError(f"{name}: kernels {kernels} did not launch "
+                                 f"({counts})")
+        if impl == "xla" and any(counts.values()):
+            raise AssertionError(f"{name}: the plain path launched kernels")
+    for i, req in enumerate(requests):
+        want = solo(req)
+        for k in keys:
+            if not (np.array_equal(outs["auto"][i][k], outs["xla"][i][k])
+                    and np.array_equal(outs["auto"][i][k], want[k])):
+                raise AssertionError(f"{name}: row {i} {k} differs between "
+                                     f"the kernel batch, the plain batch and "
+                                     f"the solo run")
+    log(f"[slice-small] {name}: {len(requests)} ragged requests in "
+        f"{stats['auto']['batches']} batch(es) of {kernels}: every row == "
+        f"the plain attention's and == its solo run, token-exact")
+
+
+def phase_small_new_paths() -> None:
+    """Text-to-image (A exact and cached, M with padding masks),
+    understanding (ragged) and the four servers on small f32 models
+    (head_dim 64): the kernel path gives the plain attention's tokens at
+    temperature 0, and every server row equals its unpadded solo run."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from mmada_parallel_torch import serving as SV
+    from mmada_parallel_torch import tokens as tk
+    from mmada_parallel_torch.samplers import image_gen as IG
+    from mmada_parallel_torch.samplers import interleave as IL
+    from mmada_parallel_torch.samplers import mmu as MU
+    from mmada_parallel_torch.samplers import parallel_ti2ti as PT
+    from mmada_parallel_torch.samplers import t2i as T2
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    dev = torch.device("cuda")
+    A, M = tk.TOKENS_A, tk.TOKENS_M
+    acfg, aparams = _small_llada(gen, A.full_vocab_size)
+    mcfg, mparams = _small_llada(gen, M.full_vocab_size)
+    tok = StandInTokenizer()
+    rng = np.random.default_rng(13)
+
+    def on(c, impl):
+        return dataclasses.replace(c, attention_impl=impl)
+
+    def host(*ts):
+        return [t.cpu().numpy() for t in ts]
+
+    # variant-A text-to-image on a 4 x 4 grid: exact (K1), and cached with
+    # partial steps 2, 3 and 5 of 6 (K2 on every step)
+    cond, uncond = tk.make_t2i_prompt(T2I_PROMPT)
+    ids, lay = tk.assemble_ti2ti_sequence(tok(cond)["input_ids"], 0, 4, 4,
+                                          [])
+    un = np.asarray(tok(uncond)["input_ids"], np.int64)
+    iopts = IG.ImageGenOptions(timesteps=6, temperature=0.0, cfg_scale=2.0)
+    for name, o, kernels in (
+            ("t2i-a generate_image", iopts, ["flash_attention_rope"]),
+            ("t2i-a generate_image_cached",
+             dataclasses.replace(iopts, use_cache=True, cache_ratio=0.5,
+                                 refresh_interval=3, warmup_ratio=0.3),
+             ["flash_attention_rope_qonly"])):
+        _token_exact(name, lambda impl, o=o: dict(zip(("ids", "codes"), host(
+            *IG.generate_image(aparams, on(acfg, impl),
+                               torch.as_tensor(ids, device=dev)[None], lay,
+                               o, uncond_ids=un)))), kernels)
+
+    # the servers: ragged requests in one bucket each
+    a_prompts = [tok(T2I_PROMPT)["input_ids"], tok(T2I_PROMPT)["input_ids"][
+        :40]]
+    a_opts = PT.TI2TIOptions(text_steps=8, timesteps=4, temperature=0.0,
+                             cfg_img=2.0)
+    ui = np.asarray(a_prompts[0][:10], np.int64)
+    serve = SV.ServeConfig(grid_hw=(4, 4), text_gen_length=16,
+                           end_token_ids=(A.answer_end,), batch_size=2,
+                           max_wait_ms=500.0)
+
+    def a_solo(req):
+        ids, lay = tk.assemble_ti2ti_sequence(req[0][0], 16, 4, 4,
+                                              [A.answer_end])
+        fin, codes = PT.generate_ti2ti(
+            aparams, acfg, torch.as_tensor(ids, device=dev)[None], lay,
+            a_opts, uncond_image_prefix=ui)
+        fin, codes = host(fin[0], codes[0])
+        return {"text_ids": fin[lay.text_start:lay.text_end],
+                "codes": codes}
+
+    _server_case("TI2TIServer", lambda impl: SV.TI2TIServer(
+        aparams, on(acfg, impl), a_opts, serve, uncond_image_prefix=ui),
+        [((p,), {}) for p in a_prompts], a_solo, ("text_ids", "codes"),
+        ["flash_attention_rope"])
+
+    m_opts = IL.InterleaveOptions(text_steps=8, image_steps=2,
+                                  image_temperature=0.0)
+    instrs = [tok(T2I_PROMPT)["input_ids"], tok(T2I_PROMPT)["input_ids"][:30]]
+    m_codes = [rng.integers(0, M.codebook_size, 16) + M.vq_offset
+               for _ in instrs]
+
+    def m_solo(req):
+        (instr,), kw = req
+        instr = tk.normalize_text_ids(instr, M.bos, M.eos)
+        head = [M.interleave, M.soi] + [int(c) for c in kw["codes"]] \
+            + [M.eoi]
+        un_head = [M.interleave, M.soi] + [0] * 16 + [M.eoi]
+        un_tail = [M.bos, M.eos] + [M.eos] * (len(instr) - 2)
+        ids, lay = tk.assemble_interleave_sequence(head + instr, 16, 16, M)
+        un, _ = tk.assemble_interleave_sequence(un_head + un_tail, 16, 16, M)
+        fin, codes = IL.interleave_generate(
+            mparams, mcfg, torch.as_tensor(ids, device=dev)[None],
+            torch.as_tensor(un, device=dev)[None], lay, m_opts)
+        fin, codes = host(fin[0], codes[0])
+        return {"text_ids": fin[lay.text_start:lay.text_end],
+                "codes": codes}
+
+    _server_case("InterleaveServer", lambda impl: SV.InterleaveServer(
+        mparams, on(mcfg, impl), m_opts, num_vq_tokens=16, max_seq_length=16,
+        batch_size=2, max_wait_ms=500.0, bucket_quantum=64),
+        [((i,), {"codes": c}) for i, c in zip(instrs, m_codes)], m_solo,
+        ("text_ids", "codes"), ["flash_attention_rope"])
+
+    t_opts = T2.T2IOptions(timesteps=6, temperature=0.0, guidance_scale=1.5)
+
+    def t2i_solo(req):
+        temp = [M.t2i] + tk.normalize_text_ids(req[0][0], M.bos, M.eos)
+        tail = [M.soi] + [M.mask] * 16 + [M.eoi]
+        ids = torch.tensor([temp + tail], device=dev)
+        un = torch.tensor([[M.ipad] * (len(temp) - 3) + [M.t2i, M.bos, M.eos]
+                           + tail], device=dev)
+        um = torch.ones_like(un, dtype=torch.bool)
+        um[0, :len(temp) - 3] = False
+        return {"codes": host(T2.t2i_generate(
+            mparams, mcfg, ids, un, len(temp), 16, t_opts,
+            torch.ones_like(um), um)[0])[0]}
+
+    _server_case("T2IServer (t2i_generate with left-padding masks)",
+                 lambda impl: SV.T2IServer(
+                     mparams, on(mcfg, impl), t_opts, num_vq_tokens=16,
+                     batch_size=2, max_wait_ms=500.0),
+                 [((t,), {}) for t in _t2i_m_texts()], t2i_solo, ("codes",),
+                 ["flash_attention_rope"])
+
+    u_opts = MU.MMUOptions(max_new_tokens=16, steps=8, block_length=8)
+    q = tk.normalize_text_ids(tok(MMU_QUESTION)["input_ids"], M.bos, M.eos,
+                              append_eos_always=False)
+    u_prompts = [[M.mmu, M.soi] + (rng.integers(0, M.codebook_size, 16)
+                                   + M.vq_offset).tolist() + [M.eoi] + qq
+                 for qq in (q, q[:20] + [M.eos])]
+
+    def mmu_solo(req):
+        p = req[0][0]
+        out = MU.mmu_generate(mparams, mcfg,
+                              torch.tensor([p], device=dev), u_opts)
+        return {"text_ids": host(out[0, len(p):])[0]}
+
+    _server_case("MMUServer (ragged mmu_generate)", lambda impl: SV.MMUServer(
+        mparams, on(mcfg, impl), u_opts, batch_size=2, max_wait_ms=500.0,
+        bucket_quantum=128), [((p,), {}) for p in u_prompts], mmu_solo,
+        ("text_ids",), ["flash_attention_rope"])
 
 
 def _a_train_batch(gen, rows: int, L: int):
@@ -1475,6 +1808,444 @@ def phase_cached_interleave(full) -> int:
     return launches["flash_attention_rope_qonly"]
 
 
+def _m_pipe(full):
+    from mmada_parallel_torch.pipeline import InterleavePipeline
+    return InterleavePipeline(full["cfg"], full["params"], full["mcfg"],
+                              full["mparams"], StandInTokenizer(),
+                              num_vq_tokens=1024, max_seq_length=256,
+                              resolution=512)
+
+
+def _m_pixels(full, codes):
+    """MagViT decode of ``[n, 1024]`` codes -> ``[n, 512, 512, 3]`` in
+    [0, 1], checked like the A pixels."""
+    import numpy as np
+    codes = np.asarray(codes)
+    if codes.min() < 0 or codes.max() >= 8192:
+        raise AssertionError(f"codes out of range [{codes.min()}, "
+                             f"{codes.max()}]")
+    px = _m_pipe(full).decode_codes_to_pixels(codes)
+    if not np.isfinite(px).all():
+        raise AssertionError("decoded pixels are not finite")
+    return px
+
+
+@contextlib.contextmanager
+def _k1_biases():
+    """Records, for each K1 launch in the block (on any thread), whether it
+    got a bias."""
+    from mmada_parallel_torch.ops import attention as A
+    real = A.flash_attention_rope
+    seen = []
+
+    def recording(q, k, v, sin, cos, bias=None, **kw):
+        seen.append(bias is not None)
+        return real(q, k, v, sin, cos, bias, **kw)
+
+    A.flash_attention_rope = recording
+    try:
+        yield seen
+    finally:
+        A.flash_attention_rope = real
+
+
+def _served(phase: str, server, requests, expected: dict, biased=False,
+            alone=True):
+    """``requests`` from concurrent threads as one ragged batch, launch
+    counts held to ``expected`` (and every K1 launch to a bias when
+    ``biased``); then, with ``alone`` (a deterministic server), each request
+    alone, which must give its row of the batch bit for bit: the batch has
+    the same shape, and a row's result does not depend on what it was
+    batched with.  Returns (results, wall s, peak bytes)."""
+    import numpy as np
+    try:
+        with _k1_biases() as seen:
+            out, wall, peak = _timed_run(
+                lambda: _concurrently(server, requests))
+            launches = check_launches(phase, expected)
+        stats = server.stats()
+        if stats["batches"] != 1 or stats["requests"] != len(requests):
+            raise AssertionError(f"{phase}: {stats}, expected one batch")
+        if biased and not (seen and all(seen)):
+            raise AssertionError(f"{phase}: a K1 launch had no bias")
+        for i, req in enumerate(requests if alone else ()):
+            solo = _concurrently(server, [req])[0]
+            for k, v in out[i].items():
+                if not np.array_equal(np.asarray(v), np.asarray(solo[k])):
+                    raise AssertionError(f"{phase}: request {i} alone gave "
+                                         f"another {k} than its batch row")
+    finally:
+        server.close()
+    log(f"[{phase}] {len(requests)} requests from {len(requests)} threads "
+        f"in one batch"
+        + (": each got its own row (== the request served alone)"
+           if alone else "")
+        + f"; kernel launches {launches}"
+        + (", every K1 launch with the padding bias" if biased else ""))
+    return out, wall, peak
+
+
+def phase_t2i_a(full) -> None:
+    """Variant-A text-to-image at full width: 512x512 (1024 codes), 18
+    MaskGit steps, cfg_scale 4.0 with the uncond prefix, temperature 1.0:
+    a B=1 cond and a B=1 uncond forward a step (K1)."""
+    import torch
+    from mmada_parallel_torch.samplers.image_gen import (ImageGenOptions,
+                                                         generate_image)
+    cfg = full["cfg"]
+    ids, layout, un = _t2i_a_request()
+    opts = ImageGenOptions(timesteps=18, temperature=1.0, cfg_scale=4.0)
+    x = torch.as_tensor(ids, device="cuda")[None]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    (fin, codes), wall, peak = _timed_run(lambda: generate_image(
+        full["params"], cfg, x, layout, opts, uncond_ids=un, generator=gen))
+    launches = check_launches("t2i-a", {
+        "flash_attention_rope": cfg.n_layers * opts.timesteps * 2})
+    codes = codes.cpu().numpy()
+    _check_image("t2i-a", codes, _a_pipe(full).decode_vq_to_pixels(
+        codes, 512, 512))
+    if (fin[0, layout.image_positions()] == opts.mask_token).any():
+        raise AssertionError("t2i-a: masked image slots left")
+    n = 2 * opts.timesteps
+    log(f"[t2i-a] generate_image 512x512, cond seq {len(ids)}, uncond seq "
+        f"{len(un) + len(ids) - layout.code_start}, {opts.timesteps} steps, "
+        f"cfg_scale {opts.cfg_scale}: codes in [{codes.min()}, "
+        f"{codes.max()}], pixels finite; wall {wall:.2f} s, {n} forwards "
+        f"(B=1) = {n / wall:.2f} forwards/s, kernel launches {launches}, "
+        f"peak memory {peak / 2 ** 30:.2f} GiB")
+
+
+def phase_t2i_a_cached(full) -> None:
+    """The same text-to-image through the feature-cached sampler at the
+    option defaults (cache_ratio 0.9, refresh 5, warmup 0.3): every forward,
+    full or partial, runs K2; profiled once."""
+    import torch
+    from mmada_parallel_torch.samplers.image_gen import (
+        ImageGenOptions, generate_image_cached, image_refresh_schedule)
+    cfg = full["cfg"]
+    ids, layout, un = _t2i_a_request()
+    opts = ImageGenOptions(timesteps=18, temperature=1.0, cfg_scale=4.0,
+                           use_cache=True)
+    refresh = image_refresh_schedule(opts.timesteps, opts.refresh_interval,
+                                     opts.warmup_ratio)
+    x = torch.as_tensor(ids, device="cuda")[None]
+
+    def run():
+        return generate_image_cached(
+            full["params"], cfg, x, layout, opts, uncond_ids=un,
+            generator=torch.Generator(device="cuda").manual_seed(1))
+
+    (_, codes), wall, peak = _timed_run(run)
+    launches = check_launches("t2i-a-cached", {
+        "flash_attention_rope_qonly": cfg.n_layers * opts.timesteps * 2})
+    codes = codes.cpu().numpy()
+    _check_image("t2i-a-cached", codes, _a_pipe(full).decode_vq_to_pixels(
+        codes, 512, 512))
+    n_full = int(refresh.sum())
+    log(f"[t2i-a-cached] generate_image_cached 512x512, {opts.timesteps} "
+        f"steps ({n_full} full + {opts.timesteps - n_full} partial of "
+        f"{T2I_A_PARTIAL} slots), cond + uncond: codes in [{codes.min()}, "
+        f"{codes.max()}]; wall {wall:.2f} s, {2 * opts.timesteps} forwards = "
+        f"{2 * opts.timesteps / wall:.2f} forwards/s, kernel launches "
+        f"{launches}, peak memory {peak / 2 ** 30:.2f} GiB")
+    _profile("t2i-a-cached", run)
+
+
+def phase_t2i_m(full) -> None:
+    """Variant-M text-to-image through ``T2IServer`` at full width: two
+    texts of different lengths in one bucket (B=2 rows, cond + uncond = 4),
+    18 steps, guidance 3.5, temperature 1.0; K1 with the padding bias on
+    every launch."""
+    from mmada_parallel_torch.samplers.t2i import T2IOptions
+    from mmada_parallel_torch.serving import T2IServer
+    cfg = full["cfg"]
+    opts = T2IOptions(timesteps=18, guidance_scale=3.5)
+    server = T2IServer(full["params"], cfg, opts, num_vq_tokens=1024,
+                       batch_size=2, max_wait_ms=500.0, seed=1)
+    texts = _t2i_m_texts()
+    out, wall, peak = _served(
+        "t2i-m", server, [((t,), {}) for t in texts],
+        {"flash_attention_rope": cfg.n_layers * opts.timesteps}, biased=True,
+        alone=False)
+    codes = [r["codes"] for r in out]
+    _m_pixels(full, codes)
+    L = _t2i_m_mask("cpu").shape[1]
+    log(f"[t2i-m] T2IServer, texts of {[len(t) for t in texts]} ids, bucket "
+        f"seq {L}, {opts.timesteps} steps B=4, guidance "
+        f"{opts.guidance_scale}: codes {[c.shape for c in codes]} in range, "
+        f"pixels finite; wall {wall:.2f} s, {opts.timesteps / wall:.2f} "
+        f"forwards/s, peak memory {peak / 2 ** 30:.2f} GiB")
+
+
+def phase_mmu(full) -> None:
+    """Understanding through ``MMUServer`` at full width: two ragged
+    prompts of 1024 image codes and a question, 128 new tokens in blocks of
+    32, 32 steps (K1 with the padding bias); then ``mmu_generate_fast``
+    alone with an ``eot`` (8 K1 forwards per block it runs)."""
+    import numpy as np
+    import torch
+    from mmada_parallel_torch.samplers.mmu import (MMUOptions,
+                                                   mmu_generate_fast)
+    from mmada_parallel_torch.serving import MMUServer
+    cfg = full["cfg"]
+    opts = MMUOptions(max_new_tokens=MMU_NEW, steps=32, block_length=32)
+    prompts = _mmu_prompts()
+    server = MMUServer(full["params"], cfg, opts, batch_size=2,
+                       max_wait_ms=500.0)
+    out, wall, peak = _served(
+        "mmu", server, [((p,), {}) for p in prompts],
+        {"flash_attention_rope": cfg.n_layers * opts.steps}, biased=True,
+        alone=False)
+    answers = [r["text_ids"] for r in out]
+    if any((a == opts.mask_token).any() or a.shape != (MMU_NEW,)
+           for a in answers):
+        raise AssertionError("mmu: an answer kept a mask or has a wrong "
+                             "length")
+    L = _mmu_mask("cpu").shape[1]
+    log(f"[mmu] MMUServer, prompts of {[len(p) for p in prompts]} tokens, "
+        f"seq {L}, {opts.steps} steps B=2: wall {wall:.2f} s, "
+        f"{opts.steps / wall:.2f} forwards/s, peak memory "
+        f"{peak / 2 ** 30:.2f} GiB")
+    # the token that ends the first block of row 0's answer as eot
+    eot = int(answers[0][opts.block_length - 1])
+    P = len(prompts[0])
+    x, wall, peak = _timed_run(lambda: mmu_generate_fast(
+        full["params"], cfg, torch.tensor([prompts[0]], device="cuda"), opts,
+        eot_token=eot))
+    ans = x[0, P:].reshape(-1, opts.block_length).cpu().numpy()
+    blocks = int((ans != opts.mask_token).all(axis=1).sum())
+    if not (ans[blocks:] == opts.mask_token).all():
+        raise AssertionError("mmu-fast: a block after the exit was written")
+    spb = opts.steps // (MMU_NEW // opts.block_length)
+    launches = check_launches("mmu-fast", {
+        "flash_attention_rope": cfg.n_layers * spb * blocks})
+    same = np.array_equal(ans[:blocks].reshape(-1),
+                          answers[0][:blocks * opts.block_length])
+    log(f"[mmu-fast] mmu_generate_fast alone, eot {eot}: stopped after "
+        f"{blocks} of {MMU_NEW // opts.block_length} blocks, kernel launches "
+        f"{launches}; wall {wall:.2f} s, {spb * blocks / wall:.2f} "
+        f"forwards/s, peak memory {peak / 2 ** 30:.2f} GiB; answer == the "
+        f"server's row 0 up to the exit: {same}")
+
+
+def phase_stepwise(full) -> None:
+    """The streaming demo (``cli/demo.run_stream``) on the A edit at 16
+    text steps (the demo's knobs: image CFG 4.0 only, 4 image steps), its
+    frames written to a temporary directory."""
+    import tempfile
+    import numpy as np
+    from mmada_parallel_torch.cli import demo
+    cfg = full["cfg"]
+    steps = 16
+    opts, _ = demo.knobs_to_options(steps, 0.0, 4.0, 1.0, 0.7,
+                                    "low_confidence", None, 0.5, 0.5)
+    # generate_ti2ti_stepwise's schedule at image_step_fraction 0.3
+    img_steps = set(np.round(np.linspace(0, steps - 1, max(int(steps * 0.3),
+                                                           1)))
+                    .astype(int).tolist())
+    want_frames = [s + 1 for s in range(steps)
+                   if s in img_steps or s % 5 == 0 or s == steps - 1]
+    seen = []
+    with tempfile.TemporaryDirectory() as out_dir:
+        (text, preview), wall, peak = _timed_run(lambda: demo.run_stream(
+            _a_pipe(full), "make the sky purple", _edit_image(512), 512, 512,
+            opts, 256, 1, out_dir, on_frame=lambda s, t, p, r: seen.append(s)))
+        files = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+        with open(os.path.join(out_dir, "status.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+    launches = check_launches("stepwise", {
+        "flash_attention_rope": cfg.n_layers * (steps + len(img_steps))})
+    if seen != want_frames or len(files) != len(want_frames) \
+            or [r["step"] for r in records] != want_frames:
+        raise AssertionError(f"stepwise: frames {seen}, files {files}, "
+                             f"expected steps {want_frames}")
+    if preview.size != (512, 512):
+        raise AssertionError("stepwise: preview is not 512x512")
+    log(f"[stepwise] run_stream A edit, {steps} text steps + "
+        f"{len(img_steps)} image steps: {len(files)} frames at steps "
+        f"{seen}, last {records[-1]['image_masked_pct']} % masked; wall "
+        f"{wall:.2f} s, {(steps + len(img_steps)) / wall:.2f} forwards/s "
+        f"(frames included), kernel launches {launches}, peak memory "
+        f"{peak / 2 ** 30:.2f} GiB")
+
+
+def phase_serve_a(full) -> None:
+    """``TI2TIServer`` at full width: two ragged edit requests (the 512x512
+    image's span, texts of 50 and 30 ids) from two threads in one bucket,
+    8 text and 4 image steps, temperature 0."""
+    import numpy as np
+    from mmada_parallel_torch.ops import sampling as S
+    from mmada_parallel_torch.samplers.parallel_ti2ti import TI2TIOptions
+    from mmada_parallel_torch.serving import ServeConfig, TI2TIServer
+    cfg = full["cfg"]
+    opts = TI2TIOptions(text_steps=8, timesteps=4, temperature=0.0,
+                        text_temperature=0.0, cfg_img=4.0)
+    ids = StandInTokenizer()("make the sky purple")["input_ids"]
+    span = _a_pipe(full).encode_img_with_breaks(_edit_image(512))
+    prompts = [ids[:-1] + span + ids[-1:], ids[:29] + span + ids[-1:]]
+    server = TI2TIServer(full["params"], cfg, opts, ServeConfig(
+        batch_size=2, max_wait_ms=500.0, bucket_quantum=128,
+        max_prompt_len=2048), uncond_image_prefix=np.asarray(ids))
+    n_img = int(S.image_step_mask(opts.text_steps, opts.timesteps).sum())
+    out, wall, peak = _served(
+        "serve-a", server, [((p,), {}) for p in prompts],
+        {"flash_attention_rope": cfg.n_layers * (opts.text_steps + n_img)},
+        biased=True)
+    for r in out:
+        _check_image("serve-a", r["codes"][None], _a_pipe(
+            full).decode_vq_to_pixels(r["codes"][None], 512, 512))
+    log(f"[serve-a] TI2TIServer, prompts of {[len(p) for p in prompts]} "
+        f"tokens, {opts.text_steps} text + {n_img} image steps B=2: codes in "
+        f"range, pixels finite; wall "
+        f"{wall:.2f} s, {(opts.text_steps + n_img) / wall:.2f} forwards/s, "
+        f"peak memory {peak / 2 ** 30:.2f} GiB")
+
+
+def phase_serve_m(full) -> None:
+    """``InterleaveServer`` at full width, exact then ``use_cache=True``,
+    each with two ragged requests from two threads: the exact server takes
+    two 512x512 images (encoded through MagViT on its worker, TF32 off)
+    and instructions of 51 and 31 tokens (one bucket, K1 with the bias); the
+    cached one takes codes and two instructions of one length (exact-length
+    groups, K2)."""
+    import numpy as np
+    import torch
+    from mmada_parallel_torch import tokens as tk
+    from mmada_parallel_torch.pipeline import _pixels_pm_one
+    from mmada_parallel_torch.samplers.interleave import (
+        InterleaveOptions, interleave_refresh_schedule)
+    from mmada_parallel_torch.serving import InterleaveServer
+    cfg = full["cfg"]
+    T = tk.TOKENS_M
+    opts = InterleaveOptions(text_steps=8, image_steps=2,
+                             image_temperature=0.0)
+    tok = StandInTokenizer()
+    instr = tok("make the sky purple")["input_ids"]
+    images = [_pixels_pm_one(img, 512)[0]
+              for img in (_edit_image(512), _edit_image(512)[::-1].copy())]
+    pipe = _m_pipe(full)
+
+    def get_code(px):
+        # one image at a time: cuDNN may pick another algorithm for another
+        # batch size, and the alone check needs the same codes
+        return torch.cat([pipe.get_code(p[None]) for p in px])
+
+    server = InterleaveServer(full["params"], cfg, opts, batch_size=2,
+                              max_wait_ms=500.0, bucket_quantum=64,
+                              get_code=get_code)
+    out, wall, peak = _served(
+        "serve-m", server,
+        [((instr,), {"image": images[0]}), ((instr[:30],),
+                                            {"image": images[1]})],
+        {"flash_attention_rope": cfg.n_layers * opts.text_steps},
+        biased=True)
+    _m_pixels(full, [r["codes"] for r in out])
+    log(f"[serve-m] InterleaveServer exact, {opts.text_steps} steps B=4 "
+        f"(2 rows x cond + uncond): codes in range, pixels finite; wall {wall:.2f} s (MagViT encode "
+        f"included), {opts.text_steps / wall:.2f} forwards/s, peak memory "
+        f"{peak / 2 ** 30:.2f} GiB")
+    rng = np.random.default_rng(1)
+    codes = [rng.integers(0, T.codebook_size, 1024) + T.vq_offset
+             for _ in range(2)]
+    other = tok("add a small red hat")["input_ids"]
+    server = InterleaveServer(full["params"], cfg, opts, batch_size=2,
+                              max_wait_ms=500.0, use_cache=True)
+    n_partial = int((~interleave_refresh_schedule(
+        opts.text_steps, opts.image_steps)).sum())
+    out, wall, peak = _served(
+        "serve-m-cached", server,
+        [((instr[:30],), {"codes": codes[0]}),
+         ((other[:30],), {"codes": codes[1]})],
+        {"flash_attention_rope_qonly": cfg.n_layers * opts.text_steps})
+    _m_pixels(full, [r["codes"] for r in out])
+    log(f"[serve-m-cached] InterleaveServer use_cache=True, "
+        f"{opts.text_steps} steps ({n_partial} partial) B=4: codes in range, "
+        f"pixels finite; wall "
+        f"{wall:.2f} s, {opts.text_steps / wall:.2f} forwards/s, peak "
+        f"memory {peak / 2 ** 30:.2f} GiB")
+
+
+def phase_head(full) -> None:
+    """Fault h: the vocab head with bf16 operands and an f32 result on the
+    tensor cores against the f32 upcast it replaced, at the understanding
+    shape (B=2 x 128 answer slots x the full vocab) and the variant-M T2I
+    shape (B=4 x 1024 image slots x the 8192-code slice), on the 8B head
+    and unit-scale bf16 hidden states: max |dlogit| and both times.  The
+    products are the same; only the f32 summation order differs."""
+    import torch
+    from mmada_parallel_torch import tokens as tk
+    from mmada_parallel_torch.models.llada import llada_head
+    cfg, params = full["cfg"], full["params"]
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    T = tk.TOKENS_M
+    for name, B, n, vs in (("mmu", 2, 128, None),
+                           ("t2i", 4, 1024, (T.text_vocab_size, 8192))):
+        h = torch.randn(B, n, cfg.d_model, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        w = params["head"] if vs is None else \
+            params["head"][:, vs[0]:vs[0] + vs[1]]
+
+        def new():
+            return llada_head(params, cfg, h, vocab_slice=vs)
+
+        def old():
+            return h.float() @ w.float()
+
+        got, want = new(), old()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        if got.dtype != torch.float32 or err > 1e-3 * scale:
+            raise AssertionError(f"head {name}: max |dlogit| {err:.3e} "
+                                 f"against max |logit| {scale:.3e}")
+        t_new, t_old = time_ms(new), time_ms(old)
+        log(f"[head] {name} B={B} x {n} x {w.shape[1]} vocab: bf16 operands "
+            f"+ f32 result {t_new:.3f} ms, f32 upcast {t_old:.3f} ms "
+            f"({t_old / t_new:.1f}x); max |dlogit| {err:.3e} "
+            f"(max |logit| {scale:.3f})")
+
+
+def phase_vq_tf32(full) -> None:
+    """Fault i: the same 512x512 image through Amused-VQ and MagViT with
+    cuDNN's TF32 on and off, the codes that differ counted; then, with the
+    caller's TF32 switched on, the pipelines' encoders must give the
+    TF32-off codes and leave the caller's setting as it was."""
+    import numpy as np
+    import torch
+    from mmada_parallel_torch.models import amused_vq as AVQ
+    from mmada_parallel_torch.models import magvit2 as MVQ
+    from mmada_parallel_torch.pipeline import _pixels01, _pixels_pm_one
+    img = _edit_image(512)
+    px_a, px_m = _pixels01(img), _pixels_pm_one(img, 512)
+    codes = {}
+    for tf32 in (True, False):
+        with torch.inference_mode(), torch.backends.cudnn.flags(
+                enabled=True, allow_tf32=tf32):
+            lat = AVQ.amused_encode(full["vparams"], full["vcfg"],
+                                    torch.as_tensor(px_a, device="cuda"))
+            a = AVQ.amused_quantize(full["vparams"], full["vcfg"], lat)[1]
+            m = MVQ.magvit_get_code(full["mparams"], full["mcfg"],
+                                    torch.as_tensor(px_m, device="cuda"))
+            codes[tf32] = (a.cpu().numpy(), m.cpu().numpy())
+    diff_a = int((codes[True][0] != codes[False][0]).sum())
+    diff_m = int((codes[True][1] != codes[False][1]).sum())
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got_a = _a_pipe(full)._encode(px_a)
+        got_m = _m_pipe(full).get_code(px_m).cpu().numpy()
+        kept = torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    if not (np.array_equal(got_a, codes[False][0])
+            and np.array_equal(got_m, codes[False][1]) and kept):
+        raise AssertionError("vq-tf32: a pipeline encoder did not give the "
+                             "TF32-off codes, or did not restore the "
+                             "caller's setting")
+    log(f"[vq-tf32] 512x512 image, TF32 on vs off: Amused-VQ {diff_a} of "
+        f"{codes[False][0].size} codes differ, MagViT {diff_m} of "
+        f"{codes[False][1].size}; with the caller's TF32 on, both pipelines "
+        f"gave the TF32-off codes and left it on")
+
+
 def _train_cfg(impl: str = "auto", remat: str = "whole_layer"):
     """The 8B widths, cut to 4 of 32 layers: f32 params, bf16 compute."""
     import torch
@@ -1565,7 +2336,39 @@ def phase_train_a() -> dict:
         f"plain; peak {peak / 2 ** 30:.2f} GiB (K1), "
         f"{peak_p / 2 ** 30:.2f} GiB (plain)")
     _profile("train-a K1", lambda: step(state, batch))
+    # the same K1 steps with the vocab head as it was before the bf16 path
+    with _upcast_head():
+        _, _, mo, so, _, peak_o = _train_a_steps(cfg, _train_params(cfg),
+                                                 batch, 3)
+    best_o = min(so[1:])
+    log(f"[train-a] vocab head: bf16 operands + f32 result {best_k:.3f} "
+        f"s/step (best of steps 2-3, K1) against the f32 upcast "
+        f"{best_o:.3f} s/step in this run ({100 * (best_k / best_o - 1):+.1f}"
+        f" %) and 1.264 s recorded for the upcast (NVIDIA H100 80GB HBM3, "
+        f"700 W); peak {peak / 2 ** 30:.2f} GiB against "
+        f"{peak_o / 2 ** 30:.2f} GiB; first-step loss {mk[0]['loss']:.6f} "
+        f"against {mo[0]['loss']:.6f}, grad norm {mk[0]['grad_norm']:.6f} "
+        f"against {mo[0]['grad_norm']:.6f}")
     return {"state": state, "cfg": cfg}
+
+
+@contextlib.contextmanager
+def _upcast_head():
+    """The vocab head as it was before its bf16 path: both operands upcast,
+    an f32 product on the FMA pipes (for a before/after in one run)."""
+    from mmada_parallel_torch.models import llada as L
+    real = L._Bf16Head
+
+    class Upcast:
+        @staticmethod
+        def apply(hidden, head):
+            return hidden.float() @ head.to(hidden.dtype).float()
+
+    L._Bf16Head = Upcast
+    try:
+        yield
+    finally:
+        L._Bf16Head = real
 
 
 def _m_train_batch(gen, L: int):
@@ -1672,6 +2475,7 @@ def main() -> int:
     prefix_launches = phase_prefix_crossover()
     phase_kernel_grads()
     phase_small_slice()
+    phase_small_new_paths()
     phase_small_train()
     full = make_full_width(torch.Generator(device="cuda").manual_seed(0))
     launches = {"flash_attention_rope": phase_edit(full),
@@ -1680,6 +2484,15 @@ def main() -> int:
                 "flash_attention_rope_prefix": prefix_launches}
     phase_interleave(full)
     phase_cached_interleave(full)
+    phase_head(full)
+    phase_vq_tf32(full)
+    phase_t2i_a(full)
+    phase_t2i_a_cached(full)
+    phase_t2i_m(full)
+    phase_mmu(full)
+    phase_stepwise(full)
+    phase_serve_a(full)
+    phase_serve_m(full)
     del full                      # the training phases need the memory
     gc.collect()
     torch.cuda.empty_cache()

@@ -4,7 +4,8 @@ Counterpart of :mod:`mmada_parallel_tpu.models.amused_vq` (the diffusers
 ``VQModel`` graph).  The public functions keep the JAX layout: pixels are
 NHWC in [0, 1], latents NHWC, codes ``[B, h*w]``; inside, the convolutions
 run NCHW (:mod:`~mmada_parallel_torch.models.vqgan_common`).  Run it in fp32
-with TF32 off where results are compared: cuDNN convolutions default to TF32.
+with TF32 off (cuDNN convolutions default to TF32): the pipelines and
+servers call it inside ``vqgan_common.vq_precision()``.
 """
 
 from __future__ import annotations

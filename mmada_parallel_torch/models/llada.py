@@ -395,21 +395,58 @@ _REMAT_GROUPS = {"none": 0, "whole_layer": 1, "one_in_two": 2,
                  "one_in_three": 3, "one_in_four": 4}
 
 
+class _Bf16Head(torch.autograd.Function):
+    """``hidden @ head`` on the tensor cores: bf16 operands, f32 result
+    (``aten::mm.dtype``, the JAX einsum's ``preferred_element_type``).
+    That overload has no derivative, so the backward forms both products
+    the same way, from the f32 output gradient rounded to bf16; the head's
+    gradient comes back in the head's own dtype."""
+
+    @staticmethod
+    def forward(ctx, hidden, head):
+        ctx.save_for_backward(hidden, head)
+        h2 = hidden.reshape(-1, hidden.shape[-1])
+        out = torch.mm(h2, head.to(hidden.dtype), out_dtype=torch.float32)
+        return out.reshape(*hidden.shape[:-1], head.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden, head = ctx.saved_tensors
+        h2 = hidden.reshape(-1, hidden.shape[-1])
+        g2 = g.reshape(-1, g.shape[-1]).to(hidden.dtype)
+        dh = dw = None
+        if ctx.needs_input_grad[0]:
+            dh = torch.mm(g2, head.to(hidden.dtype).T,
+                          out_dtype=torch.float32).to(hidden.dtype)
+            dh = dh.reshape(hidden.shape)
+        if ctx.needs_input_grad[1]:
+            dw = torch.mm(h2.T, g2, out_dtype=torch.float32).to(head.dtype)
+        return dh, dw
+
+
 def llada_head(params: Dict[str, Any], cfg: LLaDAConfig,
                hidden: torch.Tensor,
                vocab_slice: Optional[Tuple[int, int]] = None,
                logits_dtype=torch.float32) -> torch.Tensor:
     """Vocab projection ``[..., d_model] -> [..., V]``; ``vocab_slice=
     (start, size)`` projects onto that slice of the vocab only.  The product
-    accumulates in ``logits_dtype`` (the JAX ``preferred_element_type``):
-    both operands are upcast, which is exact for bf16 values."""
+    accumulates in ``logits_dtype`` (the JAX ``preferred_element_type``).
+    A bf16 ``hidden`` on CUDA with f32 logits takes the tensor cores with
+    bf16 operands and an f32 result (:class:`_Bf16Head`); anywhere else both
+    operands are upcast, which forms the same products (exact for bf16
+    values) in f32."""
     head = params["wte"].T if cfg.weight_tying else params["head"]
     if isinstance(head, dict):
         raise NotImplementedError("int8 (W8A8) params are not ported yet")
     if vocab_slice is not None:
         start, size = vocab_slice
         head = head[:, start:start + size]
-    logits = hidden.to(logits_dtype) @ head.to(hidden.dtype).to(logits_dtype)
+    if (hidden.is_cuda and hidden.dtype == torch.bfloat16
+            and logits_dtype == torch.float32):
+        logits = _Bf16Head.apply(hidden, head)
+    else:
+        logits = (hidden.to(logits_dtype)
+                  @ head.to(hidden.dtype).to(logits_dtype))
     if cfg.scale_logits:
         logits = logits * (1.0 / math.sqrt(cfg.d_model))
     return logits.to(logits_dtype)

@@ -6,8 +6,9 @@ the lookup-free quantizer (sign bits packed MSB-first, codebook entries the
 +-1 bit patterns) and the mirrored decoder.  The public functions keep the
 JAX layout: pixels NHWC in [-1, 1], latents NHWC, codes ``[B, h*w]``; inside,
 the convolutions run NCHW (:mod:`~mmada_parallel_torch.models.vqgan_common`).
-Run it in fp32 with TF32 off where results are compared: cuDNN convolutions
-default to TF32.  The training losses (``lfq_losses``) are not ported yet.
+Run it in fp32 with TF32 off (cuDNN convolutions default to TF32): the
+pipelines and servers call it inside ``vqgan_common.vq_precision()``.  The
+training losses (``lfq_losses``) are not ported yet.
 """
 
 from __future__ import annotations

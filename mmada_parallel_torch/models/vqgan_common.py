@@ -8,6 +8,7 @@ the JAX key structure (``{"w", "b"}`` convs, ``{"scale", "bias"}`` norms) so
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict
 
@@ -15,7 +16,18 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["conv2d", "group_norm", "swish", "resnet_block", "attn_block",
-           "downsample", "upsample", "ParamInit"]
+           "downsample", "upsample", "ParamInit", "vq_precision"]
+
+
+@contextlib.contextmanager
+def vq_precision():
+    """The tokenizers' convolutions in full f32: cuDNN's TF32 off for the
+    scope (it defaults to on), the caller's other cuDNN settings kept, and
+    all of them restored on exit.  Also a decorator."""
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=False):
+        yield
 
 
 class ParamInit:

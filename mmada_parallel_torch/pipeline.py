@@ -10,7 +10,8 @@ image or a uint8 ``[H, W, 3]`` array (the pixels ``np.asarray(pil_image)``
 gives), and for ``TI2TIPipeline`` also a path.  An array input that needs
 no resize never touches PIL: the first return value is then ``None``, and
 for any input the decoded pixels are in ``info["pixels"]`` (``[H, W, 3]``
-float in [0, 1]).
+float in [0, 1]).  Every tokenizer encode and decode runs in f32 with
+cuDNN's TF32 off (``vq_precision``), whatever the caller set.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from mmada_parallel_torch import tokens as tk
 from mmada_parallel_torch.models import amused_vq as AVQ
 from mmada_parallel_torch.models import magvit2 as MVQ
 from mmada_parallel_torch.models.llada import LLaDAConfig
+from mmada_parallel_torch.models.vqgan_common import vq_precision
 from mmada_parallel_torch.samplers.interleave import (
     InterleaveOptions, interleave_generate, interleave_generate_cached)
 from mmada_parallel_torch.samplers.parallel_ti2ti import (
@@ -60,6 +62,7 @@ class TI2TIPipeline:
         return self.llada_params["wte"].device
 
     @torch.inference_mode()
+    @vq_precision()
     def _encode(self, px: np.ndarray) -> np.ndarray:
         """``[1, H, W, 3]`` float pixels in [0, 1] -> ``[1, h*w]`` codes."""
         x = torch.as_tensor(px, dtype=torch.float32,
@@ -90,6 +93,7 @@ class TI2TIPipeline:
         return tk.add_break_line(toks, h, w, T.newline)
 
     @torch.inference_mode()
+    @vq_precision()
     def decode_vq_to_pixels(self, codes, height: int,
                             width: int) -> np.ndarray:
         """Codes ``[1, N]`` -> pixels ``[H, W, 3]`` float in [0, 1]."""
@@ -200,16 +204,21 @@ class InterleavePipeline:
         return self.vq_params["encoder"]["conv_in"]["w"].device
 
     @torch.inference_mode()
+    @vq_precision()
+    def get_code(self, px) -> torch.Tensor:
+        """MagViT codes ``[B, N]`` of pixels ``[B, R, R, 3]`` in [-1, 1]
+        (an array or a tensor), on the tokenizer's device."""
+        px = torch.as_tensor(px, dtype=torch.float32, device=self._vq_device)
+        return MVQ.magvit_get_code(self.vq_params, self.vq_cfg, px)
+
     def build_sequences(self, instruction: str, image):
         """``(ids, un_ids, layout)``: the reference inference template --
         bos/eos-normalised text, the uncond image span zeroed after the
         vocab offset (literal token id 0), both padded with eos on the right
         to one length."""
         T = self.tokens
-        px = torch.as_tensor(_pixels_pm_one(image, self.resolution),
-                             device=self._vq_device)
-        codes = MVQ.magvit_get_code(self.vq_params, self.vq_cfg,
-                                    px)[0].cpu().numpy() + T.vq_offset
+        codes = self.get_code(_pixels_pm_one(
+            image, self.resolution))[0].cpu().numpy() + T.vq_offset
 
         bos = getattr(self.tokenizer, "bos_token_id", None)
         eos = getattr(self.tokenizer, "eos_token_id", None)
@@ -234,6 +243,7 @@ class InterleavePipeline:
         return ids, un_ids, layout
 
     @torch.inference_mode()
+    @vq_precision()
     def decode_codes_to_pixels(self, codes) -> np.ndarray:
         """Codes ``[1, N]`` -> pixels ``[H, W, 3]`` float in [0, 1]."""
         c = torch.as_tensor(np.asarray(codes), device=self._vq_device)

@@ -128,3 +128,61 @@ def test_random_init_shapes_and_errors():
     quantized = dict(p, head={"w_q": p["head"], "scale": p["head"]})
     with pytest.raises(NotImplementedError):
         TL.llada_head(quantized, cfg, torch.zeros(1, 64))
+
+
+def test_head_cpu_path_is_unchanged_against_jax():
+    """A bf16 ``hidden`` on the CPU keeps the f32 upcast (the overload the
+    card uses has no CPU kernel): equal to the upcast product bit for bit
+    and to JAX's bf16-operand, f32-result einsum."""
+    jcfg, tcfg, jp, tp = _pair(seed=10)
+    h = np.random.default_rng(11).normal(size=(2, 5, 64)).astype(np.float32)
+    hb = torch.from_numpy(h).to(torch.bfloat16)
+    for vs in (None, (100, 50)):
+        got = TL.llada_head(tp, tcfg, hb, vocab_slice=vs)
+        head = tp["head"] if vs is None else tp["head"][:, 100:150]
+        assert got.dtype == torch.float32
+        assert torch.equal(got, hb.float() @ head.to(torch.bfloat16).float())
+        want = JL.llada_head(jp, jcfg, jnp.asarray(hb.float().numpy(),
+                                                   jnp.bfloat16),
+                             vocab_slice=vs)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the bf16 head runs only on the "
+                    "card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,vocab_slice", [(256, None), (1024, (4096,
+                                                                   8192))])
+def test_bf16_head_on_cuda_against_f32(cuda_device, rows, vocab_slice):
+    """On the card a bf16 ``hidden`` takes the tensor cores with an f32
+    result: the same products as the f32 upcast, summed in another order
+    (f32 accumulation of 4096 bf16 products of unit-scale values: ~1e-4
+    relative of the row's magnitude), and its gradients match the upcast
+    path's (the output gradient rounded to bf16: 2^-8 relative)."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    cfg = TL.LLaDAConfig.tiny(d_model=4096, vocab_size=16384)
+    head = torch.randn(4096, 16384, generator=g, device=cuda_device) * 0.02
+    hidden = torch.randn(rows, 4096, generator=g, device=cuda_device).to(
+        torch.bfloat16)
+    params = {"head": head.requires_grad_(True)}
+    h = hidden.detach().requires_grad_(True)
+    got = TL.llada_head(params, cfg, h, vocab_slice=vocab_slice)
+    w = head if vocab_slice is None else head[:, 4096:4096 + 8192]
+    want = hidden.float() @ w.detach().to(torch.bfloat16).float()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    torch.testing.assert_close(got.detach(), want, atol=2e-3, rtol=2e-3)
+    got.square().mean().backward()
+    h_ref = hidden.detach().float().requires_grad_(True)
+    w_ref = head.detach().clone().requires_grad_(True)
+    ref_w = w_ref if vocab_slice is None else w_ref[:, 4096:4096 + 8192]
+    (h_ref @ ref_w.to(torch.bfloat16).float()).square().mean().backward()
+    for got_g, want_g in ((h.grad.float(), h_ref.grad),
+                          (head.grad, w_ref.grad)):
+        torch.testing.assert_close(got_g, want_g, rtol=1e-2,
+                                   atol=1e-2 * float(want_g.abs().max()))

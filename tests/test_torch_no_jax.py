@@ -217,3 +217,82 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
                               capture_output=True, text=True, timeout=300)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+SLICE_SCRIPT = r"""
+import importlib.abc, json, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "mmada_parallel_tpu"):
+            raise ImportError(f"{name} is blocked here")
+        return None
+
+sys.meta_path.insert(0, Block())
+
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from mmada_parallel_torch import tokens as tk
+from mmada_parallel_torch.cli import demo, serve   # PIL/gradio lazily
+from mmada_parallel_torch.models.llada import LLaDAConfig, init_llada_params
+from mmada_parallel_torch.samplers import (ImageGenOptions, MMUOptions,
+                                           T2IOptions, generate_image,
+                                           generate_image_cached,
+                                           mmu_generate, t2i_generate)
+from mmada_parallel_torch.serving import MMUServer
+
+A = tk.VariantATokens(mask=250, newline=251, answer_start=252,
+                      answer_end=253, boi=254, eoi=255, uncondition=249,
+                      pad=248, text_vocab_size=256, codebook_size=16)
+g = torch.Generator().manual_seed(0)
+cfg = LLaDAConfig.tiny(vocab_size=272, mask_token_id=250)
+params = init_llada_params(cfg, g)
+ids, lay = tk.assemble_ti2ti_sequence([5, 6, 7], 0, 2, 2, [], tokens=A)
+opts = ImageGenOptions(timesteps=3, temperature=1.0, cfg_scale=2.0,
+                       text_vocab_size=256, codebook_size=16, mask_token=250)
+un = np.array([60, 61], np.int64)
+x = torch.tensor(ids[None])
+img = generate_image(params, cfg, x, lay, opts, uncond_ids=un, generator=g)
+img_c = generate_image_cached(params, cfg, x, lay, opts, uncond_ids=un,
+                              generator=g)
+t2i = t2i_generate(params, cfg, torch.tensor([[5, 6, 251, 250, 250, 252]]),
+                   torch.tensor([[9, 9, 251, 250, 250, 252]]), 2, 2,
+                   T2IOptions(timesteps=3, guidance_scale=1.5,
+                              text_vocab_size=256, codebook_size=16,
+                              mask_token=250), generator=g)
+mopts = MMUOptions(max_new_tokens=4, steps=4, block_length=2,
+                   mask_token=250)
+mmu = mmu_generate(params, cfg, torch.tensor([[5, 6, 7]]), mopts)
+server = MMUServer(params, cfg, mopts, batch_size=2, bucket_quantum=4,
+                   tokens=tk.VariantMTokens(mask=250, soi=251, eoi=252,
+                                            bos=249, eos=248, interleave=247,
+                                            text_vocab_size=256,
+                                            codebook_size=16))
+answer = server.submit([5, 6, 7], timeout=120)["text_ids"]
+server.close()
+print(json.dumps({
+    "jax": sorted(m for m in sys.modules if m.split(".")[0] in
+                  ("jax", "jaxlib", "mmada_parallel_tpu")),
+    "pil": sorted(m for m in sys.modules if m.split(".")[0] == "PIL"),
+    "gradio": "gradio" in sys.modules,
+    "codes": [img[1].tolist(), img_c[1].tolist(), t2i.tolist()],
+    "mmu": mmu[0, 3:].tolist(), "answer": answer.tolist()}))
+"""
+
+
+def test_new_samplers_server_and_clis_import_no_jax():
+    """Text-to-image (exact and cached), variant-M T2I, MMU, one server
+    round trip, and the imports of the demo and serving CLIs, with the JAX
+    imports blocked; neither PIL nor gradio is imported on these paths."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", SLICE_SCRIPT], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["jax"] == [] and res["pil"] == [] and not res["gradio"]
+    for codes in res["codes"]:
+        assert all(0 <= c < 16 for row in codes for c in row)
+    assert len(res["codes"][0][0]) == 4 and len(res["codes"][2][0]) == 2
+    assert 250 not in res["mmu"] and res["answer"] == res["mmu"]

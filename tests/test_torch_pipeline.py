@@ -208,3 +208,37 @@ def test_amused_checkpoint_roundtrip(tmp_path):
     assert set(fg) == set(fw)
     for k in fw:
         np.testing.assert_array_equal(fg[k], fw[k], k)
+
+
+def test_pipelines_run_the_tokenizers_with_tf32_off(pipes, monkeypatch):
+    """Every VQ encode and decode of both pipelines enters the scoped cuDNN
+    settings with TF32 off, the caller's other settings passed through, and
+    leaves them as they were."""
+    from mmada_parallel_torch.models import magvit2 as TM
+    from mmada_parallel_torch.pipeline import InterleavePipeline
+    calls = []
+    real = torch.backends.cudnn.flags
+
+    def recording(**kw):
+        calls.append(kw)
+        return real(**kw)
+
+    monkeypatch.setattr(torch.backends.cudnn, "flags", recording)
+    before = torch.backends.cudnn.allow_tf32
+    _, port = pipes
+    arr, _ = _image()
+    port.encode_img_with_breaks(arr)
+    port.decode_vq_to_pixels(np.zeros((1, 256), np.int64), 32, 32)
+    mcfg = TM.MagvitConfig.tiny()
+    mpipe = InterleavePipeline(
+        port.llada_cfg, port.llada_params, mcfg,
+        TM.init_magvit_params(mcfg, torch.Generator().manual_seed(0)),
+        FakeTok(), num_vq_tokens=64, max_seq_length=4, resolution=16)
+    mpipe.build_sequences("x", arr[:16, :16])
+    mpipe.decode_codes_to_pixels(np.zeros((1, 64), np.int64))
+    assert len(calls) == 4
+    for kw in calls:
+        assert kw["allow_tf32"] is False
+        assert kw["enabled"] == torch.backends.cudnn.enabled
+        assert kw["deterministic"] == torch.backends.cudnn.deterministic
+    assert torch.backends.cudnn.allow_tf32 == before
