@@ -2,8 +2,8 @@
 paths: the variant-A thinking-aware edit (exact and feature-cached), the
 variant-M interleave generation (exact and feature-cached), text-to-image
 (A exact and cached, M), understanding, the streaming demo, the four
-servers, and the A and M train steps with gradients through the attention
-kernels.
+servers, the ParaBench evaluation sweeps, the W8A8 int8 edit, and the A and
+M train steps and ParaRL with gradients through the attention kernels.
 
     python3 chip_smoke.py        # from the repository root, one H100
 
@@ -44,8 +44,11 @@ Phases (each prints its own lines; any failure exits non-zero):
    (non-fp32) RoPE, which runs K3, and the A text-to-image (exact and
    cached); each server's ragged batch (TI2TI, interleave, T2I with its
    padding masks, MMU ragged) gives the plain attention's rows and each row
-   its unpadded solo run's tokens; and three A train steps through the
-   kernel path equal the plain path's;
+   its unpadded solo run's tokens; three A train steps through the
+   kernel path equal the plain path's; the ParaBench edit sweep (two
+   buckets, a short last chunk) and the cached interleave sweep row for
+   row, the W8A8 edit token for token, and three ParaRL updates on one
+   recorded trajectory (loss and gradient norm) equal the plain path's;
 4. at the full width of the 8B backbone (all 32 layers, one set of random
    bf16 weights from a seed) with the full-size tokenizers: the exact edit
    (K1), the exact edit with non-fp32 RoPE (K3), the cached edit (K2 and
@@ -56,7 +59,12 @@ Phases (each prints its own lines; any failure exits non-zero):
    text-to-image (K1) and its cached sampler (K2), the M text-to-image
    server (K1 with the bias), the MMU server and ``mmu_generate_fast``, the
    streaming demo on the A edit, and the A and M (exact and cached) servers
-   with two requests from two threads.  Each run sets every launch count to
+   with two requests from two threads; ``run_parabench_sweep`` on 4
+   synthetic edit requests (two buckets, ``batch_size=2``, PSNR/SSIM
+   through the Amused-VQ decode), the cached interleave sweep, and the
+   exact edit on bf16, int8 and int8-bf16head params (s/request, the codes
+   and text equal to bf16, one int8 run profiled with the int8 GEMMs and
+   the activation quantization apart).  Each run sets every launch count to
    0 just before it and checks them just after; codes, pixels, wall time
    and peak memory are checked and printed; the exact and the cached edit
    and the cached A text-to-image run once more under ``torch.profiler``
@@ -70,7 +78,11 @@ Phases (each prints its own lines; any failure exits non-zero):
    ``forward_process`` step on a padded ``[t2i | lm | mmu]`` batch at the
    interleave length, with seconds per step, tokens per second and peak
    memory; one more step of each (A plain, A K1, M) under ``torch.profiler``
-   gives the device time by kernel class and the idle share.
+   gives the device time by kernel class and the idle share; then the
+   ``cli/train_pararl.py`` loop on the same 4 layers (2 rollouts of the
+   512x512 layout, 16 + 8 steps, 4 scored, 3 updates: rollout and update
+   seconds apart, exact K1 launches) and, on its last trajectory, the loss
+   and gradient norm through K1 against the plain path.
 
 The second-to-last line of stdout is a JSON object with the kernels'
 records; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -1527,6 +1539,191 @@ def phase_small_train() -> None:
         f"{want['flash_attention_rope']} launches per step")
 
 
+@contextlib.contextmanager
+def _exact_int8_product():
+    """The W8A8 path's int8 GEMM replaced by an exact product of the same
+    int8 operands: f64 on the card (every partial sum is an integer below
+    2^53), cast to int32."""
+    import torch
+    from mmada_parallel_torch.ops import quant as Q
+    real = Q._int8_mm
+    Q._int8_mm = lambda x_q, w_q: (x_q.double() @ w_q.double()).to(
+        torch.int32)
+    try:
+        yield
+    finally:
+        Q._int8_mm = real
+
+
+def _rl_close(name: str, a: dict, b: dict, rtol_loss: float,
+              rtol_norm: float) -> None:
+    """A ParaRL update's metrics, kernel path ``a`` against plain ``b``: the
+    loss is a mean of advantage-weighted log-probs that nearly cancel
+    against the mean-reward baseline, so it is held to ``rtol_loss`` of its
+    terms' size (|advantage| x |trajectory log-prob|); the gradient norm to
+    ``rtol_norm``."""
+    terms = a["adv_max"] * abs(b["traj_logp"])
+    if abs(a["loss"] - b["loss"]) > rtol_loss * terms:
+        raise AssertionError(f"{name}: loss {a['loss']} (kernel) vs "
+                             f"{b['loss']} (plain), terms {terms:.3e}, rtol "
+                             f"{rtol_loss}")
+    if abs(a["grad_norm"] - b["grad_norm"]) > rtol_norm * abs(b["grad_norm"]):
+        raise AssertionError(f"{name}: grad norm {a['grad_norm']} (kernel) "
+                             f"vs {b['grad_norm']} (plain), rtol {rtol_norm}")
+
+
+def _rl_metrics(m: dict, rewards) -> dict:
+    out = {k: float(v) for k, v in m.items()}
+    out["adv_max"] = float((rewards - rewards.mean()).abs().max())
+    return out
+
+
+def phase_small_eval() -> None:
+    """The evaluation slice on small f32 models (head_dim 64): the ParaBench
+    edit sweep (two prompt-length buckets, a short last chunk) and the
+    cached interleave sweep give the plain attention's rows, token-exact at
+    temperature 0 (K1, K2); the W8A8 edit likewise (K1 with the int8 GEMMs
+    on both sides); and three ParaRL updates on one recorded trajectory
+    give the plain path's loss and gradient norm (f32: rtol 1e-4 of the
+    loss's terms and of the norm), with exactly layers x scored steps K1
+    launches an update (the Function's backward launches nothing)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from mmada_parallel_torch import evaluation as EV
+    from mmada_parallel_torch import tokens as tk
+    from mmada_parallel_torch.cli import train_pararl as RL
+    from mmada_parallel_torch.models import llada as L
+    from mmada_parallel_torch.ops.quant import quantize_llada_params
+    from mmada_parallel_torch.samplers import interleave as IL
+    from mmada_parallel_torch.samplers import parallel_ti2ti as PT
+    from mmada_parallel_torch.training.pararl import rollout_ti2ti
+    from mmada_parallel_torch.training.trainer import tree_map
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    dev = torch.device("cuda")
+    A, M = tk.TOKENS_A, tk.TOKENS_M
+    acfg, aparams = _small_llada(gen, A.full_vocab_size)
+    mcfg, mparams = _small_llada(gen, M.full_vocab_size)
+    ids = StandInTokenizer()(T2I_PROMPT)["input_ids"]
+    rng = np.random.default_rng(17)
+
+    def on(c, impl):
+        return dataclasses.replace(c, attention_impl=impl)
+
+    # prompts of 50, 30 and 89 ids: buckets 64 (a chunk of 2) and 128 (a
+    # chunk of 1, padded to 2)
+    prompts = [ids, ids[:30], ids + ids[1:40]]
+    opts = PT.TI2TIOptions(text_steps=8, timesteps=4, temperature=0.0,
+                           text_temperature=0.0, cfg_img=2.0)
+    ui = np.asarray(ids[:10], np.int64)
+
+    def sweep(impl):
+        out = EV.run_parabench_sweep(
+            aparams, on(acfg, impl), [EV.EvalRequest(p) for p in prompts],
+            (4, 4), 16, [A.answer_end], opts, batch_size=2,
+            uncond_image_prefix=ui, seed=5)
+        return {f"{k}{r['index']}": np.asarray(r[k])
+                for r in out["results"] for k in ("text", "codes")}
+
+    _token_exact("ParaBench edit sweep", sweep, ["flash_attention_rope"])
+
+    m_opts = IL.InterleaveOptions(text_steps=16, image_steps=4,
+                                  image_temperature=0.0)
+    reqs = [EV.InterleaveEvalRequest(
+        instr, codes=rng.integers(0, M.codebook_size, 16) + M.vq_offset)
+        for instr in (ids[:30], ids[10:40])]
+
+    def interleave_sweep(impl):
+        out = EV.run_interleave_sweep(
+            mparams, on(mcfg, impl), reqs, num_vq_tokens=16, opts=m_opts,
+            max_seq_length=16, batch_size=2, use_cache=True)
+        return {f"{k}{r['index']}": np.asarray(r[k])
+                for r in out["results"] for k in ("text_ids", "codes")}
+
+    _token_exact("cached interleave sweep", interleave_sweep,
+                 ["flash_attention_rope_qonly"])
+
+    # W8A8: the card's int8 GEMM inside the whole edit against an exact
+    # product of the same int8 operands (f64, exact below 2^53), K1 on both
+    # sides: token-exact.  Across the attention paths the edit cannot be:
+    # the activation quantization rounds to int8, and a summation-order
+    # difference of ~1e-7 that straddles a rounding boundary moves a value
+    # by one quantum and the trajectory parts, so there one forward's
+    # logits are held to 1e-2 of their largest and the token agreement is
+    # printed.
+    qparams = quantize_llada_params(aparams)
+    seq, lay = tk.assemble_ti2ti_sequence(prompts[0], 16, 4, 4,
+                                          [A.answer_end])
+    seq_t = torch.as_tensor(seq, device=dev)[None]
+
+    def int8_edit(impl):
+        fin, codes = PT.generate_ti2ti(qparams, on(acfg, impl), seq_t, lay,
+                                       opts, uncond_image_prefix=ui)
+        return fin.cpu().numpy(), codes.cpu().numpy()
+
+    reset_launches()
+    fin_k, codes_k = int8_edit("auto")
+    if read_launches()["flash_attention_rope"] == 0:
+        raise AssertionError("W8A8 edit: K1 did not launch")
+    with _exact_int8_product():
+        fin_e, codes_e = int8_edit("auto")
+    if not (np.array_equal(fin_k, fin_e) and np.array_equal(codes_k,
+                                                             codes_e)):
+        raise AssertionError("W8A8 edit: torch._int_mm and the exact int8 "
+                             "product gave different tokens")
+    fin_p, codes_p = int8_edit("xla")
+    with torch.inference_mode():
+        lk, lp = (L.llada_forward(qparams, on(acfg, impl), seq_t)
+                  for impl in ("auto", "xla"))
+        dlogit = float((lk - lp).abs().max())
+        top = float(lp.abs().max())
+    if dlogit > 1e-2 * top:
+        raise AssertionError(f"W8A8 forward: K1 vs plain attention max "
+                             f"|dlogit| {dlogit:.3e}, max |logit| {top:.3e}")
+    gen_pos = np.r_[lay.text_start:lay.text_end, lay.image_positions()]
+    log(f"[slice-small] W8A8 edit ({lay.total_len} tokens, int8 GEMMs via "
+        f"torch._int_mm): == the exact int8 product, token-exact, K1 on both;"
+        f" K1 vs plain attention: one forward's max |dlogit| {dlogit:.3e} "
+        f"(max |logit| {top:.3e}, limit 1e-2 of it), generated tokens equal "
+        f"{100 * float((fin_k[0, gen_pos] == fin_p[0, gen_pos]).mean()):.1f}"
+        f" %, codes equal {100 * float((codes_k == codes_p).mean()):.1f} %")
+    del qparams
+
+    rl_opts = PT.TI2TIOptions(text_steps=8, timesteps=4, temperature=1.0,
+                              text_temperature=0.7, cfg_img=0.0)
+    seqs, rl_lay = RL.rollout_sequences([ids, ids[:30]], A, 4, 16)
+    _, traj = rollout_ti2ti(aparams, acfg, torch.as_tensor(seqs, device=dev),
+                            rl_lay, rl_opts,
+                            torch.Generator(device="cuda").manual_seed(3))
+    # fixed rewards: the advantage is +-0.5 whatever the rollout drew
+    rewards = torch.tensor([0.0, 1.0], device=dev)
+    sub = RL.subsample_steps(rl_opts.text_steps, 4)
+    runs = {}
+    for impl in ("auto", "xla"):
+        state, step = RL.build_update(
+            on(acfg, impl), tree_map(lambda t: t.clone(), aparams), rl_opts,
+            1e-3, sub)
+        runs[impl] = []
+        for _ in range(3):
+            reset_launches()
+            state, m = step(state, (traj, rewards))
+            runs[impl].append((_rl_metrics(m, rewards), read_launches()))
+    want = {n: 0 for n in KERNELS}
+    want["flash_attention_rope"] = acfg.n_layers * len(sub)
+    for (a, la), (b, lb) in zip(runs["auto"], runs["xla"]):
+        if la != want or any(lb.values()):
+            raise AssertionError(f"small ParaRL: launches {la} (kernel), "
+                                 f"{lb} (plain), expected {want}")
+        _rl_close("small ParaRL", a, b, 1e-4, 1e-4)
+    log(f"[slice-small] ParaRL: 3 updates on one recorded trajectory (B=2, "
+        f"{len(sub)} of {rl_opts.text_steps} steps scored): losses "
+        f"{[round(a['loss'], 6) for a, _ in runs['auto']]} (kernel) vs "
+        f"{[round(b['loss'], 6) for b, _ in runs['xla']]} (plain), grad "
+        f"norms {[round(a['grad_norm'], 6) for a, _ in runs['auto']]} vs "
+        f"{[round(b['grad_norm'], 6) for b, _ in runs['xla']]}; K1 "
+        f"{want['flash_attention_rope']} launches per update")
+
+
 # ---------------------------------------------------------------------------
 # Profile: where a step's device time goes
 # ---------------------------------------------------------------------------
@@ -1539,6 +1736,7 @@ _KERNEL_CLASSES = (
                                  "split_combine_kernel",
                                  "rope_rotate_kernel")),
     ("f32 GEMMs (FMA)", ("sgemm", "f32f32")),
+    ("int8 tensor-core GEMMs", ("s8s8", "i8i8", "imma", "int8", "_s8_")),
     ("bf16 tensor-core GEMMs", ("nvjet", "gemm")),
     ("softmax", ("softmax",)),
     ("reductions", ("reduce",)),
@@ -1546,11 +1744,13 @@ _KERNEL_CLASSES = (
 )
 
 
-def _profile(phase: str, fn, top: int = 6) -> dict:
+def _profile(phase: str, fn, top: int = 6, ranges=()) -> dict:
     """One call of ``fn`` under ``torch.profiler`` (CPU and CUDA activity):
     prints its device time by kernel class and its largest kernels, and the
-    device's idle share between its first and last kernel.  Returns
-    ``{class: ms}``.  Fails if no kernel was recorded."""
+    device's idle share between its first and last kernel; with ``ranges``,
+    also the device time of the kernels launched inside each named
+    ``record_function`` range.  Returns ``{class: ms}``.  Fails if no kernel
+    was recorded."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1598,6 +1798,15 @@ def _profile(phase: str, fn, top: int = 6) -> dict:
                                 key=lambda x: -x[1][1])[:top]:
         log(f"[profile {phase}]   {ms:9.1f} ms {100 * ms / total:5.1f} % "
             f"x{n:<4d} {name[:110]}")
+    if ranges:
+        in_range = {r: [e for e in prof.events() if e.name == r
+                        and e.device_type != torch.autograd.DeviceType.CUDA]
+                    for r in ranges}
+        log(f"[profile {phase}] by range (device time of the kernels each "
+            f"launched): " + "; ".join(
+                f"{r} {sum(e.device_time_total for e in es) / 1e3:.1f} ms "
+                f"({100 * sum(e.device_time_total for e in es) / 1e3 / total:.1f}"
+                f" %, x{len(es)})" for r, es in in_range.items()))
     return per_class
 
 
@@ -2246,6 +2455,233 @@ def phase_vq_tf32(full) -> None:
         f"gave the TF32-off codes and left it on")
 
 
+# ---------------------------------------------------------------------------
+# The evaluation slice at full width: the ParaBench sweeps and W8A8
+# ---------------------------------------------------------------------------
+
+
+def _edit_requests(full):
+    """The 4 synthetic 512x512 ParaBench edit requests: two images (the
+    test image and its upside-down copy) x two prompt lengths (the 50-id
+    prompt and a 30-id cut of it, 1108 and 1088 tokens with the image span:
+    buckets 1152 and 1088).  ``meta`` holds the input image's codes and, as
+    the target, the other image's.  Returns (prompts, metas, the shared
+    image-CFG uncond prefix: the short prompt without its image)."""
+    import numpy as np
+    from mmada_parallel_torch import tokens as tk
+    from mmada_parallel_torch.pipeline import SYSTEM_PROMPT_EDIT, _pixels01
+    A = tk.TOKENS_A
+    pipe = _a_pipe(full)
+    cond, _ = tk.make_ti2ti_prompt("make the sky purple", SYSTEM_PROMPT_EDIT)
+    ids = StandInTokenizer()(cond)["input_ids"]
+    codes = [pipe._encode(_pixels01(img))[0]
+             for img in (_edit_image(512), _edit_image(512)[::-1].copy())]
+    spans = [[A.boi] + tk.add_break_line([int(c) + A.vq_offset for c in cs],
+                                         32, 32, A.newline) + [A.eoi]
+             for cs in codes]
+    prompts, metas = [], []
+    for head in (ids[:-1], ids[:29]):
+        for i in (0, 1):
+            prompts.append(head + spans[i] + ids[-1:])
+            metas.append({"input_codes": codes[i].tolist(),
+                          "target_codes": codes[1 - i].tolist()})
+    return prompts, metas, np.asarray(ids[:29] + ids[-1:], np.int64)
+
+
+def phase_eval_edit(full) -> None:
+    """``run_parabench_sweep`` at full width: 4 edit requests in two
+    prompt-length buckets, ``batch_size=2`` (two chunks of B=2), 16 text and
+    8 image steps at temperature 0, ``cfg_img=4.0`` with one shared uncond
+    prefix, scored by ``default_edit_scorer`` composed with
+    ``pixel_edit_scorer`` over the Amused-VQ decode (TF32 off).  K1 runs
+    32 x (16 cond + 8 uncond forwards) per chunk."""
+    import numpy as np
+    from mmada_parallel_torch import evaluation as EV
+    from mmada_parallel_torch import tokens as tk
+    from mmada_parallel_torch.cli.eval_sweep import amused_decoder
+    from mmada_parallel_torch.eval_scorers import (aggregate_scores,
+                                                   default_edit_scorer,
+                                                   pixel_edit_scorer)
+    from mmada_parallel_torch.ops import sampling as S
+    from mmada_parallel_torch.samplers.parallel_ti2ti import TI2TIOptions
+    cfg = full["cfg"]
+    A = tk.TOKENS_A
+    prompts, metas, ui = _edit_requests(full)
+    opts = TI2TIOptions(text_steps=16, timesteps=8, temperature=0.0,
+                        text_temperature=0.0, cfg_img=4.0)
+    n_img = int(S.image_step_mask(opts.text_steps, opts.timesteps).sum())
+    scorer = pixel_edit_scorer(
+        amused_decoder(full["vcfg"], full["vparams"], (32, 32)),
+        base=default_edit_scorer())
+    reqs = [EV.EvalRequest(p, m) for p, m in zip(prompts, metas)]
+    sweep, wall, peak = _timed_run(lambda: EV.run_parabench_sweep(
+        full["params"], cfg, reqs, (32, 32), 256, [A.answer_end], opts,
+        batch_size=2, uncond_image_prefix=ui, seed=7, scorer=scorer))
+    chunks = 2
+    launches = check_launches("eval-edit", {
+        "flash_attention_rope": chunks * cfg.n_layers * (opts.text_steps
+                                                         + n_img)})
+    codes = np.stack([r["codes"] for r in sweep["results"]])
+    scores = [r["scores"] for r in sweep["results"]]
+    if codes.shape != (4, 1024) or codes.min() < 0 or codes.max() >= 8192:
+        raise AssertionError(f"eval-edit: codes {codes.shape} out of range")
+    pix = [k for k in scores[0] if k.startswith("pixel_")]
+    if len(pix) != 4 or not all(math.isfinite(s[k]) for s in scores
+                                for k in pix):
+        raise AssertionError(f"eval-edit: pixel scores {scores}")
+    agg = aggregate_scores(sweep["results"])
+    n = sweep["num_requests"]
+    log(f"[eval-edit] run_parabench_sweep, {n} 512x512 edits (prompts of "
+        f"{sorted({len(p) for p in prompts})} tokens, 2 buckets, batch_size "
+        f"2), {opts.text_steps} text + {n_img} image steps, cfg_img "
+        f"{opts.cfg_img} (shared uncond prefix of {len(ui)} ids), "
+        f"temperature 0: codes in [{codes.min()}, {codes.max()}], K1 "
+        f"launches {launches['flash_attention_rope']}")
+    log(f"[eval-edit] edits/min {sweep['edits_per_min']:.3f}, s/request "
+        f"{sweep['total_time_s'] / n:.3f} (sampler time {sweep['total_time_s']:.3f}"
+        f" s, synchronized), wall with scoring {wall:.2f} s, peak memory "
+        f"{peak / 2 ** 30:.2f} GiB")
+    log("[eval-edit] aggregate: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in agg.items()))
+
+
+def phase_eval_interleave_cached(full) -> None:
+    """``run_interleave_sweep(use_cache=True)`` at full width: 2 requests
+    (codes, instructions of one length) through the cached
+    ``InterleaveServer``; K2 runs 32 x 16 steps per batch."""
+    import numpy as np
+    from mmada_parallel_torch import evaluation as EV
+    from mmada_parallel_torch import tokens as tk
+    from mmada_parallel_torch.eval_scorers import default_edit_scorer
+    from mmada_parallel_torch.samplers.interleave import (
+        InterleaveOptions, interleave_refresh_schedule)
+    cfg = full["cfg"]
+    T = tk.TOKENS_M
+    tok = StandInTokenizer()
+    opts = InterleaveOptions(text_steps=16, image_steps=4)
+    rng = np.random.default_rng(3)
+    reqs = []
+    for text in ("make the sky purple", "add a small red hat"):
+        codes = rng.integers(0, T.codebook_size, 1024)
+        reqs.append(EV.InterleaveEvalRequest(
+            tok(text)["input_ids"][:30], codes=codes + T.vq_offset,
+            meta={"input_codes": codes.tolist()}))
+    sweep, wall, peak = _timed_run(lambda: EV.run_interleave_sweep(
+        full["params"], cfg, reqs, num_vq_tokens=1024, opts=opts,
+        max_seq_length=256, batch_size=2, scorer=default_edit_scorer(),
+        use_cache=True))
+    batches = sweep["server_stats"]["batches"]
+    launches = check_launches("eval-interleave-cached", {
+        "flash_attention_rope_qonly": batches * cfg.n_layers
+        * opts.text_steps})
+    n_partial = int((~interleave_refresh_schedule(
+        opts.text_steps, opts.image_steps)).sum())
+    for r in sweep["results"]:
+        if r["codes"].shape != (1024,) or r["codes"].min() < 0 \
+                or r["codes"].max() >= 8192:
+            raise AssertionError("eval-interleave-cached: codes out of range")
+    n = sweep["num_requests"]
+    log(f"[eval-interleave-cached] run_interleave_sweep use_cache=True, {n} "
+        f"requests in {batches} batch(es), {opts.text_steps} steps "
+        f"({n_partial} partial): codes in range; gens/min "
+        f"{sweep['gens_per_min']:.3f}, s/request "
+        f"{sweep['total_time_s'] / n:.3f}, peak memory "
+        f"{peak / 2 ** 30:.2f} GiB; kernel launches {launches}")
+
+
+@contextlib.contextmanager
+def _int8_ranges():
+    """The W8A8 path's activation quantization and int8 GEMM, each inside a
+    ``record_function`` range of that name (the rescale is what remains of
+    ``int8_matmul``)."""
+    from torch.profiler import record_function
+    from mmada_parallel_torch.ops import quant as Q
+    real_q, real_mm = Q.quantize_activations, Q._int8_mm
+
+    def quantize(x):
+        with record_function("int8 quantize"):
+            return real_q(x)
+
+    def mm(x_q, w_q):
+        with record_function("int8 GEMM"):
+            return real_mm(x_q, w_q)
+
+    Q.quantize_activations, Q._int8_mm = quantize, mm
+    try:
+        yield
+    finally:
+        Q.quantize_activations, Q._int8_mm = real_q, real_mm
+
+
+def phase_int8(full) -> None:
+    """The exact 512x512 edit at full width on bf16 params, then on
+    ``quantize_llada_params`` (int8) and ``quantize_head=False``
+    (int8-bf16head), temperature 0, 8 text and 4 image steps with both
+    CFG forwards: s/request against bf16, peak memory, the share of image
+    codes and text tokens equal to the bf16 edit, K1 launches; one int8 run
+    under the profiler splits its device time between the int8 GEMMs, the
+    activation quantization and the rest."""
+    import gc
+    import torch
+    from mmada_parallel_torch.ops import sampling as S
+    from mmada_parallel_torch.ops.quant import quantize_llada_params
+    from mmada_parallel_torch.pipeline import TI2TIPipeline
+    from mmada_parallel_torch.samplers.parallel_ti2ti import TI2TIOptions
+    cfg = full["cfg"]
+    opts = TI2TIOptions(text_steps=8, timesteps=4, temperature=0.0,
+                        text_temperature=0.0, cfg_scale=2.5, cfg_img=4.0)
+    n_img = int(S.image_step_mask(opts.text_steps, opts.timesteps).sum())
+
+    def pipe(params):
+        return TI2TIPipeline(cfg, params, full["vcfg"], full["vparams"],
+                             StandInTokenizer())
+
+    def edit(params):
+        return pipe(params)("make the sky purple", _edit_image(512), 512,
+                            512, opts, text_gen_length=256, seed=1)
+
+    runs = {}
+    for name, head in (("bf16", None), ("int8", True),
+                       ("int8-bf16head", False)):
+        t0 = time.time()
+        params = (full["params"] if head is None else
+                  quantize_llada_params(full["params"], quantize_head=head))
+        torch.cuda.synchronize()
+        t_quant = time.time() - t0
+        (_, text, info), wall, peak = _timed_run(lambda: edit(params))
+        launches = check_launches(name, {
+            "flash_attention_rope": cfg.n_layers * (opts.text_steps
+                                                    + n_img)})
+        _check_image(name, info["codes"], info["pixels"])
+        runs[name] = (info, wall, peak)
+        if name == "bf16":
+            log(f"[int8] bf16 edit 512x512, {opts.text_steps} text + {n_img} "
+                f"image steps, temperature 0: wall {wall:.2f} s (sampler "
+                f"{info['elapsed']:.2f} s), peak {peak / 2 ** 30:.2f} GiB")
+            continue
+        ref = runs["bf16"][0]
+        lay = info["layout"]
+        ts, te = lay.text_start, lay.text_end
+        same_codes = float((info["codes"] == ref["codes"]).mean())
+        same_text = float((info["ids"][0, ts:te] == ref["ids"][0, ts:te])
+                          .mean())
+        log(f"[{name}] quantize_llada_params(quantize_head={head}) in "
+            f"{t_quant:.2f} s; edit wall {wall:.2f} s (sampler "
+            f"{info['elapsed']:.2f} s) against bf16 {runs['bf16'][1]:.2f} s "
+            f"({100 * (wall / runs['bf16'][1] - 1):+.1f} %), peak "
+            f"{peak / 2 ** 30:.2f} GiB; image codes equal to bf16 "
+            f"{100 * same_codes:.1f} %, text tokens "
+            f"{100 * same_text:.1f} %; K1 launches "
+            f"{launches['flash_attention_rope']}")
+        if name == "int8":
+            with _int8_ranges():
+                _profile("int8 edit", lambda: edit(params),
+                         ranges=("int8 GEMM", "int8 quantize"))
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def _train_cfg(impl: str = "auto", remat: str = "whole_layer"):
     """The 8B widths, cut to 4 of 32 layers: f32 params, bf16 compute."""
     import torch
@@ -2461,12 +2897,122 @@ def phase_train_m(a_run: dict) -> None:
     _profile("train-m", lambda: step(state, batch))
 
 
+# the ParaRL update's loss and grad norm, K1 against the plain attention, on
+# one trajectory (bf16 compute): as for the A step (A_LOSS_RTOL,
+# A_GRAD_NORM_RTOL), an attention output element differs by up to a bf16
+# ulp; the loss is held to 1e-4 of its terms' size (it nearly cancels
+# against the mean-reward baseline), the gradient norm to 1e-3.
+RL_LOSS_RTOL, RL_GRAD_NORM_RTOL = 1e-4, 1e-3
+
+
+def phase_pararl() -> None:
+    """The ``cli/train_pararl.py`` loop at the 8B widths, 4 of 32 layers
+    (f32 params, bf16 compute, AdamW, clip 1.0): 2 rollouts a step of the
+    512x512 layout (grid 32 x 32, 256 text slots), 16 text and 8 image
+    steps at the CLI's temperatures, the code-diversity reward, 4 of 16
+    steps scored, 3 updates.  K1 runs 4 layers x 16 steps a rollout and 4
+    layers x 4 scored steps an update (the Function's backward launches
+    nothing).  Then, on the last trajectory, the loss and gradient norm
+    through K1 against the plain attention path."""
+    import dataclasses
+    import torch
+    from mmada_parallel_torch import tokens as tk
+    from mmada_parallel_torch.cli import train_pararl as RL
+    from mmada_parallel_torch.models.llada import count_params
+    from mmada_parallel_torch.samplers.parallel_ti2ti import TI2TIOptions
+    from mmada_parallel_torch.training.pararl import (RewardSpec,
+                                                      pararl_loss)
+    from mmada_parallel_torch.training.trainer import tree_leaves
+    cfg = _train_cfg("auto", remat="none")
+    params = _train_params(cfg)
+    A = tk.TOKENS_A
+    ids = StandInTokenizer()("make the sky purple")["input_ids"]
+    seqs, layout = RL.rollout_sequences([ids, ids[:30]], A, 32, 256)
+    batch_ids = torch.as_tensor(seqs, device="cuda")
+    opts = TI2TIOptions(text_steps=16, timesteps=8, temperature=1.0,
+                        text_temperature=0.7, cfg_scale=0.0, cfg_img=0.0)
+    sub = RL.subsample_steps(opts.text_steps, 4)
+    state, step = RL.build_update(cfg, params, opts, 1e-6, sub)
+    rewards = RewardSpec(fns=[RL.default_reward], weights=[1.0])
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rolls, updates, losses, rws, peaks = [], [], [], [], []
+    for _ in range(3):
+        (traj, rw), secs, peak = _timed_run(lambda: RL.rollout_and_score(
+            state.params, cfg, batch_ids, layout, opts, rewards, gen))
+        check_launches("pararl rollout", {
+            "flash_attention_rope": cfg.n_layers * opts.text_steps})
+        (state, m), secs_u, peak_u = _timed_run(
+            lambda: step(state, (traj, rw), gen))
+        peaks += [peak, peak_u]
+        check_launches("pararl update", {
+            "flash_attention_rope": cfg.n_layers * len(sub)})
+        vals = {k: float(v) for k, v in m.items()}
+        if not (all(math.isfinite(x) for x in vals.values())
+                and vals["nonfinite"] == 0):
+            raise AssertionError(f"pararl: non-finite update {vals}")
+        rolls.append(secs)
+        updates.append(secs_u)
+        losses.append(vals["loss"])
+        rws.append(vals["reward_mean"])
+    log(f"[pararl] cli/train_pararl loop, LLaDA-8B widths, 4 of 32 layers "
+        f"({count_params(state.params) / 1e9:.3f} B params f32, bf16 "
+        f"compute), 2 rollouts x L={layout.total_len}, {opts.text_steps} "
+        f"text + {opts.timesteps} image steps, {len(sub)} scored: rewards "
+        f"{[round(x, 4) for x in rws]}, losses "
+        f"{[round(x, 4) for x in losses]}; K1 launches "
+        f"{cfg.n_layers * opts.text_steps} a rollout, "
+        f"{cfg.n_layers * len(sub)} an update")
+    log(f"[pararl] rollout s {[round(x, 3) for x in rolls]}, update s "
+        f"{[round(x, 3) for x in updates]}, peak memory "
+        f"{max(peaks[0::2]) / 2 ** 30:.2f} GiB (rollout), "
+        f"{max(peaks[1::2]) / 2 ** 30:.2f} GiB (update)")
+
+    # the last trajectory with fixed rewards (advantages +-0.5), K1 vs plain
+    fixed = torch.tensor([0.0, 1.0], device="cuda")
+    got = {}
+    for impl in ("auto", "xla"):
+        leaves = tree_leaves(state.params)
+        for p in leaves:
+            p.grad = None
+        reset_launches()
+        with torch.enable_grad():
+            loss, m = pararl_loss(state.params, dataclasses.replace(
+                cfg, attention_impl=impl), traj, fixed, opts,
+                step_indices=sub)
+            loss.backward()
+        norm = torch.sqrt(sum(p.grad.float().square().sum()
+                              for p in leaves if p.grad is not None))
+        counts = read_launches()
+        got[impl] = _rl_metrics({"loss": loss.detach(), "grad_norm": norm,
+                                 "traj_logp": m["traj_logp"].detach()},
+                                fixed)
+        got[impl]["launches"] = counts["flash_attention_rope"]
+        for p in leaves:
+            p.grad = None
+    if got["xla"]["launches"] or got["auto"]["launches"] != \
+            cfg.n_layers * len(sub):
+        raise AssertionError(f"pararl: launches {got}")
+    _rl_close("pararl", got["auto"], got["xla"], RL_LOSS_RTOL,
+              RL_GRAD_NORM_RTOL)
+    log(f"[pararl] same trajectory, rewards [0, 1]: loss "
+        f"{got['auto']['loss']:.6f} (K1) vs {got['xla']['loss']:.6f} "
+        f"(plain), grad norm {got['auto']['grad_norm']:.6f} vs "
+        f"{got['xla']['grad_norm']:.6f}, trajectory log-prob "
+        f"{got['auto']['traj_logp']:.3f} vs {got['xla']['traj_logp']:.3f}")
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     import torch
     import gc
+    t0 = time.time()
+
+    def mark(phase: str) -> None:
+        log(f"[time] {phase} done at {time.time() - t0:.1f} s")
+
     device = phase_device()
     phase_build()
+    mark("build")
     phase_rope_prepass()
     records = {"flash_attention_rope": phase_kernel(),
                "flash_attention_rope_qonly": phase_kernel_qonly(),
@@ -2474,9 +3020,13 @@ def main() -> int:
                "flash_attention_rope_prefix": phase_kernel_prefix()}
     prefix_launches = phase_prefix_crossover()
     phase_kernel_grads()
+    mark("phase 2 (kernels)")
     phase_small_slice()
     phase_small_new_paths()
     phase_small_train()
+    mark("phase 3 (small models) up to the train steps")
+    phase_small_eval()
+    mark("phase 3 (small models)")
     full = make_full_width(torch.Generator(device="cuda").manual_seed(0))
     launches = {"flash_attention_rope": phase_edit(full),
                 "flash_attention": phase_edit_lowprec_rope(full),
@@ -2493,11 +3043,22 @@ def main() -> int:
     phase_stepwise(full)
     phase_serve_a(full)
     phase_serve_m(full)
+    mark("phase 4 up to the servers")
+    phase_eval_edit(full)
+    phase_eval_interleave_cached(full)
+    phase_int8(full)
+    mark("phase 4 (full width)")
     del full                      # the training phases need the memory
     gc.collect()
     torch.cuda.empty_cache()
     a_run = phase_train_a()
     phase_train_m(a_run)
+    del a_run
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("phase 5 (training) up to the M step")
+    phase_pararl()
+    mark("phase 5 (training)")
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
     kernels = [{"name": name, "route": "cuda", "source": src,

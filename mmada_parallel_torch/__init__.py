@@ -12,8 +12,9 @@ behind an autograd Function whose backward recomputes the plain chain.
 
 The port imports nothing of the JAX package, not even its framework-free
 host modules: it keeps its own copies of them at the same relative paths
-(:mod:`.tokens`, :mod:`.config`, :mod:`.utils.image`, :mod:`.utils.logging`
-and the A trainer's :mod:`.data`), held against their originals by
+(:mod:`.tokens`, :mod:`.config`, :mod:`.utils.image`, :mod:`.utils.logging`,
+the A trainer's :mod:`.data`, :mod:`.eval_scorers` and
+:mod:`.data.parabench`), held against their originals by
 ``tests/test_torch_host_modules.py``.  ``tests/test_torch_no_jax.py`` runs
 its paths with ``jax`` and ``mmada_parallel_tpu`` blocked.
 """

@@ -28,8 +28,10 @@ a lazy ``transformers`` import, PIL only for ``image_b64`` requests.
     GET  /stats -> {"requests": N, "batches": M, "batched_rows": K}
 
 ``--use_cache ratio,interval,warmup[,img]`` serves variant m through the
-feature-cached sampler.  ``--quant`` (int8) and ``--tp_ring`` (ring tensor
-parallelism) are not ported yet and refuse to start.
+feature-cached sampler.  ``--quant int8|int8_bf16head`` serves W8A8 params
+(``ops/quant.py``; ``int8_bf16head`` keeps the vocab head dense).
+``--tp_ring`` (ring tensor parallelism) is not ported yet and refuses to
+start.
 """
 
 import argparse
@@ -63,7 +65,8 @@ def build_parser():
                         "serving")
     p.add_argument("--quant", type=str, default="",
                    choices=["", "int8", "int8_bf16head"],
-                   help="not ported yet: refuses to start")
+                   help="W8A8-quantize the params (int8_bf16head: keep "
+                        "the vocab head dense)")
     p.add_argument("--tiny_model", action="store_true",
                    help="debug: random tiny model instead of a checkpoint")
     p.add_argument("--vq_checkpoint", type=str, default=None,
@@ -175,9 +178,6 @@ def main(argv=None):
                                               TI2TIServer)
 
     args = build_parser().parse_args(argv)
-    if args.quant:
-        raise SystemExit("--quant: int8 (W8A8) serving is not ported to "
-                         "PyTorch yet (ROADMAP Queue 1, item 14)")
     if args.tp_ring or args.tp_ring_int8:
         raise SystemExit("--tp_ring: ring tensor-parallel serving waits for "
                          "multi-GPU (ROADMAP Queue 1, item 16)")
@@ -187,6 +187,10 @@ def main(argv=None):
             "a random-weight debug server)")
     T = tk.TOKENS_A if args.variant == "a" else tk.TOKENS_M
     cfg, params, tokenizer = _load_llada(args, T)
+    if args.quant:
+        from mmada_parallel_torch.ops.quant import quantize_llada_params
+        params = quantize_llada_params(
+            params, quantize_head="bf16head" not in args.quant)
 
     a_encode = None
     t2i_server = mmu_server = None

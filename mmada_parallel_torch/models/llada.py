@@ -15,7 +15,9 @@ The forwards are differentiable: f32 parameters are cast to
 
 Attention goes through :func:`mmada_parallel_torch.ops.attention.rope_attention`
 (and, for the feature-cached forwards, ``rope_attention_qonly``), which
-launch the fused-RoPE CUDA kernels for CUDA tensors.
+launch the fused-RoPE CUDA kernels for CUDA tensors.  A linear weight may be
+a W8A8 dict (:func:`mmada_parallel_torch.ops.quant.quantize_llada_params`):
+the block GEMMs and the head then take the int8 product.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from mmada_parallel_torch.ops.attention import (rope_attention,
                                                  rope_attention_qonly)
 from mmada_parallel_torch.ops.masks import pairwise_padding_mask, to_bias
+from mmada_parallel_torch.ops.quant import int8_matmul
 from mmada_parallel_torch.ops.rope_attention import rope_tensor
 
 __all__ = ["LLaDAConfig", "init_llada_params", "llada_hidden", "llada_head",
@@ -280,10 +283,18 @@ def _activation(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 def _pmm(x: torch.Tensor, w: Any) -> torch.Tensor:
-    """Param matmul ``x @ w`` in x's dtype."""
+    """Param matmul ``x @ w`` in x's dtype: dense, or W8A8 int8 when ``w``
+    is a quantized-weight dict (:mod:`mmada_parallel_torch.ops.quant`)."""
     if isinstance(w, dict):
-        raise NotImplementedError("int8 (W8A8) params are not ported yet")
+        return int8_matmul(x, w["w_q"], w["scale"])
     return x @ w.to(x.dtype)
+
+
+def _layer(blocks: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Layer ``i``'s weights from the stacked blocks (a quantized leaf's
+    ``w_q`` and ``scale`` sliced alike)."""
+    return {name: ({k: t[i] for k, t in p.items()} if isinstance(p, dict)
+                   else p[i]) for name, p in blocks.items()}
 
 
 def _block(x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: LLaDAConfig,
@@ -376,8 +387,7 @@ def llada_hidden(params: Dict[str, Any], cfg: LLaDAConfig,
 
     def layers(x, start: int, stop: int):
         for i in range(start, stop):
-            x = _block(x, {name: p[i] for name, p in blocks.items()}, cfg,
-                       sin, cos, attn_bias)
+            x = _block(x, _layer(blocks, i), cfg, sin, cos, attn_bias)
         return x
 
     step = max(group, 1)
@@ -434,19 +444,26 @@ def llada_head(params: Dict[str, Any], cfg: LLaDAConfig,
     A bf16 ``hidden`` on CUDA with f32 logits takes the tensor cores with
     bf16 operands and an f32 result (:class:`_Bf16Head`); anywhere else both
     operands are upcast, which forms the same products (exact for bf16
-    values) in f32."""
+    values) in f32.  A W8A8 head (a quantized-weight dict) takes the int8
+    product, with ``vocab_slice`` slicing its ``w_q`` and ``scale`` columns
+    alike, rescaled straight into ``logits_dtype``."""
     head = params["wte"].T if cfg.weight_tying else params["head"]
-    if isinstance(head, dict):
-        raise NotImplementedError("int8 (W8A8) params are not ported yet")
-    if vocab_slice is not None:
+
+    def cols(w):
+        if vocab_slice is None:
+            return w
         start, size = vocab_slice
-        head = head[:, start:start + size]
-    if (hidden.is_cuda and hidden.dtype == torch.bfloat16
-            and logits_dtype == torch.float32):
-        logits = _Bf16Head.apply(hidden, head)
+        return w[:, start:start + size]
+
+    if isinstance(head, dict):
+        logits = int8_matmul(hidden, cols(head["w_q"]), cols(head["scale"]),
+                             out_dtype=logits_dtype)
+    elif (hidden.is_cuda and hidden.dtype == torch.bfloat16
+          and logits_dtype == torch.float32):
+        logits = _Bf16Head.apply(hidden, cols(head))
     else:
         logits = (hidden.to(logits_dtype)
-                  @ head.to(hidden.dtype).to(logits_dtype))
+                  @ cols(head).to(hidden.dtype).to(logits_dtype))
     if cfg.scale_logits:
         logits = logits * (1.0 / math.sqrt(cfg.d_model))
     return logits.to(logits_dtype)
@@ -518,8 +535,7 @@ def llada_hidden_with_cache(params: Dict[str, Any], cfg: LLaDAConfig,
                 q, cache["k"][i], cache["v"][i], sin, cos, n_heads=nh,
                 n_kv_heads=nkv, full_precision=cfg.rope_full_precision,
                 impl=cfg.attention_impl)
-        x = _cached_block(x, {name: p[i] for name, p in blocks.items()},
-                          cfg, attend)
+        x = _cached_block(x, _layer(blocks, i), cfg, attend)
     return _norm(x, params["ln_f"], cfg), cache
 
 
@@ -558,6 +574,5 @@ def llada_hidden_partial(params: Dict[str, Any], cfg: LLaDAConfig,
                 q, k_full, v_full, sin_sel, cos_sel, n_heads=nh,
                 n_kv_heads=nkv, full_precision=cfg.rope_full_precision,
                 impl=cfg.attention_impl)
-        x = _cached_block(x, {name: p[i] for name, p in blocks.items()},
-                          cfg, attend)
+        x = _cached_block(x, _layer(blocks, i), cfg, attend)
     return _norm(x, params["ln_f"], cfg), cache

@@ -1,5 +1,5 @@
 """Training: losses, masking, optimizers, the train step, checkpoints.
 
-Counterpart of :mod:`mmada_parallel_tpu.training` (the A and M train steps;
-``pararl`` is not ported yet).
+Counterpart of :mod:`mmada_parallel_tpu.training` (the A and M train steps
+and ParaRL).
 """

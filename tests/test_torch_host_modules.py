@@ -1,12 +1,14 @@
 """The port's copies of the JAX package's framework-free host modules
-(``tokens``, ``utils/image``, ``config``, ``utils/logging`` and the A
-trainer's ``data``) give what their originals give on the same inputs.
+(``tokens``, ``utils/image``, ``config``, ``utils/logging``, the A
+trainer's ``data``, ``eval_scorers`` and ``data/parabench``) give what their
+originals give on the same inputs.
 
 The port imports nothing of ``mmada_parallel_tpu``; these tests may, to hold
 each copy against the module it was copied from."""
 
 import dataclasses
 import json
+import os
 import pickle
 import random
 
@@ -118,7 +120,6 @@ def test_array_to_image_and_painting_mask():
 @pytest.mark.parametrize("name", ["data_a.yaml", "infer_m.yaml",
                                   "train_m.yaml"])
 def test_load_config(name):
-    import os
     path = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "configs", name)
     overrides = ["training.lr=1e-4", "extra.list=[1,2]", "a.b.c=x"]
@@ -219,3 +220,131 @@ def test_metric_logger(tmp_path):
     w.close()
     assert json.loads((tmp_path / "tb" / "log.txt").read_text()) == \
         {"step": 3, "loss": 0.5}
+
+
+# ---------------------------------------------------------------------------
+# eval_scorers and data/parabench (the evaluation slice's host modules)
+# ---------------------------------------------------------------------------
+
+from mmada_parallel_torch import eval_scorers as PES  # noqa: E402
+from mmada_parallel_torch.data import parabench as PPB  # noqa: E402
+from mmada_parallel_tpu import eval_scorers as JES  # noqa: E402
+from mmada_parallel_tpu.data import parabench as JPB  # noqa: E402
+
+
+class _Req:
+    def __init__(self, meta):
+        self.meta = meta
+
+
+_PALETTE = np.array([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0],
+                     [0.0, 0.0, 1.0]])
+
+
+def _palette_decode(codes):
+    return _PALETTE[np.asarray(codes).reshape(4, 4) % 4]
+
+
+@pytest.mark.parametrize("meta,text,codes", [
+    ({"input_codes": [1, 2, 3, 5], "target_codes": [2, 3, 4, 5],
+      "keywords": ["rotated", "missing"]}, "the palette was Rotated",
+     [2, 3, 4, 4]),
+    (None, None, [7, 7]),
+    ({"input_codes": [1] * 4 + [2] * 4, "edit_mask": [True] * 4 + [False] * 4},
+     None, [9, 9, 1, 1, 2, 2, 2, 5]),
+    ({"keywords": ["text"]}, "text", None)])
+def test_eval_scorers_copy(meta, text, codes):
+    codes = None if codes is None else np.asarray(codes)
+    got = PES.default_edit_scorer()(_Req(meta), text, codes)
+    assert got == JES.default_edit_scorer()(_Req(meta), text, codes)
+    results = [{"scores": got}, {"scores": {"code_diversity": 0.5}}, {}]
+    assert PES.aggregate_scores(results) == JES.aggregate_scores(results)
+
+
+def test_psnr_ssim_and_pixel_scorer_copy():
+    rng = np.random.default_rng(0)
+    a = rng.random((32, 32, 3))
+    for b in (a, np.clip(a + rng.normal(0, 0.05, a.shape), 0, 1),
+              rng.random((32, 32, 3))):
+        assert PES.psnr(a, b) == JES.psnr(a, b)
+        assert PES.ssim(a, b) == JES.ssim(a, b)
+    assert PES.ssim(a[:4, :4, 0], a[:4, :4, 1]) == \
+        JES.ssim(a[:4, :4, 0], a[:4, :4, 1])
+    inp = list(range(16))
+    req = _Req({"input_codes": inp,
+                "target_codes": [(c + 1) % 4 for c in inp]})
+    out = np.array([(c + 2) % 4 for c in inp])
+    got = PES.pixel_edit_scorer(_palette_decode)(req, "text", out)
+    assert got == JES.pixel_edit_scorer(_palette_decode)(req, "text", out)
+    assert {"pixel_consistency_psnr", "pixel_target_ssim"} <= set(got)
+
+
+_PB_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "fixtures", "parabench_mini.parquet")
+
+
+def _pb_tokenize(s):
+    return [10 + sum(map(ord, w)) % 100 for w in s.split()[:12]] or [10]
+
+
+def _pb_encode_m(img):
+    px = np.asarray(img.resize((4, 4))).astype(np.int64)
+    return (px.reshape(-1, 3).sum(axis=1) % 32)[:6]
+
+
+def _pb_encode_edit(img):
+    raw = _pb_encode_m(img)
+    grid = [int(c) + 7000 for c in raw]
+    return [254] + JT.add_break_line(grid, 2, 3, 251) + [255], raw
+
+
+def _pil_free(rows):
+    """Rows with their images as comparable arrays."""
+    return [{k: (np.asarray(JPB.as_pil(v)).tolist()
+                 if k.endswith("image") and v is not None else v)
+             for k, v in r.items()} for r in rows]
+
+
+def test_parabench_copy_on_the_fixture():
+    rows_p, rows_j = PPB.load_parabench(_PB_FIXTURE), \
+        JPB.load_parabench(_PB_FIXTURE)
+    assert _pil_free(rows_p) == _pil_free(rows_j)
+    assert PPB.FIELD_CANDIDATES == JPB.FIELD_CANDIDATES
+    for fm in (None, {"target_image": ""}):
+        assert PPB.detect_fields(rows_p[0], fm) == \
+            JPB.detect_fields(rows_j[0], fm)
+    for task, rows, enc in (("edit", rows_p[:2], _pb_encode_edit),
+                            ("interleave", rows_p[:2], _pb_encode_m),
+                            ("t2i", rows_p[2:], None),
+                            ("mmu", rows_p[:1], _pb_encode_m)):
+        assert PPB.parabench_requests(rows, task, _pb_tokenize, enc) == \
+            JPB.parabench_requests(rows, task, _pb_tokenize, enc)
+    with pytest.raises(ValueError, match="input image"):
+        PPB.parabench_requests(rows_p[2:], "interleave", _pb_tokenize,
+                               _pb_encode_m)
+
+
+def test_parabench_copy_on_a_jsonl_export(tmp_path):
+    """A jsonl export: an image as a relative path, one as base64, a row
+    without its image column; the same requests from both modules."""
+    import base64
+    import io
+    img = _seeded_image(16, 16, 3)
+    img.save(tmp_path / "a.png")
+    buf = io.BytesIO()
+    _seeded_image(16, 16, 4).save(buf, "PNG")
+    lines = [{"instruction": "a text-only row", "id": 1},
+             {"instruction": "edit this", "input_image": "a.png",
+              "output_text": "a red hat on the head", "id": 2},
+             {"edit_instruction": "ignored", "instruction": "and this",
+              "input_image": base64.b64encode(buf.getvalue()).decode()}]
+    path = tmp_path / "pb.jsonl"
+    path.write_text("\n".join(json.dumps(x) for x in lines))
+    rows_p, rows_j = PPB.load_parabench(str(path)), \
+        JPB.load_parabench(str(path))
+    assert rows_p == rows_j and len(rows_p) == 3
+    for task in ("edit", "mmu"):
+        enc = _pb_encode_edit if task == "edit" else _pb_encode_m
+        got = PPB.parabench_requests(rows_p, task, _pb_tokenize, enc)
+        assert got == JPB.parabench_requests(rows_j, task, _pb_tokenize, enc)
+        assert "input_codes" not in got[0]["meta"]

@@ -125,9 +125,12 @@ def test_random_init_shapes_and_errors():
         TL.llada_hidden(p, dataclasses.replace(cfg, remat="whole_layer"),
                         ids).detach().numpy(),
         TL.llada_hidden(p, cfg, ids).numpy())
-    quantized = dict(p, head={"w_q": p["head"], "scale": p["head"]})
-    with pytest.raises(NotImplementedError):
-        TL.llada_head(quantized, cfg, torch.zeros(1, 64))
+    # a W8A8 head (ops/quant.py) takes the int8 product, no longer raises
+    from mmada_parallel_torch.ops.quant import int8_matmul, quantize_weight
+    q = quantize_weight(p["head"])
+    h = torch.randn(1, 3, 64, generator=torch.Generator().manual_seed(1))
+    assert torch.equal(TL.llada_head(dict(p, head=q), cfg, h),
+                       int8_matmul(h, q["w_q"], q["scale"], torch.float32))
 
 
 def test_head_cpu_path_is_unchanged_against_jax():

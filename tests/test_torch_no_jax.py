@@ -10,7 +10,9 @@ reports what got imported.  The paths: the exact and the cached
 with an array already at the resolution; and a tiny variant-A train step
 (with remat, masking, the M forward and the task bounds); and the imports
 of ``chip_smoke.py`` and of the A trainer's CLI, data pipeline and
-logging."""
+logging; and the evaluation slice (a jsonl ParaBench export with
+``datasets`` blocked too, the edit sweep dense and W8A8, the cached
+interleave sweep, a ParaRL rollout and update, the eval and ParaRL CLIs)."""
 
 import json
 import os
@@ -296,3 +298,106 @@ def test_new_samplers_server_and_clis_import_no_jax():
         assert all(0 <= c < 16 for row in codes for c in row)
     assert len(res["codes"][0][0]) == 4 and len(res["codes"][2][0]) == 2
     assert 250 not in res["mmu"] and res["answer"] == res["mmu"]
+
+
+EVAL_SCRIPT = r"""
+import importlib.abc, json, sys, tempfile, os
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "mmada_parallel_tpu",
+                                  "datasets"):
+            raise ImportError(f"{name} is blocked here")
+        return None
+
+sys.meta_path.insert(0, Block())
+
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from mmada_parallel_torch import tokens as tk
+from mmada_parallel_torch.cli import eval_sweep, train_pararl
+from mmada_parallel_torch.data.parabench import (load_parabench,
+                                                 parabench_requests)
+from mmada_parallel_torch.eval_scorers import default_edit_scorer
+from mmada_parallel_torch.evaluation import (EvalRequest,
+                                             InterleaveEvalRequest,
+                                             run_interleave_sweep,
+                                             run_parabench_sweep)
+from mmada_parallel_torch.models.llada import LLaDAConfig, init_llada_params
+from mmada_parallel_torch.ops.quant import quantize_llada_params
+from mmada_parallel_torch.samplers.interleave import InterleaveOptions
+from mmada_parallel_torch.samplers.parallel_ti2ti import TI2TIOptions
+from mmada_parallel_torch.training.pararl import RewardSpec, \
+    code_diversity_reward
+
+A = tk.VariantATokens(mask=250, newline=251, answer_start=252,
+                      answer_end=253, boi=254, eoi=255, uncondition=249,
+                      pad=248, text_vocab_size=256, codebook_size=32)
+M = tk.VariantMTokens(mask=250, soi=251, eoi=252, bos=249, eos=248,
+                      interleave=247, text_vocab_size=256, codebook_size=32)
+path = os.path.join(tempfile.mkdtemp(), "pb.jsonl")
+with open(path, "w") as f:
+    f.write(json.dumps({"instruction": "add a hat", "id": 0}) + "\n")
+    f.write(json.dumps({"instruction": "paint it red",
+                        "output_text": "a red barn"}) + "\n")
+raw = parabench_requests(load_parabench(path), "edit",
+                         lambda s: [10 + ord(c) % 90 for c in s[:6]])
+g = torch.Generator().manual_seed(0)
+cfg = LLaDAConfig.tiny(vocab_size=288, mask_token_id=250)
+params = init_llada_params(cfg, g)
+opts = TI2TIOptions(text_steps=4, timesteps=2, temperature=0.0,
+                    text_temperature=0.0, cfg_img=0.0, text_vocab_size=256,
+                    codebook_size=32, mask_token=250)
+reqs = [EvalRequest(r["prompt_ids"], r["meta"]) for r in raw]
+sweeps = [run_parabench_sweep(p, cfg, reqs, (2, 2), 4, [253], opts,
+                              batch_size=2, tokens=A,
+                              scorer=default_edit_scorer())
+          for p in (params, quantize_llada_params(params))]
+m_opts = InterleaveOptions(text_steps=4, image_steps=2, text_vocab_size=256,
+                           codebook_size=32, mask_token=250)
+inter = run_interleave_sweep(
+    params, cfg, [InterleaveEvalRequest([10, 11], codes=np.arange(4) + 256)],
+    num_vq_tokens=4, opts=m_opts, max_seq_length=4, batch_size=1, tokens=M,
+    use_cache=True)
+seqs, lay = train_pararl.rollout_sequences([[5, 6, 7]], A, 2, 4)
+rl_opts = TI2TIOptions(text_steps=4, timesteps=2, text_temperature=0.7,
+                       cfg_img=0.0, text_vocab_size=256, codebook_size=32,
+                       mask_token=250)
+state, step = train_pararl.build_update(
+    cfg, params, rl_opts, 1e-4, train_pararl.subsample_steps(4, 2))
+batch = train_pararl.rollout_and_score(
+    state.params, cfg, torch.as_tensor(seqs.repeat(2, 0)), lay, rl_opts,
+    RewardSpec([code_diversity_reward], [1.0]), g)
+state, metrics = step(state, batch, g)
+print(json.dumps({
+    "blocked": sorted(m for m in sys.modules if m.split(".")[0] in
+                      ("jax", "jaxlib", "mmada_parallel_tpu", "datasets",
+                       "PIL")),
+    "texts": [[r["text"] for r in s["results"]] for s in sweeps],
+    "codes": [[r["codes"].tolist() for r in s["results"]] for s in sweeps],
+    "keywords": raw[1]["meta"]["keywords"],
+    "inter": inter["results"][0]["codes"].tolist(),
+    "loss": float(metrics["loss"]), "step": state.step}))
+"""
+
+
+def test_eval_quant_and_pararl_import_no_jax():
+    """The evaluation slice with ``jax``, the JAX package and ``datasets``
+    blocked: a jsonl ParaBench export adapted into requests, the edit sweep
+    on dense and on W8A8 params, the cached interleave sweep, one ParaRL
+    rollout and update, and the imports of the eval and ParaRL CLIs; PIL
+    is never imported on these paths."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", EVAL_SCRIPT], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["blocked"] == []
+    for texts, codes in zip(res["texts"], res["codes"]):
+        assert len(texts) == 2 and all(len(t) == 4 for t in texts)
+        assert all(0 <= c < 32 for row in codes for c in row)
+    assert res["keywords"] == ["barn"]
+    assert len(res["inter"]) == 4 and all(0 <= c < 32 for c in res["inter"])
+    assert res["step"] == 1 and abs(res["loss"]) < 1e6       # finite

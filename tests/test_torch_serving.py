@@ -5,7 +5,8 @@ run through the port's sampler and the JAX server's result with bridged
 weights (temperature 0).  Also: bucketing and request guards, ``warmup``
 recording its buckets, batched image encodes on the worker, the HTTP
 endpoints of ``python -m mmada_parallel_torch.cli.serve --tiny_model
---device cpu`` on an ephemeral port, and the flags that refuse."""
+--device cpu`` on an ephemeral port (``--quant`` among them), and the flags
+that refuse."""
 
 import json
 import os
@@ -416,13 +417,30 @@ def test_http_serve_cli_both_variants():
         m.stop()
 
 
-@pytest.mark.parametrize("flags,item", [(["--quant", "int8"], "item 14"),
-                                        (["--tp_ring", "2"], "item 16"),
+@pytest.mark.parametrize("flags,item", [(["--tp_ring", "2"], "item 16"),
                                         (["--tp_ring_int8"], "item 16")])
 def test_serve_cli_refuses_unported_flags(flags, item):
     from mmada_parallel_torch.cli import serve
     with pytest.raises(SystemExit, match=item):
         serve.main(["--tiny_model", "--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("quant", ["int8", "int8_bf16head"])
+def test_http_serve_cli_quant(quant):
+    """``--quant`` serves W8A8 params: an /edit request on the tiny model
+    answers with in-range codes and the whole answer span."""
+    A = tk.TOKENS_A
+    a = _Served(["--quant", quant, "--height", "32", "--width", "32",
+                 "--text_gen_length", "8", "--timesteps", "2",
+                 "--text_steps", "4", "--cfg_img", "0"])
+    try:
+        a.wait_ready()
+        out = a.post("/edit", {"prompt_ids": list(range(1000, 1005))})
+        assert len(out["codes"]) == 2 * 2 and len(out["text"]) == 8
+        assert all(0 <= c < A.codebook_size for c in out["codes"])
+        assert a.get("/stats")["requests"] == 1
+    finally:
+        a.stop()
 
 
 def test_serve_cli_keeps_the_jax_flags():
