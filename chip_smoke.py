@@ -2,8 +2,9 @@
 paths: the variant-A thinking-aware edit (exact and feature-cached), the
 variant-M interleave generation (exact and feature-cached), text-to-image
 (A exact and cached, M), understanding, the streaming demo, the four
-servers, the ParaBench evaluation sweeps, the W8A8 int8 edit, and the A and
-M train steps and ParaRL with gradients through the attention kernels.
+servers, the ParaBench evaluation sweeps, the W8A8 int8 edit, the A and M
+train steps, the variant-M SFT trainer (``cli/train_m.py``) with its data
+layer, and ParaRL, with gradients through the attention kernels.
 
     python3 chip_smoke.py        # from the repository root, one H100
 
@@ -29,7 +30,9 @@ Phases (each prints its own lines; any failure exits non-zero):
    both lengths checked by launch counts), each at small f32 shapes, every
    kernel at the tensor-core body's bf16 edges (D=64, ragged Lq/Lk, GQA,
    fully masked rows, per-row tables, odd Lk with a bias, forced splits,
-   bounds 0 and past Lk), and K1 at the A and M train steps' shapes; SDPA
+   bounds 0 and past Lk), and K1 at the A and M train steps' shapes and at
+   the M trainer's (B=1, L=2565, the key-padding bias of an interleave
+   row); SDPA
    on pre-rotated inputs beside K2 and K4 as a yardstick for their
    attention part (not the same function: no rotation); the device kernel
    names of one K2 and one K4 bf16 call (the tensor-core body, not the FMA
@@ -49,6 +52,13 @@ Phases (each prints its own lines; any failure exits non-zero):
    buckets, a short last chunk) and the cached interleave sweep row for
    row, the W8A8 edit token for token, and three ParaRL updates on one
    recorded trajectory (loss and gradient norm) equal the plain path's;
+   three steps of the M trainer's loop (``train_m.train_loop``, 2
+   microbatches) equal the plain path's (losses and gradient norm), a
+   checkpoint saved and restored into other weights gives the straight
+   run's next step, and ``_validate_chat`` and ``_validate`` write their
+   jsonl and PNG with exact K1 counts; the M trainer's readers: the native
+   tar reader (built with ``g++``) against ``tarfile`` on a shard written
+   here, both timed, and the token store gathered back bit for bit;
 4. at the full width of the 8B backbone (all 32 layers, one set of random
    bf16 weights from a seed) with the full-size tokenizers: the exact edit
    (K1), the exact edit with non-fp32 RoPE (K3), the cached edit (K2 and
@@ -79,6 +89,12 @@ Phases (each prints its own lines; any failure exits non-zero):
    interleave length, with seconds per step, tokens per second and peak
    memory; one more step of each (A plain, A K1, M) under ``torch.profiler``
    gives the device time by kernel class and the idle share; then the
+   variant-M SFT trainer (``cli/train_m.py``'s ``build_train_step``,
+   ``assemble_batch`` and ``train_loop``: the full-size MagViT-v2 on seeded
+   512x512 images, B=1 x 4 microbatches x L=2565, remat; the plain path's
+   first step, 3 steps through K1 at exactly 32 launches a step, loss and
+   grad norm against the plain path, s/step, the batch assembly's seconds,
+   tokens/s, peak memory, one step profiled, ``_validate_chat`` once); then the
    ``cli/train_pararl.py`` loop on the same 4 layers (2 rollouts of the
    512x512 layout, 16 + 8 steps, 4 scored, 3 updates: rollout and update
    seconds apart, exact K1 launches) and, on its last trajectory, the loss
@@ -456,6 +472,15 @@ def phase_kernel() -> dict:
                      bias=_mask_bias(mmu_mask), timed=True,
                      per_row_pos=ragged_positions(mmu_mask))
     recs += [h, i]
+    # (j) the M trainer's step (cli/train_m.py, phase 5 [train-m-cli]):
+    # B=1 at its 2565 tokens, shared tables, the key-padding bias of an
+    # interleave row (the instruction's eos fill in the middle, the output
+    # text's tail at the end)
+    m_mask = _m_cli_mask(dev)
+    Lc = m_mask.shape[1]
+    j = _kernel_case("j/M-trainer", 1, Lc, Lc, H, H, D, bf16, BF16_TOL, gen,
+                     bias=_mask_bias(m_mask), timed=True)
+    recs.append(j)
     log(f"[kernel] K1 edit shape B=1: kernel {a1['ms']:.3f} ms plain "
         f"{a1['plain_ms']:.3f} ms; B=2: kernel {a2['ms']:.3f} ms plain "
         f"{a2['plain_ms']:.3f} ms; A-train B=1 L={TRAIN_L}: kernel "
@@ -463,7 +488,9 @@ def phase_kernel() -> dict:
         f"kernel {f['ms']:.3f} ms plain {f['plain_ms']:.3f} ms; t2i-server "
         f"B=4 L={Lt}: kernel {h['ms']:.3f} ms plain {h['plain_ms']:.3f} ms; "
         f"mmu-server B=2 L={Lu}: kernel {i['ms']:.3f} ms plain "
-        f"{i['plain_ms']:.3f} ms")
+        f"{i['plain_ms']:.3f} ms; M-trainer B=1 L={Lc} + bias "
+        f"({int((~m_mask).sum())} padded keys): kernel {j['ms']:.3f} ms "
+        f"plain {j['plain_ms']:.3f} ms bound {j['bound_ms']:.4f} ms")
     return dict(a1, max_abs_err=max(r["max_abs_err"] for r in recs),
                 library_ms=None)
 
@@ -1099,6 +1126,43 @@ class StandInTokenizer:
         return " ".join(map(str, ids))
 
 
+class StandInTokenizerM(StandInTokenizer):
+    """The stand-in with what the M trainer's prompting reads: the M
+    bos/eos ids, and batch calls (a list of texts in, a list of id lists
+    out)."""
+    bos_token_id, eos_token_id = 126080, 126081
+
+    def __call__(self, text, add_special_tokens=True):
+        if isinstance(text, list):
+            return {"input_ids": [super(StandInTokenizerM, self).__call__(
+                t, add_special_tokens)["input_ids"] for t in text]}
+        return super().__call__(text, add_special_tokens)
+
+
+M_CLI_INSTR = "make the sky purple"
+M_CLI_ANSWER = "the sky is purple now"
+
+
+def _m_cli_mask(device):
+    """The key-padding mask ``UniversalPrompting.interleave`` gives one row
+    of the M trainer (1024 image tokens, 256 text slots, the stand-in's
+    50-id instruction and answer): ``[1, 2565]``, with the instruction's
+    eos fill and the answer's tail padded."""
+    import numpy as np
+    import torch
+    from mmada_parallel_torch import tokens as tk
+    from mmada_parallel_torch.data.prompting import (UniversalPrompting,
+                                                     encode_output_texts)
+    T = tk.TOKENS_M
+    tok = StandInTokenizerM()
+    out_ids, out_lens = encode_output_texts(tok, [M_CLI_ANSWER], 256)
+    img = np.full((1, 1024), T.vq_offset)
+    _, _, mask = UniversalPrompting(tok, max_text_len=256).interleave(
+        img, [M_CLI_INSTR], img, out_ids, out_ids,
+        output_text_lengths=out_lens)
+    return torch.as_tensor(mask, dtype=torch.bool, device=device)
+
+
 def _edit_image(size: int):
     """A seeded uint8 RGB test image (gradient plus noise), no PIL."""
     import numpy as np
@@ -1537,6 +1601,313 @@ def phase_small_train() -> None:
         f"{[round(m['grad_norm'], 6) for m in mp]}, params max |err| "
         f"{worst:.3e} (they moved by up to {moved:.3e}); K1 "
         f"{want['flash_attention_rope']} launches per step")
+
+
+# ---------------------------------------------------------------------------
+# The M trainer (cli/train_m.py) and its data layer
+# ---------------------------------------------------------------------------
+
+
+def _m_samples(n: int, res: int) -> list:
+    """``n`` decoded edit pairs as ``InterleavePairShardDataset`` gives
+    them after the trainer's transform, without PIL: seeded uint8 images
+    (``input_image``) and their [-1, 1] pixels, instructions and answers;
+    the last sample text-only when ``n`` > 3."""
+    import numpy as np
+    rng = np.random.default_rng(15)
+    out = []
+    for i in range(n):
+        img_in, img_out = (rng.integers(0, 256, (res, res, 3), dtype=np.uint8)
+                           for _ in range(2))
+        out.append({"input_image": img_in,
+                    "pixels_in": img_in.astype(np.float32)[None] / 127.5 - 1,
+                    "pixels_out": img_out.astype(np.float32)[None] / 127.5
+                    - 1,
+                    "instruction": f"edit {i}: {M_CLI_INSTR}",
+                    "output_text": M_CLI_ANSWER if i % 2 else "done",
+                    "is_text_only": n > 3 and i == n - 1})
+    return out
+
+
+def _m_cli_cfg(out_dir: str, steps: int, msl: int, n_vq: int, res: int,
+               accum: int, **over):
+    """The M trainer's config (``cli/train_m.DEFAULTS`` with the values of
+    ``configs/train_m.yaml``: lr 1e-4, weight decay 0.01, clip 1.0, 500
+    warmup steps of a cosine schedule, batch 1), cut to ``steps`` steps;
+    ``over`` are further dotted overrides."""
+    from mmada_parallel_torch.cli.train_m import DEFAULTS
+    from mmada_parallel_torch.config import load_config
+    args = {"output_dir": out_dir, "device": "cuda",
+            "dataset.preprocessing.max_seq_length": msl,
+            "dataset.preprocessing.resolution": res,
+            "model.mmada.num_vq_tokens": n_vq,
+            "training.lr": 1e-4, "training.weight_decay": 0.01,
+            "training.max_grad_norm": 1.0, "training.warmup_steps": 500,
+            "training.batch_size": 1,
+            "training.gradient_accumulation_steps": accum,
+            "training.max_train_steps": steps,
+            "training.save_every": 1000000, "training.log_every": 1000000,
+            **over}
+    return load_config(None, [f"{k}={v}" for k, v in args.items()],
+                       DEFAULTS)
+
+
+def _counted_step(step):
+    """``step`` with every launch count set to 0 just before each call and
+    read just after it, timed up to a synchronize; returns ``(wrapper,
+    [(launches, seconds) per call])``."""
+    import torch
+    records = []
+
+    def counted(state, batch):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.time()
+        out = step(state, batch)
+        torch.cuda.synchronize()
+        records.append((read_launches(), time.time() - t0))
+        return out
+
+    return counted, records
+
+
+@contextlib.contextmanager
+def _timed_assembly(times: list):
+    """``train_m.assemble_batch`` (the loader's device work: two MagViT-v2
+    encodes, the noising, the interleave rows) timed up to a synchronize
+    while the context is open."""
+    import torch
+    from mmada_parallel_torch.cli import train_m as TM
+    real = TM.assemble_batch
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+        return out
+
+    TM.assemble_batch = timed
+    try:
+        yield
+    finally:
+        TM.assemble_batch = real
+
+
+def _small_m_models(impl: str, seed: int = 13):
+    """The small f32 backbone (head_dim 64, the full M vocab, remat
+    ``whole_layer``) and a narrow 13-bit MagViT-v2 (2 levels: scale 2), as
+    ``train_m.Models`` with the stand-in tokenizer."""
+    import torch
+    from mmada_parallel_torch import tokens as tk
+    from mmada_parallel_torch.cli.train_m import Models
+    from mmada_parallel_torch.models import magvit2 as MVQ
+    T = tk.TOKENS_M
+    cfg, params = _small_llada(
+        torch.Generator(device="cuda").manual_seed(seed), T.full_vocab_size,
+        mask_token_id=T.mask, remat="whole_layer", attention_impl=impl)
+    vcfg = MVQ.MagvitConfig(ch=16, enc_ch_mult=(1, 2), enc_blocks=(1, 1),
+                            dec_ch_mult=(1, 2), dec_blocks=(1, 1),
+                            z_channels=13, groups=4)
+    vparams = MVQ.init_magvit_params(
+        vcfg, torch.Generator(device="cuda").manual_seed(14))
+    return Models(cfg, params, StandInTokenizerM(), vcfg, vparams)
+
+
+def _train_m_run(cfg, models, samples, seed: int, state=None, mngr=None):
+    """``train_m.train_loop`` from ``state`` (default: a fresh one from
+    ``build_train_step``) with the noising generator seeded ``seed``;
+    returns ``(state, history, [(launches, seconds) per step], step)``."""
+    import torch
+    from mmada_parallel_torch.cli import train_m as TM
+    fresh, step, sched = TM.build_train_step(models.mcfg, models.params, cfg)
+    counted, records = _counted_step(step)
+    state, hist = TM.train_loop(
+        cfg, fresh if state is None else state, counted, samples, models,
+        sched, torch.Generator(device="cuda").manual_seed(seed), mngr=mngr)
+    return state, hist, records, step
+
+
+M_KEYS = ("loss", "text_loss", "image_loss", "grad_norm")
+
+
+def phase_small_train_m() -> None:
+    """The M trainer's loop (``cli/train_m.train_loop``) on a small f32
+    model: 3 steps of 2 accumulated microbatches through K1 equal the plain
+    attention's (loss, text and image losses, grad norm; rtol 1e-4 as the
+    A steps of ``phase_small_train``); a checkpoint saved at step 2 and
+    restored into other weights gives the straight run's step 3 (the same
+    tolerance, and the A steps' 5e-5 on the parameters: the embedding's
+    backward accumulates with atomics); then ``_validate_chat`` and
+    ``_validate`` write their jsonl and PNG, with exact K1 counts."""
+    import dataclasses
+    import tempfile
+    import torch
+    from PIL import Image
+    from mmada_parallel_torch.cli import train_m as TM
+    from mmada_parallel_torch.training.checkpoint import CheckpointManager
+    from mmada_parallel_torch.training.trainer import tree_leaves
+    res, msl = 16, 16
+    n_vq = (res // 2) ** 2
+    samples = _m_samples(4, res)
+    with tempfile.TemporaryDirectory() as tmp:
+        fast = {"training.lr": 1e-3, "training.warmup_steps": 1}
+        cfg = _m_cli_cfg(tmp, 3, msl, n_vq, res, accum=2, **fast)
+        models = {impl: _small_m_models(impl) for impl in ("auto", "xla")}
+        n_layers = models["auto"].mcfg.n_layers
+        runs = {impl: _train_m_run(cfg, m, samples, 16)[1:3]
+                for impl, m in models.items()}
+        del models
+        (hk, rk), (hp, rp) = runs["auto"], runs["xla"]
+        want = {n: 0 for n in KERNELS}
+        want["flash_attention_rope"] = n_layers * 2 * 2
+        if [x for x, _ in rk] != [want] * 3 or any(
+                sum(x.values()) for x, _ in rp):
+            raise AssertionError(f"small train-m: launches {rk} (kernel), "
+                                 f"{rp} (plain); expected {want} a step")
+        for a, b in zip(hk, hp):
+            for key in M_KEYS:
+                if not abs(a[key] - b[key]) <= 1e-4 * abs(b[key]):
+                    raise AssertionError(f"small train-m: {key} {a[key]} "
+                                         f"(kernel) vs {b[key]} (plain)")
+        # save at 2 -> restore into other weights -> step 3 == straight
+        models = _small_m_models("auto")
+        mngr = CheckpointManager(os.path.join(tmp, "ckpt"))
+        state = _train_m_run(
+            _m_cli_cfg(tmp, 2, msl, n_vq, res, accum=2,
+                       **{"training.save_every": 2}, **fast),
+            models, samples, 16, mngr=mngr)[0]
+        state, hs = _train_m_run(cfg, models, samples, 17, state=state)[:2]
+        other = dataclasses.replace(models, params=_small_m_models(
+            "auto", seed=99).params)
+        fresh, _, _ = TM.build_train_step(other.mcfg, other.params, cfg)
+        restored, meta, last = mngr.restore(fresh)
+        if last != 2 or meta != {"step": 2} or restored.step != 2:
+            raise AssertionError(f"small train-m: restored step {last}, "
+                                 f"metadata {meta}")
+        restored, hr = _train_m_run(cfg, other, samples, 17,
+                                    state=restored)[:2]
+        for key in M_KEYS:
+            if not abs(hr[0][key] - hs[0][key]) <= 1e-4 * abs(hs[0][key]):
+                raise AssertionError(f"small train-m resume: {key} "
+                                     f"{hr[0][key]} vs {hs[0][key]}")
+        worst = max(float((x - y).detach().abs().max()) for x, y in zip(
+            tree_leaves(restored.params), tree_leaves(state.params)))
+        if worst > 5e-5:
+            raise AssertionError(f"small train-m resume: parameters differ "
+                                 f"from the straight run by {worst:.3e}")
+        # the chat and interleave validators on the trained state
+        jl = os.path.join(tmp, "chat.jsonl")
+        with open(jl, "w") as f:
+            for q in ("what is in the image?", "describe the sky"):
+                f.write(json.dumps({"question": q}) + "\n")
+        vcfg = _m_cli_cfg(tmp, 3, msl, n_vq, res, accum=2, **{
+            "dataset.params.lm_chat_validation_jsonl": jl})
+        tok = models.tokenizer
+        reset_launches()
+        TM._validate_chat(state.params, models.mcfg, tok, vcfg, 3)
+        torch.cuda.synchronize()
+        chat = check_launches("small _validate_chat", {
+            "flash_attention_rope": n_layers * (msl // 2)})
+        reset_launches()
+        TM._validate(state.params, models.mcfg, models.vq_params,
+                     models.vq_cfg, tok, samples[0], vcfg, 3)
+        torch.cuda.synchronize()
+        inter = check_launches("small _validate", {
+            "flash_attention_rope": n_layers * 32})
+        out = os.path.join(tmp, "validation")
+        with open(os.path.join(out, "chat_step0000003.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        png = Image.open(os.path.join(out, "step0000003.png"))
+        with open(os.path.join(out, "step0000003.txt")) as f:
+            text = f.read()
+        if [r["question"] for r in rows] != ["what is in the image?",
+                                             "describe the sky"] \
+                or not all(isinstance(r["response"], str) for r in rows) \
+                or png.size != (res, res) or not text:
+            raise AssertionError(f"small train-m validators: rows {rows}, "
+                                 f"png {png.size}, text {text!r}")
+    log(f"[train-m-small] cli/train_m.train_loop, f32 head_dim 64, full M "
+        f"vocab, remat whole_layer, 2 microbatches x L="
+        f"{2 * n_vq + 2 * msl + 5}: losses "
+        f"{[round(h['loss'], 6) for h in hk]} (kernel) vs "
+        f"{[round(h['loss'], 6) for h in hp]} (plain), text "
+        f"{[round(h['text_loss'], 6) for h in hk]} vs "
+        f"{[round(h['text_loss'], 6) for h in hp]}, image "
+        f"{[round(h['image_loss'], 6) for h in hk]} vs "
+        f"{[round(h['image_loss'], 6) for h in hp]}, grad norms "
+        f"{[round(h['grad_norm'], 6) for h in hk]} vs "
+        f"{[round(h['grad_norm'], 6) for h in hp]}; K1 "
+        f"{want['flash_attention_rope']} a step")
+    log(f"[train-m-small] checkpoint at step 2 restored into other weights: "
+        f"step 3 loss {hr[0]['loss']:.6f} vs {hs[0]['loss']:.6f} straight, "
+        f"params max |err| {worst:.3e}; _validate_chat {len(rows)} rows "
+        f"(K1 {chat['flash_attention_rope']}), _validate PNG {png.size} + "
+        f"{len(text.split())} text tokens (K1 "
+        f"{inter['flash_attention_rope']})")
+
+
+def phase_shards() -> None:
+    """The M trainer's readers on the card's host: a tar shard of 64 edit
+    pairs (two 256 KiB raw payloads and two texts each, written here with
+    ``tarfile``, no PIL) read by ``ShardReader`` through the native reader
+    (``g++`` into ``_build/``) and through ``tarfile``, equal sample for
+    sample, each timed (best of 3); a token store of 200 records written and
+    gathered back bit for bit."""
+    import io
+    import tarfile
+    import tempfile
+    import numpy as np
+    from mmada_parallel_torch.data import shards, tarstream, tokenstore
+    t0 = time.time()
+    if not tarstream.native_available():
+        raise AssertionError(f"shards: the native tar reader did not build "
+                             f"({tarstream._LIB_ERR})")
+    build_s = time.time() - t0
+    rng = np.random.default_rng(17)
+    n, blob = 64, 256 << 10
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pairs-000.tar")
+        with tarfile.open(path, "w") as tf:
+            for i in range(n):
+                for name, payload in (
+                        (f"p{i:03d}.input.jpg", rng.bytes(blob)),
+                        (f"p{i:03d}.output.jpg", rng.bytes(blob)),
+                        (f"p{i:03d}.input_text.txt", f"edit {i}".encode()),
+                        (f"p{i:03d}.output_text.txt", b"done " * i)):
+                    info = tarfile.TarInfo(name)
+                    info.size = len(payload)
+                    tf.addfile(info, io.BytesIO(payload))
+        mb = os.path.getsize(path) / 2 ** 20
+        secs = {}
+        for native in (True, False):
+            best = None
+            for _ in range(3):
+                t0 = time.time()
+                got = list(shards.ShardReader([path], use_native=native))
+                dt = time.time() - t0
+                best = dt if best is None else min(best, dt)
+            secs[native] = (best, got)
+        if secs[True][1] != secs[False][1] or len(secs[True][1]) != n:
+            raise AssertionError("shards: the native reader's samples differ "
+                                 "from tarfile's")
+        recs = [rng.integers(0, 134656, rng.integers(1, 3000)).tolist()
+                for _ in range(200)]
+        store = os.path.join(tmp, "train.tokstore")
+        tokenstore.write_token_store(store, recs)
+        ts = tokenstore.TokenStore(store)
+        rows, lens = ts.gather(list(range(200)), max_len=3000, pad=-1)
+        ts.close()
+        if lens.tolist() != [len(r) for r in recs] or any(
+                rows[i, :len(r)].tolist() != r or (rows[i, len(r):] != -1)
+                .any() for i, r in enumerate(recs)):
+            raise AssertionError("shards: token store gather differs")
+    (tn, _), (tp, _) = secs[True], secs[False]
+    log(f"[shards] native tar reader built in {build_s:.2f} s; {n} pairs, "
+        f"{mb:.1f} MiB: native {n / tn:.0f} samples/s ({mb / tn:.0f} MiB/s),"
+        f" tarfile {n / tp:.0f} samples/s ({mb / tp:.0f} MiB/s), equal "
+        f"sample for sample; token store: 200 records gathered bit-exact")
 
 
 @contextlib.contextmanager
@@ -2897,6 +3268,211 @@ def phase_train_m(a_run: dict) -> None:
     _profile("train-m", lambda: step(state, batch))
 
 
+# The M trainer's first step, K1 against the plain attention, on one batch.
+# In bf16 compute the two paths are each ~1e-2 (of the gradient's norm)
+# away from the f32 step's gradient, ~2e-4 in the loss and ~1e-3 in the
+# grad norm, on either side of it (measured on an H100): one microbatch's
+# t = 0.0097 weights its two text tokens by 1/t, so the A step's
+# tolerances (A_LOSS_RTOL, A_GRAD_NORM_RTOL), which hold 10,240 evenly
+# weighted token losses, lie below this step's rounding noise.  K1 is held
+# instead (a) in f32 compute, where the kernel and the plain chain differ
+# only by summation order: loss, text and image losses and grad norm within
+# rtol 1e-5, the gradient within 1e-4 of its norm; and (b) in bf16 compute,
+# the trainer's path: its gradient no farther from the f32 step's than
+# 1.25x the plain bf16 step's.
+M_F32_RTOL, M_F32_GRAD_RTOL, M_BF16_GRAD_RATIO = 1e-5, 1e-4, 1.25
+
+
+def _m_first_step(models, cfg, batch, impl: str, dtype):
+    """The M trainer's first step on ``batch`` without the optimizer,
+    through ``make_loss_fn`` with attention ``impl`` in compute ``dtype``:
+    ``(metrics, gradient leaves, launch counts)``, the metrics (loss, text
+    and image losses, grad norm) and the gradient the mean over the
+    microbatches, as the train step forms them."""
+    import dataclasses
+    import torch
+    from mmada_parallel_torch.cli.train_m import make_loss_fn
+    from mmada_parallel_torch.training.trainer import tree_leaves
+    leaves = tree_leaves(models.params)
+    loss_fn = make_loss_fn(dataclasses.replace(
+        models.mcfg, attention_impl=impl, compute_dtype=dtype), cfg)
+    n = cfg.training.gradient_accumulation_steps
+    for p in leaves:
+        p.requires_grad_(True)
+        p.grad = None
+    sums = {}
+    torch.cuda.synchronize()
+    reset_launches()
+    with torch.enable_grad():
+        for i in range(n):
+            mb = tuple(x.reshape((n, -1) + tuple(x.shape[1:]))[i]
+                       for x in batch)
+            loss, m = loss_fn(models.params, mb, None)
+            loss.backward()
+            for k, v in {"loss": loss, **m}.items():
+                sums[k] = sums.get(k, 0.0) + float(v.detach()) / n
+    torch.cuda.synchronize()
+    launches = read_launches()
+    grads = [p.grad.div_(n) for p in leaves]
+    for p in leaves:
+        p.grad = None
+        p.requires_grad_(False)
+    sums["grad_norm"] = float(torch.sqrt(sum(g.float().square().sum()
+                                             for g in grads)))
+    return sums, grads, launches
+
+
+def phase_train_m_cli() -> None:
+    """The variant-M SFT trainer (``cli/train_m.py``: ``build_train_step``,
+    ``assemble_batch``, ``train_loop``) at the 8B widths, 4 of 32 layers
+    (f32 params, bf16 compute, remat ``whole_layer``), with the full-size
+    MagViT-v2 encoding seeded 512x512 images and ``configs/train_m.yaml``'s
+    sizes: 256 text slots, batch 1 x 4 accumulation microbatches, one row
+    of 2565 tokens each.  First the loop's first batch through the loss
+    four ways (plain / K1, f32 / bf16 compute; gates above
+    ``M_F32_RTOL``), then 3 steps of the loop through K1 (exactly 4 layers
+    x 4 microbatches x (forward + remat recompute) = 32 launches a step),
+    one more under the profiler, and ``_validate_chat`` once.  No
+    checkpoint: the state is ~32 GB (phase 3 holds the save/restore round
+    trip)."""
+    import gc
+    import tempfile
+    import torch
+    from mmada_parallel_torch.cli import train_m as TM
+    from mmada_parallel_torch.data.prompting import UniversalPrompting
+    from mmada_parallel_torch.models import magvit2 as MVQ
+    from mmada_parallel_torch.models.llada import count_params
+    accum, msl, n_vq, res = 4, 256, 1024, 512
+    samples = _m_samples(accum, res)
+    tok = StandInTokenizerM()
+    vcfg = MVQ.MagvitConfig()
+    vparams = MVQ.init_magvit_params(
+        vcfg, torch.Generator(device="cuda").manual_seed(18))
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = _m_cli_cfg(tmp, 3, msl, n_vq, res, accum)
+        mcfg = _train_cfg("auto")
+        m = TM.Models(mcfg, _train_params(mcfg), tok, vcfg, vparams)
+        n_params = count_params(m.params)
+        # the loop's first batch: a fresh prompting rng, the seed-19 noise
+        first = TM.assemble_batch(samples, m.get_code, tok,
+                                  UniversalPrompting(tok, max_text_len=msl),
+                                  torch.Generator(device="cuda").manual_seed(
+                                      19), cfg, torch.device("cuda"))
+        L = first[0].shape[1]
+        if L != 2565:
+            raise AssertionError(f"train-m-cli: sequence length {L}, "
+                                 f"expected 2565")
+        want = {n: 0 for n in KERNELS}
+        want["flash_attention_rope"] = mcfg.n_layers * accum * 2
+        none = {n: 0 for n in KERNELS}
+        ref, g_ref, launches = _m_first_step(m, cfg, first, "xla", f32)
+        runs = {}
+        for impl, dt in (("auto", f32), ("xla", bf16), ("auto", bf16)):
+            met, g, launches_ = _m_first_step(m, cfg, first, impl, dt)
+            dist = float(torch.sqrt(sum((x - y).float().square().sum()
+                                        for x, y in zip(g, g_ref))))
+            runs[impl, dt] = (met, dist)
+            if launches_ != (want if impl == "auto" else none):
+                raise AssertionError(f"train-m-cli: {impl} {dt} first step "
+                                     f"launched {launches_}")
+            del g
+        del g_ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        if launches != none:
+            raise AssertionError(f"train-m-cli: the plain path launched "
+                                 f"{launches}")
+        (k32, d32), (p16, dp16), (k16, dk16) = (
+            runs["auto", f32], runs["xla", bf16], runs["auto", bf16])
+        for key in M_KEYS:
+            if not abs(k32[key] - ref[key]) <= M_F32_RTOL * abs(ref[key]):
+                raise AssertionError(f"train-m-cli: f32 first-step {key} "
+                                     f"{k32[key]} (K1) vs {ref[key]} "
+                                     f"(plain), rtol {M_F32_RTOL}")
+        if not d32 <= M_F32_GRAD_RTOL * ref["grad_norm"]:
+            raise AssertionError(f"train-m-cli: f32 gradient {d32} from the "
+                                 f"plain path's (norm {ref['grad_norm']})")
+        if not dk16 <= M_BF16_GRAD_RATIO * dp16:
+            raise AssertionError(f"train-m-cli: bf16 K1 gradient {dk16} "
+                                 f"from the f32 step's, the plain bf16 "
+                                 f"path's {dp16} (ratio limit "
+                                 f"{M_BF16_GRAD_RATIO})")
+        ts = [round(x, 4) for x in first[3].tolist()]
+        log(f"[train-m-cli] first batch, LLaDA-8B widths, 4 of 32 layers "
+            f"({n_params / 1e9:.3f} B params f32), B=1 x {accum} "
+            f"microbatches x L={L}, t {ts}: f32 compute loss "
+            f"{k32['loss']:.6f} (K1) vs {ref['loss']:.6f} (plain), grad norm {k32['grad_norm']:.6f} vs "
+            f"{ref['grad_norm']:.6f}, gradients {d32 / ref['grad_norm']:.3e}"
+            f" of the norm apart; bf16 compute loss {k16['loss']:.6f} (K1) "
+            f"vs {p16['loss']:.6f} (plain), grad norm {k16['grad_norm']:.6f}"
+            f" vs {p16['grad_norm']:.6f}, gradients "
+            f"{dk16 / ref['grad_norm']:.3e} (K1) and "
+            f"{dp16 / ref['grad_norm']:.3e} (plain) of the norm from the "
+            f"f32 step's")
+
+        data_s = []
+        torch.cuda.reset_peak_memory_stats()
+        with _timed_assembly(data_s):
+            state, hist, rec, step = _train_m_run(cfg, m, samples, 19)
+        peak = torch.cuda.max_memory_allocated()
+        if [x for x, _ in rec] != [want] * 3:
+            raise AssertionError(f"train-m-cli: launches per step "
+                                 f"{[x for x, _ in rec]}, expected {want}")
+        if not all(math.isfinite(h[k]) for h in hist for k in M_KEYS) \
+                or any(h["nonfinite"] for h in hist):
+            raise AssertionError(f"train-m-cli: non-finite step {hist}")
+        # the loop's first step is the bf16 K1 first step above (the
+        # embedding's backward accumulates with atomics: 1e-4 on the norm)
+        if not (abs(hist[0]["loss"] - k16["loss"]) <= 1e-6 * k16["loss"]
+                and abs(hist[0]["grad_norm"] - k16["grad_norm"])
+                <= 1e-4 * k16["grad_norm"]):
+            raise AssertionError(f"train-m-cli: the loop's first step "
+                                 f"{hist[0]} is not the step checked above "
+                                 f"{k16}")
+        batch = TM.assemble_batch(samples, m.get_code, tok,
+                                  UniversalPrompting(tok, max_text_len=msl),
+                                  torch.Generator(device="cuda").manual_seed(
+                                      20), cfg, torch.device("cuda"))
+        secs = [t for _, t in rec]
+        log(f"[train-m-cli] cli/train_m.train_loop: AdamW + clip 1.0, "
+            f"remat whole_layer, bf16 compute, MagViT-v2 encoding 512x512 on "
+            f"the card, key-padding bias: losses "
+            f"{[round(h['loss'], 4) for h in hist]}, text "
+            f"{[round(h['text_loss'], 4) for h in hist]}, image "
+            f"{[round(h['image_loss'], 4) for h in hist]}, grad norms "
+            f"{[round(h['grad_norm'], 4) for h in hist]}; K1 launches per "
+            f"step {want['flash_attention_rope']}")
+        log(f"[train-m-cli] s/step {[round(x, 3) for x in secs]} (the step "
+            f"alone, up to a synchronize), batch assembly "
+            f"{[round(x, 3) for x in data_s]} s, the loop's batch_time "
+            f"{[round(h['batch_time'], 3) for h in hist]} s; tokens/s "
+            f"{accum * L / min(secs[1:]):.1f} (best of steps 2-3), "
+            f"{accum * L / min(h['batch_time'] for h in hist[1:]):.1f} with "
+            f"the assembly; peak {peak / 2 ** 30:.2f} GiB")
+        _profile("train-m-cli", lambda: step(state, batch))
+        jl = os.path.join(tmp, "chat.jsonl")
+        with open(jl, "w") as f:
+            for q in ("what is in the image?", "describe the sky"):
+                f.write(json.dumps({"question": q}) + "\n")
+        vcfg_ = _m_cli_cfg(tmp, 3, msl, n_vq, res, accum, **{
+            "dataset.params.lm_chat_validation_jsonl": jl})
+        (_, wall, vpeak) = _timed_run(lambda: TM._validate_chat(
+            state.params, m.mcfg, tok, vcfg_, 3))
+        chat = check_launches("train-m-cli _validate_chat", {
+            "flash_attention_rope": m.mcfg.n_layers * (msl // 2)})
+        with open(os.path.join(tmp, "validation",
+                               "chat_step0000003.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        if len(rows) != 2 or not all(isinstance(r["response"], str)
+                                     for r in rows):
+            raise AssertionError(f"train-m-cli: chat rows {rows}")
+    log(f"[train-m-cli] _validate_chat: 2 questions, {msl} new tokens in "
+        f"{msl // 2} steps, {wall:.2f} s, K1 {chat['flash_attention_rope']},"
+        f" peak {vpeak / 2 ** 30:.2f} GiB")
+
+
 # the ParaRL update's loss and grad norm, K1 against the plain attention, on
 # one trajectory (bf16 compute): as for the A step (A_LOSS_RTOL,
 # A_GRAD_NORM_RTOL), an attention output element differs by up to a bf16
@@ -3024,6 +3600,8 @@ def main() -> int:
     phase_small_slice()
     phase_small_new_paths()
     phase_small_train()
+    phase_small_train_m()
+    phase_shards()
     mark("phase 3 (small models) up to the train steps")
     phase_small_eval()
     mark("phase 3 (small models)")
@@ -3057,6 +3635,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mark("phase 5 (training) up to the M step")
+    phase_train_m_cli()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("phase 5 (training) up to ParaRL")
     phase_pararl()
     mark("phase 5 (training)")
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

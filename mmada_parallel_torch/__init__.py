@@ -13,9 +13,10 @@ behind an autograd Function whose backward recomputes the plain chain.
 The port imports nothing of the JAX package, not even its framework-free
 host modules: it keeps its own copies of them at the same relative paths
 (:mod:`.tokens`, :mod:`.config`, :mod:`.utils.image`, :mod:`.utils.logging`,
-the A trainer's :mod:`.data`, :mod:`.eval_scorers` and
+the A and M trainers' :mod:`.data` with the C++ readers under ``native/``
+(built with ``g++`` at first use), :mod:`.eval_scorers` and
 :mod:`.data.parabench`), held against their originals by
-``tests/test_torch_host_modules.py``.  ``tests/test_torch_no_jax.py`` runs
+``tests/test_torch_host_modules.py`` and ``tests/test_torch_data_m.py``.  ``tests/test_torch_no_jax.py`` runs
 its paths with ``jax`` and ``mmada_parallel_tpu`` blocked.
 """
 

@@ -6,7 +6,8 @@ the half-cosine schedule, checkpoints with mid-epoch resume, TensorBoard /
 jsonl metrics.  One device: the mesh and sharding flags raise when set away
 from their single-device defaults.  The data pipeline (``MetaDataset``,
 ``LengthClusteredSampler``, ``AItemProcessor``) and the metric logging are
-the JAX package's framework-free modules, imported inside :func:`main`.
+the port's copies of the JAX package's host modules, imported inside
+:func:`main`.
 
     python -m mmada_parallel_torch.cli.train_a --data_config data.yaml \
         --output_dir out --init_from /ckpts/MMaDA-Parallel-A --checkpointing

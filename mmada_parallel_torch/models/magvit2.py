@@ -7,8 +7,8 @@ the lookup-free quantizer (sign bits packed MSB-first, codebook entries the
 JAX layout: pixels NHWC in [-1, 1], latents NHWC, codes ``[B, h*w]``; inside,
 the convolutions run NCHW (:mod:`~mmada_parallel_torch.models.vqgan_common`).
 Run it in fp32 with TF32 off (cuDNN convolutions default to TF32): the
-pipelines and servers call it inside ``vqgan_common.vq_precision()``.  The
-training losses (``lfq_losses``) are not ported yet.
+pipelines and servers call it inside ``vqgan_common.vq_precision()``.
+:func:`lfq_losses` are the quantizer's training losses.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from mmada_parallel_torch.models import vqgan_common as C
 
 __all__ = ["MagvitConfig", "init_magvit_params", "magvit_encode",
            "magvit_get_code", "magvit_decode_code", "lfq_quantize",
-           "lfq_codebook_entry"]
+           "lfq_losses", "lfq_codebook_entry"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,6 +134,28 @@ def lfq_quantize(z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     z_q = z + (z_q_hard - z)
     indices = (bits.long() * _powers(Cc, z.device)).sum(dim=-1)
     return z_q, indices.reshape(B, H * W)
+
+
+def lfq_losses(z: torch.Tensor, beta: float = 0.25
+               ) -> Dict[str, torch.Tensor]:
+    """Entropy and commitment losses of ``[..., C]`` latents, in f32
+    (``modeling_magvitv2.py:246-263``): each channel's soft assignment to
+    +-1 (logits ``-(z -+ 1)^2``), its mean entropy minus the entropy of the
+    batch-mean assignment, and the straight-through commitment ``|sg(z_q) -
+    z|^2 + beta |z_q - sg(z)|^2``; ``.detach()`` is JAX's
+    ``stop_gradient``."""
+    zf = z.float().reshape(-1, z.shape[-1])
+    hard = torch.where(zf > 0, 1.0, -1.0)
+    z_q = zf + (hard - zf).detach()          # straight-through
+    logit = torch.stack([-(zf - 1.0) ** 2, -(zf + 1.0) ** 2], dim=-1)
+    logp = torch.log_softmax(logit, dim=-1)
+    p = logp.exp()
+    entropy = (-(p * logp).sum(-1)).mean()
+    mean_p = p.mean(dim=0)
+    mean_entropy = (-(mean_p * torch.log(mean_p + 1e-10)).sum(-1)).mean()
+    commit = (torch.mean((z_q.detach() - zf) ** 2)
+              + beta * torch.mean((z_q - zf.detach()) ** 2))
+    return {"entropy_loss": entropy - mean_entropy, "commit_loss": commit}
 
 
 def lfq_codebook_entry(indices: torch.Tensor, z_channels: int,

@@ -348,3 +348,109 @@ def test_parabench_copy_on_a_jsonl_export(tmp_path):
         got = PPB.parabench_requests(rows_p, task, _pb_tokenize, enc)
         assert got == JPB.parabench_requests(rows_j, task, _pb_tokenize, enc)
         assert "input_codes" not in got[0]["meta"]
+
+
+# -- the M trainer's data layer (data/prompting, shards, tokenizer,
+# tarstream, tokenstore, pretokenize, imagenet): each copy exports what its
+# original does and behaves the same; the shard, prompting and token-store
+# behaviour is held in depth by tests/test_torch_data_m.py
+
+import importlib  # noqa: E402
+
+_M_COPIES = ["data.prompting", "data.shards", "data.tokenizer",
+             "data.tarstream", "data.tokenstore", "data.pretokenize",
+             "data.imagenet", "utils.determinism", "utils.diagnostics",
+             "utils.param_store", "utils.profiling"]
+
+
+@pytest.mark.parametrize("name", _M_COPIES)
+def test_m_copies_export_what_their_originals_do(name):
+    port = importlib.import_module(f"mmada_parallel_torch.{name}")
+    ref = importlib.import_module(f"mmada_parallel_tpu.{name}")
+    assert port.__all__ == ref.__all__
+    assert all(hasattr(port, n) for n in port.__all__)
+    assert f"mmada_parallel_tpu.{name}" in port.__doc__   # its counterpart
+
+
+class _SegmentTok:
+    """A transformers-style inner tokenizer that merges a leading space
+    into the next word (as sentencepiece-derived vocabularies do)."""
+
+    def encode(self, s, **kw):
+        return [hash(w) % 997 for w in s.replace(" ", " _").split(" ")
+                if w]
+
+    def decode(self, ids):
+        return " ".join(map(str, ids))
+
+
+@pytest.mark.parametrize("text", ["my darling", " leading space", "x=1"])
+def test_tokenizer_wrapper_copy(text):
+    """``Tokenizer``'s probing and segment encoders on one inner tokenizer
+    (``__init__``, which loads a model file, is bypassed in both)."""
+    from mmada_parallel_torch.data import tokenizer as PTOK
+    from mmada_parallel_tpu.data import tokenizer as JTOK
+    outs = []
+    for mod in (PTOK, JTOK):
+        tok = object.__new__(mod.Tokenizer)
+        tok.tokenizer_type, tok.tokenizer = "transformers", _SegmentTok()
+        tok.bos_id, tok.eos_id = 1, 2
+        tok._probe_tokenizer_style()
+        outs.append((tok.need_space_before_segment,
+                     tok.encode(text, bos=True, eos=True),
+                     tok.encode_segment(text), tok.encode_wo_prefix_space(
+                         text), tok.decode([3, 4])))
+        conv = mod.ConversationTemplate()
+        conv.append_message("user", text)
+        outs.append((conv.roles, conv.messages))
+        conv.clear()
+        assert conv.messages == []
+    assert outs[0] == outs[2] and outs[1] == outs[3]
+
+
+def test_image_folder_dataset_copy(tmp_path):
+    from mmada_parallel_torch.data.imagenet import \
+        ImageFolderCaptionDataset as P
+    from mmada_parallel_tpu.data.imagenet import \
+        ImageFolderCaptionDataset as J
+    for cls, color in (("golden_retriever", 10), ("n0123", 200)):
+        (tmp_path / cls).mkdir()
+        _seeded_image(12, 10, color).save(tmp_path / cls / "a.png")
+    (tmp_path / "n0123" / "notes.txt").write_text("skipped")
+    mapping = tmp_path / "map.json"
+    mapping.write_text('{"n0123": "tabby cat"}')
+    kw = dict(class_mapping_json=str(mapping),
+              transform=lambda im: np.asarray(im, np.float32)[None] / 255)
+    p, j = P(str(tmp_path), **kw), J(str(tmp_path), **kw)
+    assert len(p) == len(j) == 2 and p.samples == j.samples
+    for i in range(2):
+        a, b = p[i], j[i]
+        assert (a["caption"], a["path"]) == (b["caption"], b["path"])
+        np.testing.assert_array_equal(a["pixels"], b["pixels"])
+    assert [p[i]["caption"] for i in range(2)] == [
+        "An image of golden retriever.", "An image of tabby cat."]
+
+
+def test_parquet_items_copy_without_datasets(monkeypatch, tmp_path):
+    """``parquet_items`` maps dataset rows the same way in both packages;
+    ``datasets`` is replaced by an in-memory loader."""
+    import sys
+    import types
+    from mmada_parallel_torch.data.pretokenize import parquet_items as P
+    from mmada_parallel_tpu.data.pretokenize import parquet_items as J
+    img = _seeded_image(8, 8, 5)
+    rows = [{"input_image": img, "output_image": img, "prompt": "p1"},
+            {"input_image": img, "caption": "c2"},
+            {"image_list": [{"image": img}], "text": "t3"}]
+    fake = types.ModuleType("datasets")
+    fake.load_from_disk = lambda path: rows
+    fake.load_dataset = lambda path, split: rows
+    monkeypatch.setitem(sys.modules, "datasets", fake)
+    for task in ("edit", "t2i", "mmu", "mmu_multi_image"):
+        got, want = list(P("x", task)), list(J("x", task))
+        assert [(g["caption"], g["task_type"], len(g["images"]))
+                for g in got] == [(w["caption"], w["task_type"],
+                                   len(w["images"])) for w in want]
+        for g, w in zip(got, want):
+            for a, b in zip(g["images"], w["images"]):
+                np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

@@ -12,7 +12,10 @@ with an array already at the resolution; and a tiny variant-A train step
 of ``chip_smoke.py`` and of the A trainer's CLI, data pipeline and
 logging; and the evaluation slice (a jsonl ParaBench export with
 ``datasets`` blocked too, the edit sweep dense and W8A8, the cached
-interleave sweep, a ParaRL rollout and update, the eval and ParaRL CLIs)."""
+interleave sweep, a ParaRL rollout and update, the eval and ParaRL CLIs);
+and the M trainer's slice (the CLI, the data layer with its native tar
+reader and token store, ``lfq_losses``, the utils, and two steps of
+``train_m.train_loop``)."""
 
 import json
 import os
@@ -401,3 +404,102 @@ def test_eval_quant_and_pararl_import_no_jax():
     assert res["keywords"] == ["barn"]
     assert len(res["inter"]) == 4 and all(0 <= c < 32 for c in res["inter"])
     assert res["step"] == 1 and abs(res["loss"]) < 1e6       # finite
+
+
+TRAIN_M_SCRIPT = r"""
+import importlib.abc, json, os, sys, tarfile, tempfile, io
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "mmada_parallel_tpu"):
+            raise ImportError(f"{name} is blocked here")
+        return None
+
+sys.meta_path.insert(0, Block())
+
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from mmada_parallel_torch import tokens as tk
+from mmada_parallel_torch.cli import train_m
+from mmada_parallel_torch.config import load_config
+from mmada_parallel_torch.data import (imagenet, pretokenize, prompting,
+                                       shards, tarstream, tokenizer,
+                                       tokenstore)
+from mmada_parallel_torch.models import magvit2 as MVQ
+from mmada_parallel_torch.models.llada import LLaDAConfig, init_llada_params
+from mmada_parallel_torch.utils import (determinism, diagnostics,
+                                        param_store, profiling)
+
+tmp = tempfile.mkdtemp()
+shard = os.path.join(tmp, "s-000.tar")
+with tarfile.open(shard, "w") as tf:
+    for name, payload in [("a.txt", b"hi"), ("a.bin", b"\x00\x01"),
+                          ("b.txt", b"there")]:
+        ti = tarfile.TarInfo(name); ti.size = len(payload)
+        tf.addfile(ti, io.BytesIO(payload))
+native = [{k: (v.decode() if isinstance(v, bytes) else v)
+           for k, v in s.items() if k != "__url__"}
+          for s in shards.ShardReader([shard])]
+store = os.path.join(tmp, "t.tokstore")
+tokenstore.write_token_store(store, [[1, 2, 3], [4]])
+rows, lens = tokenstore.TokenStore(store).gather([1, 0], 4, pad=-1)
+
+class Tok:
+    bos_token_id, eos_token_id = tk.TOKENS_M.bos, tk.TOKENS_M.eos
+    def __call__(self, t, **kw):
+        if isinstance(t, list):
+            return {"input_ids": [self(x)["input_ids"] for x in t]}
+        return {"input_ids": [10 + ord(c) % 50 for c in t[:8]]}
+
+T = tk.TOKENS_M
+cfg = load_config(None, ["dataset.preprocessing.max_seq_length=8",
+                         "dataset.preprocessing.resolution=8",
+                         "model.mmada.num_vq_tokens=16",
+                         "training.batch_size=1",
+                         "training.gradient_accumulation_steps=2",
+                         "training.max_train_steps=2"], train_m.DEFAULTS)
+g = torch.Generator().manual_seed(0)
+mcfg = LLaDAConfig.tiny(vocab_size=T.full_vocab_size, mask_token_id=T.mask,
+                        remat="whole_layer")
+vcfg = MVQ.MagvitConfig.tiny()
+models = train_m.Models(mcfg, init_llada_params(mcfg, g), Tok(), vcfg,
+                        MVQ.init_magvit_params(vcfg, g))
+state, step, sched = train_m.build_train_step(mcfg, models.params, cfg)
+rng = np.random.default_rng(0)
+samples = [{"pixels_in": rng.uniform(-1, 1, (1, 8, 8, 3)),
+            "pixels_out": rng.uniform(-1, 1, (1, 8, 8, 3)),
+            "instruction": "add a hat", "output_text": "a hat",
+            "is_text_only": False} for _ in range(2)]
+state, hist = train_m.train_loop(cfg, state, step, samples, models, sched,
+                                 torch.Generator().manual_seed(1))
+lfq = MVQ.lfq_losses(torch.randn(4, 13))
+print(json.dumps({
+    "jax": sorted(m for m in sys.modules if m.split(".")[0] in
+                  ("jax", "jaxlib", "mmada_parallel_tpu")),
+    "pil": sorted(m for m in sys.modules if m.split(".")[0] == "PIL"),
+    "native": tarstream.native_available(), "samples": native,
+    "rows": rows.tolist(), "lens": lens.tolist(), "step": state.step,
+    "losses": [h["loss"] for h in hist], "lfq": sorted(lfq)}))
+"""
+
+
+def test_m_trainer_and_data_layer_import_no_jax():
+    """The M trainer's modules (CLI, data layer, native readers, utils)
+    with the JAX imports blocked: the native tar reader and token store
+    read back what was written, and ``train_m.train_loop`` takes two steps
+    of two accumulated microbatches on decoded samples; PIL is never
+    imported on these paths."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", TRAIN_M_SCRIPT], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["jax"] == [] and res["pil"] == [] and res["native"]
+    assert res["samples"] == [{"__key__": "a", "txt": "hi", "bin": "\x00\x01"},
+                              {"__key__": "b", "txt": "there"}]
+    assert res["rows"] == [[4, -1, -1, -1], [1, 2, 3, -1]]
+    assert res["lens"] == [1, 3] and res["step"] == 2
+    assert all(0 < x < 100 for x in res["losses"])
+    assert res["lfq"] == ["commit_loss", "entropy_loss"]
