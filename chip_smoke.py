@@ -4,7 +4,8 @@ variant-M interleave generation (exact and feature-cached), text-to-image
 (A exact and cached, M), understanding, the streaming demo, the four
 servers, the ParaBench evaluation sweeps, the W8A8 int8 edit, the A and M
 train steps, the variant-M SFT trainer (``cli/train_m.py``) with its data
-layer, and ParaRL, with gradients through the attention kernels.
+layer, and ParaRL, with gradients through the attention kernels; the five
+capability demos trained from scratch; and the checkpoint export.
 
     python3 chip_smoke.py        # from the repository root, one H100
 
@@ -98,7 +99,27 @@ Phases (each prints its own lines; any failure exits non-zero):
    ``cli/train_pararl.py`` loop on the same 4 layers (2 rollouts of the
    512x512 layout, 16 + 8 steps, 4 scored, 3 updates: rollout and update
    seconds apart, exact K1 launches) and, on its last trajectory, the loss
-   and gradient norm through K1 against the plain path.
+   and gradient norm through K1 against the plain path;
+6. the capability demos (``mmada_parallel_torch/examples``), each trained
+   from scratch at the JAX capability tests' settings, seed 0, its train
+   state round-tripped through a checkpoint into other weights, then
+   scored by the JAX tests' bars: M (800 steps; accuracy >= 0.9), A (800
+   steps; >= 0.85, the text "rotated colors done"), and on both trained
+   models the int8 evals (head quantized and dense) and the two cached
+   sampler settings within 0.1 of it; the multitask demo (1000 steps;
+   ``T2IServer``/``MMUServer`` sweeps: target_match and text_alignment >=
+   0.9, code_diversity in [0.05, 0.2]); the ParaBench demo on the A model
+   (target_match >= 0.85, text_alignment >= 0.9); the ParaRL demo at its
+   defaults, seed 0 (reward gain >= 0.1; the accuracy half of its bar
+   reported).  Their head_dim is 32: their configs ask for the plain
+   attention, no kernel launches (checked), and ``auto`` at that head_dim
+   on the card raises (checked); train seconds, steps/s, peak memory and
+   the final loss are printed;
+7. the export at the 8B widths, 4 of 32 layers (random bf16 weights):
+   ``save_llada_checkpoint`` from the card, ``load_llada_checkpoint`` back,
+   every tensor and one ``llada_hidden`` forward (B=1, L=2424, exactly 4
+   K1 launches) bit for bit; file size, write and read seconds and GB/s,
+   peak host and device memory.
 
 The second-to-last line of stdout is a JSON object with the kernels'
 records; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -3577,6 +3598,332 @@ def phase_pararl() -> None:
         f"{got['auto']['traj_logp']:.3f} vs {got['xla']['traj_logp']:.3f}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the capability demos, trained from scratch on the card
+# ---------------------------------------------------------------------------
+
+# the bars of the JAX package's capability tests
+DEMO_M_BAR, DEMO_A_BAR, DEMO_DELTA = 0.9, 0.85, 0.1
+M_CACHED = ({"cache_ratio": 0.5, "refresh_interval": 3, "warmup_ratio": 0.25},
+            {"cache_ratio": 0.5, "refresh_interval": 3, "warmup_ratio": 0.25,
+             "refresh_on_image_steps": False})
+A_CACHED = ({"cache_ratio": 0.5, "refresh_interval": 3, "warmup_ratio": 0.25},
+            {"cache_ratio": 0.3, "refresh_interval": 4, "warmup_ratio": 0.25})
+
+
+def _demo_train(phase: str, run, **kw):
+    """``run(**kw, return_params=True, device="cuda")`` with every launch
+    count at 0 before it and checked to be 0 after it (the demos' head_dim
+    32 is not the kernels'); logs the training's seconds, steps/s, peak
+    device memory and final loss.  Returns the run's
+    ``(metrics, params, cfg, T, tokz)``."""
+    import torch
+    out, wall, peak = _timed_run(lambda: run(**kw, return_params=True,
+                                             device="cuda"))
+    counts = check_launches(phase, {})
+    m = out[0]
+    log(f"{phase} {m['steps']} steps from scratch (batch {kw['batch']}, lr "
+        f"{kw['lr']}, seed 0): train {m['train_seconds']} s, "
+        f"{m['steps'] / m['train_seconds']:.1f} steps/s, run with the "
+        f"checkpoint round trip and eval {wall:.1f} s, peak memory "
+        f"{peak / 2 ** 20:.0f} MiB, final loss {m['final_loss']}, launches "
+        f"{counts}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _demo_evals(phase: str, base: float, evaluate, settings) -> dict:
+    """Each ``(label, kwargs)`` of ``settings`` through ``evaluate`` (which
+    returns ``(accuracy, first text)``) with no kernel launch; each
+    accuracy within ``DEMO_DELTA`` of ``base`` and "rotated" in the text."""
+    out = {}
+    for label, kw in settings:
+        reset_launches()
+        acc, text = evaluate(**kw)
+        check_launches(f"{phase} {label}", {})
+        if acc < base - DEMO_DELTA or "rotated" not in text:
+            raise AssertionError(f"{phase} {label}: accuracy {acc} against "
+                                 f"{base} (bar: within {DEMO_DELTA}), text "
+                                 f"{text!r}")
+        out[label] = acc
+    log(f"{phase} evals on the trained model, accuracy (delta to "
+        f"{base}): " + ", ".join(f"{k} {v} ({v - base:+.4f})"
+                                 for k, v in out.items()))
+    return out
+
+
+def _demo_head_dim_refused(cfg) -> None:
+    """The demos' config asks for the plain attention, and ``auto`` at its
+    head_dim (not the kernels') raises on the card, with no launch."""
+    import torch
+    from mmada_parallel_torch.ops.attention import rope_attention
+    D, H = cfg.head_dim, cfg.n_heads
+    if cfg.attention_impl != "xla" or D in (64, 128):
+        raise AssertionError(f"[demo] config: attention_impl "
+                             f"{cfg.attention_impl!r}, head_dim {D}")
+    q = torch.zeros(1, 16, H * D, device="cuda")
+    sin = cos = torch.zeros(16, D, device="cuda")
+    reset_launches()
+    try:
+        rope_attention(q, q, q, sin, cos, n_heads=H, impl="auto")
+    except ValueError as e:
+        check_launches("[demo] auto at the demos' head_dim", {})
+        log(f"[demo] attention_impl 'xla' in the demos' config; auto at "
+            f"head_dim {D} on the card raises: {e}")
+        return
+    raise AssertionError(f"[demo] auto at head_dim {D} on the card ran "
+                         f"without a kernel and without raising")
+
+
+def phase_demo_m() -> None:
+    """``examples/train_edit_demo.py``: 800 steps from scratch, the
+    checkpoint round trip into other weights, the eval (>= 0.9, "rotated"
+    in the first text); then int8 params (head quantized and dense) and the
+    two cached-sampler settings, each within 0.1 of it."""
+    import numpy as np
+    from mmada_parallel_torch.examples import train_edit_demo as M
+    from mmada_parallel_torch.ops.quant import quantize_llada_params
+    m, params, cfg, T, tokz = _demo_train(
+        "[demo-m]", M.run_demo, steps=800, batch=32, lr=1.5e-3,
+        log_every=200)
+    _demo_head_dim_refused(cfg)
+    base = m["eval_code_accuracy"]
+    log(f"[demo-m] eval accuracy {base} {m['per_sample_accuracy']}, texts "
+        f"{m['generated_text']}")
+    if base < DEMO_M_BAR or "rotated" not in m["generated_text"][0]:
+        raise AssertionError(f"[demo-m] below the bar: {m}")
+
+    def evaluate(quantize_head=None, **kw):
+        p = (params if quantize_head is None else
+             quantize_llada_params(params, quantize_head=quantize_head))
+        accs, _, texts, _, _ = M.eval_palette_model(p, cfg, T, tokz, **kw)
+        return float(np.mean(accs)), texts[0]
+
+    _demo_evals("[demo-m]", base, evaluate, [
+        ("int8", {"quantize_head": True}),
+        ("int8-dense-head", {"quantize_head": False}),
+        *((f"cached{i}", dict(kw, use_cached=True))
+          for i, kw in enumerate(M_CACHED))])
+
+
+def phase_demo_a():
+    """``examples/train_edit_demo_a.py``: 800 steps from scratch, the
+    checkpoint round trip, the eval (>= 0.85, the text "rotated colors
+    done"), int8 and cached evals within 0.1.  Returns the trained run for
+    the ParaBench demo."""
+    import numpy as np
+    from mmada_parallel_torch.examples import train_edit_demo_a as A
+    from mmada_parallel_torch.ops.quant import quantize_llada_params
+    run = _demo_train("[demo-a]", A.run_demo_a, steps=800, batch=32,
+                      lr=3e-3, log_every=400)
+    m, params, cfg, T, tokz = run
+    base = m["eval_code_accuracy"]
+    log(f"[demo-a] eval accuracy {base} {m['per_sample_accuracy']}, texts "
+        f"{m['generated_text']}")
+    if base < DEMO_A_BAR or m["generated_text"][0] != "rotated colors done":
+        raise AssertionError(f"[demo-a] below the bar: {m}")
+
+    def evaluate(quantize_head=None, **kw):
+        p = (params if quantize_head is None else
+             quantize_llada_params(params, quantize_head=quantize_head))
+        accs, _, texts, _ = A.eval_a_model(p, cfg, T, tokz, **kw)
+        return float(np.mean(accs)), texts[0]
+
+    _demo_evals("[demo-a]", base, evaluate, [
+        ("int8", {"quantize_head": True}),
+        ("int8-dense-head", {"quantize_head": False}),
+        *((f"cached{i}", dict(kw, use_cached=True))
+          for i, kw in enumerate(A_CACHED))])
+    return run
+
+
+def phase_demo_multitask() -> None:
+    """``examples/train_multitask_demo.py``: 1000 steps of joint t2i + mmu
+    from scratch, the checkpoint round trip, then the t2i and mmu sweeps
+    (``T2IServer``, ``MMUServer``): target_match >= 0.9, text_alignment >=
+    0.9, code_diversity in [0.05, 0.2]."""
+    from mmada_parallel_torch.examples import train_multitask_demo as MT
+    m = _demo_train("[demo-multitask]", MT.run_demo, steps=1000, batch=16,
+                    lr=1.5e-3, log_every=250)[0]
+    log(f"[demo-multitask] t2i target_match {m['t2i_target_match']}, "
+        f"code_diversity {m['t2i_code_diversity']}, mmu text_alignment "
+        f"{m['mmu_text_alignment']}, answers {m['mmu_answers'][:2]}, "
+        f"{m['images_per_min']} images/min, {m['answers_per_min']} "
+        f"answers/min")
+    if not (m["t2i_target_match"] >= 0.9 and m["mmu_text_alignment"] >= 0.9
+            and 0.05 <= m["t2i_code_diversity"] <= 0.2):
+        raise AssertionError(f"[demo-multitask] below the bar: {m}")
+
+
+def phase_demo_parabench(trained) -> None:
+    """``examples/parabench_demo.py`` on the ``[demo-a]`` model: 8 held-out
+    requests through ``run_parabench_sweep``, target_match >= 0.85 and
+    text_alignment >= 0.9."""
+    from mmada_parallel_torch.examples import parabench_demo as PB
+    out, wall, _ = _timed_run(lambda: PB.run(None, 8, device="cuda",
+                                             trained=trained))
+    counts = check_launches("[demo-parabench]", {})
+    agg = out["aggregate"]
+    log(f"[demo-parabench] {out['n_requests']} requests: aggregate {agg}, "
+        f"{out['edits_per_min']} edits/min, {wall:.2f} s, launches {counts}")
+    if agg["target_match"] < 0.85 or agg["text_alignment"] < 0.9:
+        raise AssertionError(f"[demo-parabench] below the bar: {agg}")
+
+
+def phase_demo_pararl() -> None:
+    """``examples/pararl_resteer_demo.py`` at its defaults (40 SFT steps,
+    100 updates, rollout batch 16, temperature 1.5, seed 0), finite, its
+    rewards and accuracies in [0, 1], with no kernel launch.  The JAX
+    demo's bar has two halves: the mean reward of the last 5 updates at
+    least that of the first 5 + 0.1 (raised), and the temperature-0
+    accuracy above its start (reported, met or missed)."""
+    from mmada_parallel_torch.examples import pararl_resteer_demo as PRL
+    out, wall, peak = _timed_run(lambda: PRL.run_resteer(device="cuda"))
+    counts = check_launches("[demo-pararl]", {})
+    keys = ("pretrain_plus1_accuracy", "initial_accuracy", "final_accuracy",
+            "reward_first5", "reward_last5")
+    if not all(0.0 <= out[k] <= 1.0 for k in keys):
+        raise AssertionError(f"[demo-pararl] {out}")
+    gain = out["reward_last5"] - out["reward_first5"]
+    acc_met = out["final_accuracy"] > out["initial_accuracy"]
+    log(f"[demo-pararl] {out['pretrain_steps']} SFT steps (+1 accuracy "
+        f"{out['pretrain_plus1_accuracy']}), {out['updates']} updates in "
+        f"{out['rl_seconds']} s ({out['updates'] / out['rl_seconds']:.2f} "
+        f"updates/s): reward {out['reward_first5']} -> "
+        f"{out['reward_last5']} ({gain:+.4f}, bar +0.1), accuracy "
+        f"{out['initial_accuracy']} -> {out['final_accuracy']} (bar: a "
+        f"rise, {'met' if acc_met else 'MISSED'}); {wall:.1f} s, peak "
+        f"memory {peak / 2 ** 20:.0f} MiB, launches {counts}")
+    if gain < 0.1:
+        raise AssertionError(f"[demo-pararl] reward gain {gain:+.4f} below "
+                             f"the bar of +0.1: {out}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the checkpoint export at the 8B widths
+# ---------------------------------------------------------------------------
+
+EXPORT_L = 2424           # the exact edit's sequence length (phase 4)
+
+
+@contextlib.contextmanager
+def _host_peak():
+    """Samples this process's resident memory every 5 ms; yields a dict
+    with ``"start"``, the resident bytes on entry, and ``"peak"``, the
+    largest sample (complete at exit)."""
+    import threading
+    page = os.sysconf("SC_PAGE_SIZE")
+
+    def rss():
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * page
+
+    out, stop = {"start": rss(), "peak": 0}, threading.Event()
+
+    def sample():
+        while True:
+            out["peak"] = max(out["peak"], rss())
+            if stop.wait(0.005):
+                return
+
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        t.join()
+
+
+def _bits_equal(a, b) -> bool:
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    elif a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def phase_export() -> None:
+    """``models/convert.py``'s export at the 8B widths, 4 of the 32 layers
+    (random bf16 weights from a seed): ``save_llada_checkpoint`` from the
+    card into a temporary directory, ``load_llada_checkpoint`` back; every
+    tensor bit for bit, the config's checkpoint fields equal, and one
+    ``llada_hidden`` forward of the reloaded weights at the exact edit's
+    shape (B=1, L=2424) bit for bit equal to the original's, with exactly 4
+    K1 launches.  The directory is deleted afterwards."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    from mmada_parallel_torch.models.convert import (load_llada_checkpoint,
+                                                     save_llada_checkpoint)
+    from mmada_parallel_torch.models.llada import (LLaDAConfig, count_params,
+                                                   init_llada_params,
+                                                   llada_hidden)
+    from mmada_parallel_torch.training.trainer import tree_leaves
+    cfg = LLaDAConfig.llada_8b(n_layers=4, param_dtype=torch.bfloat16,
+                               compute_dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_llada_params(cfg, gen)
+    ids = torch.randint(0, cfg.vocab_size, (1, EXPORT_L), generator=gen,
+                        device="cuda")
+    n = count_params(params)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with _host_peak() as host:
+            t0 = time.time()
+            save_llada_checkpoint(tmp, params, cfg, dtype=torch.bfloat16)
+            write_s = time.time() - t0
+            size = os.path.getsize(os.path.join(tmp, "model.safetensors"))
+            t0 = time.time()
+            lcfg, loaded = load_llada_checkpoint(
+                tmp, dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                compute_dtype=torch.bfloat16)
+            read_s = time.time() - t0
+            t0 = time.time()
+            loaded = {k: ({n: t.cuda() for n, t in v.items()}
+                          if isinstance(v, dict) else v.cuda())
+                      for k, v in loaded.items()}
+            torch.cuda.synchronize()
+            h2d_s = time.time() - t0
+        if lcfg != cfg:
+            raise AssertionError(f"[export] config {dataclasses.asdict(lcfg)}"
+                                 f" != {dataclasses.asdict(cfg)}")
+        pairs = list(zip(tree_leaves(loaded), tree_leaves(params)))
+        if len(pairs) != len(tree_leaves(params)) or not all(
+                _bits_equal(a, b) for a, b in pairs):
+            raise AssertionError("[export] reloaded tensors differ")
+        with torch.inference_mode():
+            want = llada_hidden(params, cfg, ids)
+            reset_launches()
+            got = llada_hidden(loaded, lcfg, ids)
+            torch.cuda.synchronize()
+        counts = check_launches("[export]", {"flash_attention_rope": 4})
+        same = _bits_equal(got, want)
+        if not same:
+            raise AssertionError("[export] the reloaded forward differs")
+        dev_peak = torch.cuda.max_memory_allocated()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gb = size / 1e9
+    log(f"[export] llada_8b widths, {cfg.n_layers} of 32 layers, {n / 1e9:.3f}"
+        f" B params bf16: model.safetensors {gb:.3f} GB, write "
+        f"{write_s:.2f} s ({gb / write_s:.2f} GB/s, card -> file), read "
+        f"{read_s:.2f} s ({gb / read_s:.2f} GB/s, file -> host params), "
+        f"host -> card {h2d_s:.2f} s; peak host memory (resident) "
+        f"{host['peak'] / 2 ** 30:.2f} GiB from {host['start'] / 2 ** 30:.2f}"
+        f" GiB before, peak device memory "
+        f"{dev_peak / 2 ** 30:.2f} GiB")
+    log(f"[export] {len(pairs)} stacked tensors bit for bit, config equal; "
+        f"llada_hidden B=1 L={EXPORT_L} of the reloaded weights bit for bit "
+        f"= the original's ({same}), launches {counts}; directory deleted")
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     import torch
@@ -3641,6 +3988,17 @@ def main() -> int:
     mark("phase 5 (training) up to ParaRL")
     phase_pararl()
     mark("phase 5 (training)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_demo_m()
+    trained_a = phase_demo_a()
+    phase_demo_multitask()
+    phase_demo_parabench(trained_a)
+    del trained_a
+    phase_demo_pararl()
+    mark("phase 6 (demos)")
+    phase_export()
+    mark("phase 7 (export)")
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
     kernels = [{"name": name, "route": "cuda", "source": src,

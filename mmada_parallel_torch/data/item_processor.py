@@ -10,9 +10,11 @@ Pre-tokenized images arrive as ``{"input_ids": [...], "height": H,
 "width": W}`` records (``data/item_processor.py:69-203`` pre-tokenizer
 output, pickled per image); text comes through any HF-style tokenizer.
 
+The conversation-format ``MMConvItemProcessor`` (multi-turn items with
+inline media symbols) follows the A processor.
+
 Counterpart of :mod:`mmada_parallel_tpu.data.item_processor`, copied so
-that the port imports nothing of the JAX package.  Only what the A trainer
-uses is here: the conversation-format ``MMConvItemProcessor`` is not.
+that the port imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from mmada_parallel_torch.tokens import TOKENS_A, VariantATokens, add_break_line
 
-__all__ = ["mask_codes", "load_image_tokens", "AItemProcessor"]
+__all__ = ["mask_codes", "load_image_tokens", "AItemProcessor",
+           "MMConvItemProcessor", "LabelAllZeroError"]
 
 IGNORE = -100
 
@@ -169,3 +172,193 @@ class AItemProcessor:
         if "token" in item:
             return len(item["token"])
         return int(item.get("len", 1024))
+
+
+# ---------------------------------------------------------------------------
+# Conversation-format processor with media-symbol machinery
+# ---------------------------------------------------------------------------
+
+
+class LabelAllZeroError(Exception):
+    """Raised when a training item has nothing to predict
+    (``xllm/data/item_processor.py:13-17``)."""
+
+
+class MMConvItemProcessor:
+    """Multi-turn conversation items with inline media symbols.
+
+    Port of ``xllm/data/item_processor.py:31-263`` (``MMConvItemProcessor``).
+    Upstream this class is unreachable legacy — the repo ships only the
+    abstract ``ConversationBase`` whose ``process()`` raises — so this port
+    pairs the machinery with a concrete two-role template
+    (:meth:`default_template_process`) to make the capability usable:
+
+    * ``collect_and_process_media``: gather per-symbol media lists from the
+      raw item (symbol key or stripped name), run each through its
+      ``transform`` callable.
+    * implicit-media insertion: media without an explicit symbol in the
+      text are prepended to the first human turn (``:112-132``), or to the
+      conversation start when ``implicit_at_beginning``.
+    * piece-wise label building: the conversation is tokenized whole, then
+      re-derived piece by piece (``encode_wo_prefix_space`` for non-initial
+      pieces) asserting exact concatenation; assistant pieces become
+      labels (``:210-238``).
+    * ``replace_media_token_with_media``: media-symbol token ids are
+      replaced in the token list by the prepared media dicts, tagged
+      ``to_predict`` from the label at that position (``:92-104``).
+
+    ``tokenizer`` needs ``encode(s, bos, eos)`` / ``encode_wo_prefix_space``
+    (:class:`mmada_parallel_torch.data.tokenizer.Tokenizer`); media-symbol
+    token ids come from ``media_token_ids`` or, if the wrapped tokenizer
+    supports ``add_tokens``, are registered automatically.
+    """
+
+    def __init__(self, transform: Dict[str, Any], media_symbols: List[str],
+                 tokenizer: Any, conv_template=None,
+                 media_token_ids: Optional[Dict[str, int]] = None,
+                 implicit_at_beginning: bool = False):
+        self.transform = transform
+        self.media_symbols = list(media_symbols)
+        self.tokenizer = tokenizer
+        self.conv_template = conv_template or self.default_template_process
+        self.implicit_at_beginning = implicit_at_beginning
+
+        if media_token_ids is None:
+            inner = getattr(tokenizer, "tokenizer", None)
+            if inner is not None and hasattr(inner, "add_tokens"):
+                inner.add_tokens(self.media_symbols)
+            media_token_ids = {}
+            for sym in self.media_symbols:
+                t = tokenizer.encode(sym, bos=False, eos=False)
+                assert len(t) == 1, f"{sym!r} must tokenize to 1 token"
+                media_token_ids[sym] = t[0]
+        self.d_media_symbol2token = dict(media_token_ids)
+        self.d_media_token2symbol = {v: k
+                                     for k, v in media_token_ids.items()}
+
+    # -- conversation template -------------------------------------------
+    ROLES = ("Human", "Assistant")
+
+    @classmethod
+    def default_template_process(cls, source: List[Dict]) -> Dict[str, Any]:
+        """Concrete template: ``Human: ...\\n`` / ``Assistant: ...\\n``
+        pieces; assistant pieces are predicted."""
+        pieces = []
+        for i, turn in enumerate(source):
+            frm = turn["from"].lower()
+            if i % 2 == 0:
+                assert frm == "human", frm
+                pieces.append({"data": f"{cls.ROLES[0]}: {turn['value']}\n",
+                               "predict": False})
+            else:
+                assert frm in ("gpt", "assistant"), frm
+                pieces.append({"data": f"{cls.ROLES[1]}: {turn['value']}\n",
+                               "predict": True})
+        return {"conv": "".join(p["data"] for p in pieces), "pieces": pieces}
+
+    # -- media machinery ---------------------------------------------------
+    def collect_and_process_media(self, data_item: Dict) -> Dict[str, List]:
+        d_media: Dict[str, List] = {}
+        for sym in self.media_symbols:
+            if sym in data_item:
+                l_media = data_item[sym]
+            elif sym.lstrip("<|").rstrip("|>") in data_item:
+                l_media = data_item[sym.lstrip("<|").rstrip("|>")]
+            else:
+                l_media = []
+            if not isinstance(l_media, list):
+                l_media = [l_media]
+            d_media[sym] = []
+            for media in l_media:
+                media = self.transform[sym](media)
+                assert isinstance(media, dict)
+                media["type"] = sym
+                d_media[sym].append(media)
+        return d_media
+
+    @staticmethod
+    def insert_implicit_media_symbol_in_q1(source: List[Dict],
+                                           d_media: Dict) -> List[Dict]:
+        import copy as _copy
+        source = _copy.deepcopy(source)
+        for sym, l_media in d_media.items():
+            count = "".join(t["value"] for t in source
+                            if t["value"] is not None).count(sym)
+            if count > 0:
+                assert count == len(l_media), (
+                    f"{count} {sym} in text, {len(l_media)} media given")
+            elif l_media:
+                source[0]["value"] = ((sym + " ") * len(l_media)
+                                      + source[0]["value"])
+        return source
+
+    @staticmethod
+    def insert_implicit_media_symbol_at_beginning(conv: str,
+                                                  d_media: Dict) -> str:
+        for sym, l_media in d_media.items():
+            count = conv.count(sym)
+            if count > 0:
+                assert count == len(l_media), (
+                    f"{count} {sym} in text, {len(l_media)} media given")
+            elif l_media:
+                conv = (sym + " ") * len(l_media) + conv
+        return conv
+
+    def replace_media_token_with_media(self, tokens: List, labels: List,
+                                       d_media: Dict):
+        counter = {k: 0 for k in d_media}
+        for i, t in enumerate(tokens):
+            if t in self.d_media_token2symbol:
+                sym = self.d_media_token2symbol[t]
+                media = d_media[sym][counter[sym]]
+                counter[sym] += 1
+                tokens[i] = media
+                media["to_predict"] = labels[i] > 0
+        assert all(counter[k] == len(d_media[k]) for k in d_media)
+        return tokens, labels
+
+    # -- main entry ----------------------------------------------------------
+    def process_item(self, data_item: Dict, training_mode: bool = False):
+        d_media = self.collect_and_process_media(data_item)
+        source = data_item["conversations"]
+        if not self.implicit_at_beginning:
+            source = self.insert_implicit_media_symbol_in_q1(source, d_media)
+        processed = self.conv_template(source)
+        conversation, pieces = processed["conv"], processed["pieces"]
+        if self.implicit_at_beginning:
+            conversation = self.insert_implicit_media_symbol_at_beginning(
+                conversation, d_media)
+
+        tokens = self.tokenizer.encode(conversation, bos=True, eos=False)
+        labels = [IGNORE for _ in tokens]
+
+        for sym, l_media in d_media.items():
+            tok = self.d_media_symbol2token[sym]
+            assert tokens.count(tok) == len(l_media), (
+                f"{tokens.count(tok)} {sym} tokens vs {len(l_media)} media")
+
+        pos = 0
+        for i, p in enumerate(pieces):
+            if i == 0:
+                piece_tokens = self.tokenizer.encode(p["data"], bos=True,
+                                                     eos=False)
+            else:
+                piece_tokens = self.tokenizer.encode_wo_prefix_space(p["data"])
+            assert tokens[pos:pos + len(piece_tokens)] == piece_tokens, (
+                "conversation/pieces tokenization mismatch")
+            if p["predict"]:
+                labels[pos:pos + len(piece_tokens)] = piece_tokens
+            pos += len(piece_tokens)
+
+        if training_mode and all(l <= 0 for l in labels):
+            raise LabelAllZeroError()
+
+        tokens, labels = self.replace_media_token_with_media(tokens, labels,
+                                                             d_media)
+        assert len(tokens) == len(labels)
+        return (tokens, labels) if training_mode else tokens
+
+    def predict_item_token_length(self, data_item: Dict) -> int:
+        if "conversations" in data_item:
+            return sum(len(t["value"]) for t in data_item["conversations"])
+        return 1

@@ -1,4 +1,4 @@
-"""Checkpoint conversion: HF safetensors -> the port's params.
+"""Checkpoint conversion: HF safetensors <-> the port's params.
 
 Counterpart of :mod:`mmada_parallel_tpu.models.convert`: the LLaDA backbone
 (``model.transformer.*``, torch ``Linear`` ``[out, in]`` transposed to
@@ -7,15 +7,18 @@ Amused-VQ diffusers ``VQModel`` of variant A (conv weights stay OIHW, the
 port's conv layout; mid-block attention ``Linear`` layers fold into 1x1
 convs; diffusers ``up_blocks`` are listed deepest-first and re-indexed to
 the shallow-first levels) and the MagViT-v2 of variant M (taming-style
-names, already shallow-first).  ``safetensors`` is imported inside the
-loader.
+names, already shallow-first).  The reverse direction writes the LLaDA
+backbone back out as an HF checkpoint (``model.safetensors`` and
+``config.json``, the JAX package's names, layout and config keys), so a
+model fine-tuned with the port leaves it in the released format.
+``safetensors`` is imported inside the loader and the writer.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -26,7 +29,8 @@ from mmada_parallel_torch.models.magvit2 import MagvitConfig
 __all__ = ["load_safetensors_dir", "llada_config_from_hf",
            "llada_params_from_torch", "amused_config_from_hf",
            "amused_params_from_torch", "magvit_params_from_torch",
-           "load_llada_checkpoint"]
+           "load_llada_checkpoint", "llada_state_dict_from_params",
+           "save_llada_checkpoint"]
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -134,6 +138,89 @@ def load_llada_checkpoint(ckpt_dir: str, dtype=torch.float32,
         cfg = llada_config_from_hf(json.load(f), **cfg_overrides)
     tensors = load_safetensors_dir(ckpt_dir)
     return cfg, llada_params_from_torch(tensors, cfg, dtype)
+
+
+# ---------------------------------------------------------------------------
+# Reverse direction: params -> an HF-style checkpoint (the role of the
+# reference's consolidated save, xllm/util/ckpt.py:66-97 save_pretrained)
+# ---------------------------------------------------------------------------
+
+
+def _host(x: torch.Tensor, dtype, transpose: bool = False) -> torch.Tensor:
+    """``x`` in ``dtype`` (transposed when asked), contiguous, on the CPU,
+    in storage of its own: cast and transpose run on ``x``'s device."""
+    x = x.detach().to(dtype)
+    if transpose:
+        x = x.T
+    return x.contiguous().to("cpu", copy=True)
+
+
+def llada_state_dict_from_params(params: Dict[str, Any], cfg: LLaDAConfig,
+                                 dtype=torch.float32) -> Tensors:
+    """Params (on any device) -> the HF-named torch-layout state dict on the
+    CPU: ``[in, out]`` linears back to ``[out, in]``, one tensor a layer."""
+    pre = "model.transformer."
+    sd: Tensors = {pre + "wte.weight": _host(params["wte"], dtype),
+                   pre + "ln_f.weight": _host(params["ln_f"], dtype)}
+    if not cfg.weight_tying:
+        sd[pre + "ff_out.weight"] = _host(params["head"], dtype, True)
+    names = (["att_proj", "attn_out", "ff_proj", "ff_out"]
+             if cfg.block_type == "sequential"
+             else ["q_proj", "k_proj", "v_proj", "attn_out",
+                   "ff_proj", "up_proj", "ff_out"])
+    blocks = params["blocks"]
+    for i in range(cfg.n_layers):
+        b = f"{pre}blocks.{i}."
+        sd[b + "attn_norm.weight"] = _host(blocks["attn_norm"][i], dtype)
+        sd[b + "ff_norm.weight"] = _host(blocks["ff_norm"][i], dtype)
+        for name in names:
+            sd[b + name + ".weight"] = _host(blocks[name][i], dtype, True)
+        if cfg.include_qkv_bias:
+            if cfg.block_type == "sequential":
+                sd[b + "att_proj.bias"] = _host(blocks["att_proj_bias"][i],
+                                                dtype)
+            else:
+                for n in ["q", "k", "v"]:
+                    sd[b + f"{n}_proj.bias"] = _host(blocks[f"{n}_bias"][i],
+                                                     dtype)
+    return sd
+
+
+def save_llada_checkpoint(ckpt_dir: str, params: Dict[str, Any],
+                          cfg: LLaDAConfig, dtype=torch.float32,
+                          extra_config: Optional[Dict[str, Any]] = None
+                          ) -> None:
+    """Write ``model.safetensors`` + ``config.json``, loadable by this
+    package, the JAX package and the reference's HF classes."""
+    from safetensors.torch import save_file
+    os.makedirs(ckpt_dir, exist_ok=True)
+    save_file(llada_state_dict_from_params(params, cfg, dtype),
+              os.path.join(ckpt_dir, "model.safetensors"))
+    config = {
+        "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+        "n_kv_heads": cfg.n_kv_heads, "n_layers": cfg.n_layers,
+        "mlp_hidden_size": cfg.mlp_hidden_size, "mlp_ratio": cfg.mlp_ratio,
+        "vocab_size": cfg.vocab_size, "embedding_size": cfg.embedding_size,
+        "max_sequence_length": cfg.max_sequence_length,
+        "rope": True, "rope_theta": cfg.rope_theta,
+        "rope_full_precision": cfg.rope_full_precision,
+        "rms_norm_eps": cfg.rms_norm_eps,
+        "layer_norm_type": cfg.layer_norm_type,
+        "include_bias": cfg.include_bias,
+        "include_qkv_bias": cfg.include_qkv_bias,
+        "block_type": cfg.block_type,
+        "activation_type": cfg.activation_type,
+        "weight_tying": cfg.weight_tying,
+        "input_emb_norm": cfg.input_emb_norm,
+        "scale_logits": cfg.scale_logits,
+        "mask_token_id": cfg.mask_token_id,
+        "eos_token_id": cfg.eos_token_id,
+        "pad_token_id": cfg.pad_token_id,
+    }
+    if extra_config:
+        config.update(extra_config)
+    with open(os.path.join(ckpt_dir, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
 
 
 # ---------------------------------------------------------------------------

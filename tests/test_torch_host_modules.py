@@ -454,3 +454,98 @@ def test_parquet_items_copy_without_datasets(monkeypatch, tmp_path):
         for g, w in zip(got, want):
             for a, b in zip(g["images"], w["images"]):
                 np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+class _ConvTok:
+    """Word-level tokenizer with the ``Tokenizer`` protocol (``encode`` /
+    ``encode_wo_prefix_space``); ids are handed out in order of first
+    sight, so two fresh instances fed the same calls agree."""
+
+    def __init__(self):
+        self.vocab = {}
+
+    def _id(self, w):
+        return self.vocab.setdefault(w, 10 + len(self.vocab))
+
+    def encode(self, s, bos, eos):
+        return [1] * bos + [self._id(w) for w in s.split()] + [2] * eos
+
+    def encode_wo_prefix_space(self, s):
+        return self.encode(s, bos=False, eos=False)
+
+
+class _AddTokensTok(_ConvTok):
+    """A wrapper whose inner tokenizer registers new symbols
+    (``add_tokens``), so the processor finds the media ids itself."""
+
+    def __init__(self):
+        super().__init__()
+        self.tokenizer = self
+        self.added = []
+
+    def add_tokens(self, symbols):
+        self.added += list(symbols)
+
+
+_CONV_ITEMS = {
+    # media under the symbol's stripped name, two explicit symbols
+    "explicit": {"image": ["img_a.png", "img_b.png"], "conversations": [
+        {"from": "human", "value": "describe <|image|> and <|image|>"},
+        {"from": "gpt", "value": "two cats"}]},
+    # no symbol in the text: the media go in front of the first question
+    "implicit": {"<|image|>": "img_c.png", "conversations": [
+        {"from": "human", "value": "what is this"},
+        {"from": "assistant", "value": "a dog"},
+        {"from": "human", "value": "and its color"},
+        {"from": "gpt", "value": "brown"}]},
+    "no-media": {"conversations": [
+        {"from": "human", "value": "hi there"},
+        {"from": "gpt", "value": "hello"}]},
+    # nothing to predict
+    "no-answer": {"conversations": [{"from": "human", "value": "hi"}]},
+}
+
+
+def _conv_run(mod, name, tok, training_mode, at_beginning):
+    kw = {} if isinstance(tok, _AddTokensTok) else {
+        "media_token_ids": {"<|image|>": tok._id("<|image|>")}}
+    proc = mod.MMConvItemProcessor(
+        transform={"<|image|>": lambda path: {"path": path, "pixels": None}},
+        media_symbols=["<|image|>"], tokenizer=tok,
+        implicit_at_beginning=at_beginning, **kw)
+    item = _CONV_ITEMS[name]
+    try:
+        out = proc.process_item(item, training_mode=training_mode)
+    except (mod.LabelAllZeroError, AssertionError) as e:
+        # implicit media at the beginning break the pieces' re-derivation
+        # in both packages alike (the upstream processor's assert)
+        out = type(e).__name__
+    return out, proc.predict_item_token_length(item), tok.vocab
+
+
+@pytest.mark.parametrize("name", sorted(_CONV_ITEMS))
+@pytest.mark.parametrize("training_mode", [True, False])
+@pytest.mark.parametrize("at_beginning", [False, True])
+def test_mmconv_item_processor_copy(name, training_mode, at_beginning):
+    """Tokens, labels, the media dicts put in place of the media symbols,
+    implicit media, the raise on an item with nothing to predict and
+    ``predict_item_token_length`` equal the JAX processor's."""
+    got = _conv_run(PIP, name, _ConvTok(), training_mode, at_beginning)
+    want = _conv_run(JIP, name, _ConvTok(), training_mode, at_beginning)
+    assert got == want
+    if training_mode and name == "no-answer":
+        assert got[0] == "LabelAllZeroError"
+    if name == "explicit" and training_mode:
+        media = [t for t in got[0][0] if isinstance(t, dict)]
+        assert [m["path"] for m in media] == ["img_a.png", "img_b.png"]
+        assert all(m["type"] == "<|image|>" and m["to_predict"] is False
+                   for m in media)
+
+
+def test_mmconv_item_processor_registers_media_tokens():
+    """Without ``media_token_ids`` the symbols are added to the inner
+    tokenizer and looked up by encoding them, as in the JAX processor."""
+    toks = (_AddTokensTok(), _AddTokensTok())
+    got = _conv_run(PIP, "implicit", toks[0], True, False)
+    want = _conv_run(JIP, "implicit", toks[1], True, False)
+    assert got == want and toks[0].added == toks[1].added == ["<|image|>"]

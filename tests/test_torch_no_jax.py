@@ -15,7 +15,10 @@ logging; and the evaluation slice (a jsonl ParaBench export with
 interleave sweep, a ParaRL rollout and update, the eval and ParaRL CLIs);
 and the M trainer's slice (the CLI, the data layer with its native tar
 reader and token store, ``lfq_losses``, the utils, and two steps of
-``train_m.train_loop``)."""
+``train_m.train_loop``); and the capability demos (every
+``mmada_parallel_torch.examples`` module, the checkpoint export, the
+conversation item processor, and two steps of the A demo run as
+``python -m``)."""
 
 import json
 import os
@@ -503,3 +506,56 @@ def test_m_trainer_and_data_layer_import_no_jax():
     assert res["lens"] == [1, 3] and res["step"] == 2
     assert all(0 < x < 100 for x in res["losses"])
     assert res["lfq"] == ["commit_loss", "entropy_loss"]
+
+
+DEMO_SCRIPT = r"""
+import importlib, importlib.abc, json, runpy, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "mmada_parallel_tpu"):
+            raise ImportError(f"{name} is blocked here")
+        return None
+
+sys.meta_path.insert(0, Block())
+
+import torch
+torch.set_num_threads(1)
+mods = [importlib.import_module("mmada_parallel_torch.examples." + n)
+        for n in ("train_edit_demo", "train_edit_demo_a",
+                  "train_multitask_demo", "parabench_demo",
+                  "pararl_resteer_demo")]
+from mmada_parallel_torch.models.convert import (
+    llada_state_dict_from_params, save_llada_checkpoint)
+from mmada_parallel_torch.data.item_processor import (
+    LabelAllZeroError, MMConvItemProcessor)
+out = sys.argv[1]
+sys.argv = ["train_edit_demo_a", "--device", "cpu", "--steps", "2",
+            "--out", out]
+runpy.run_module("mmada_parallel_torch.examples.train_edit_demo_a",
+                 run_name="__main__")
+print(json.dumps({
+    "jax": sorted(m for m in sys.modules if m.split(".")[0] in
+                  ("jax", "jaxlib", "mmada_parallel_tpu")),
+    "mains": [callable(getattr(m, "main", None)) for m in mods]}))
+"""
+
+
+def test_demos_and_export_import_no_jax(tmp_path):
+    """The five capability demos, the checkpoint export and the
+    conversation item processor import with the JAX imports blocked, and
+    ``python -m mmada_parallel_torch.examples.train_edit_demo_a --device
+    cpu --steps 2`` trains, round-trips its checkpoint, evaluates and
+    writes its artifacts."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", DEMO_SCRIPT,
+                           str(tmp_path)], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    res = json.loads(lines[-1])
+    assert res["jax"] == [] and res["mains"] == [True] * 5
+    metrics = json.loads((tmp_path / "metrics.json").read_text())
+    assert metrics["steps"] == 2 and len(metrics["generated_text"]) == 4
+    assert (tmp_path / "ckpt" / "2" / "state.pt").exists()
+    assert (tmp_path / "sample0_generated.png").exists()
