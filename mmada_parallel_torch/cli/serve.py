@@ -30,8 +30,17 @@ a lazy ``transformers`` import, PIL only for ``image_b64`` requests.
 ``--use_cache ratio,interval,warmup[,img]`` serves variant m through the
 feature-cached sampler.  ``--quant int8|int8_bf16head`` serves W8A8 params
 (``ops/quant.py``; ``int8_bf16head`` keeps the vocab head dense).
-``--tp_ring`` (ring tensor parallelism) is not ported yet and refuses to
-start.
+
+``--tp_ring N`` serves variant a tensor-parallel over an N-rank ring
+(``parallel/tp_overlap.py``; ``--tp_ring_int8`` sends its all-gather
+halves as int8), one process a rank:
+
+    torchrun --nproc_per_node N -m mmada_parallel_torch.cli.serve \
+        --tp_ring N --checkpoint /ckpts/A --port 8000
+
+With ``--device cuda`` each rank takes the card of its local rank and the
+ranks talk over NCCL; ``--device cpu`` puts them on gloo.  Rank 0 serves
+HTTP; the other ranks follow its batches.
 """
 
 import argparse
@@ -84,9 +93,11 @@ def build_parser():
                         "'ratio,interval,warmup[,img]' e.g. 0.95,4,0.25,1 "
                         "(opt-in approximation; exact-length grouping)")
     p.add_argument("--tp_ring", type=int, default=0,
-                   help="not ported yet: refuses to start")
+                   help="serve variant a tensor-parallel over a ring of N "
+                        "ranks (launch N processes with torchrun)")
     p.add_argument("--tp_ring_int8", action="store_true",
-                   help="not ported yet: refuses to start")
+                   help="with --tp_ring: per-token int8 all-gather payloads "
+                        "(opt-in approximation)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (cpu for the tests)")
     return p
@@ -118,6 +129,50 @@ def _load_llada(args, T):
                   if isinstance(v, dict) else v.to(args.device))
               for k, v in params.items()}
     return cfg, params, tokenizer
+
+
+def _check_ring_flags(args) -> None:
+    """The JAX CLI's refusals of ``--tp_ring`` / ``--tp_ring_int8``."""
+    if args.tp_ring_int8 and not args.tp_ring:
+        raise SystemExit("--tp_ring_int8 requires --tp_ring N")
+    if args.tp_ring:
+        if args.quant:
+            raise SystemExit("--tp_ring serves the dense bf16 path; "
+                             "combine with --quant is not supported")
+        if args.variant != "a":
+            raise SystemExit("--tp_ring currently serves variant a "
+                             "(the M reference layout length 2341 does not "
+                             "divide the TP degree)")
+        if args.tp_ring < 2:
+            raise SystemExit("--tp_ring needs N >= 2 (the ring protocols "
+                             "have no single-chip form)")
+
+
+def _ring_mesh(args):
+    """Join the launcher's job as one rank of the ``--tp_ring`` ring and
+    return the ``(data=1, fsdp=1, tensor=N)`` mesh; on CUDA the rank takes
+    the card of its local rank (``args.device`` is set to it) and NCCL."""
+    import torch
+    import torch.distributed as dist
+    from mmada_parallel_torch.parallel import (MeshConfig, init_distributed,
+                                               make_mesh)
+    n = args.tp_ring
+    cuda = torch.device(args.device).type == "cuda"
+    if cuda:
+        if torch.cuda.device_count() < n:
+            raise SystemExit(
+                f"--tp_ring {n} --device cuda needs {n} cards, one a rank "
+                f"(NCCL); {torch.cuda.device_count()} visible")
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        torch.cuda.set_device(local)
+        args.device = f"cuda:{local}"
+    init_distributed(backend="nccl" if cuda else "gloo")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != n:
+        raise SystemExit(f"--tp_ring {n} needs {n} ranks (torchrun "
+                         f"--nproc_per_node {n}); the world has {world}")
+    return make_mesh(MeshConfig(data=1, fsdp=1, tensor=n),
+                     "cuda" if cuda else "cpu")
 
 
 def _a_encoder(args, cfg, params, tokenizer, T):
@@ -178,19 +233,25 @@ def main(argv=None):
                                               TI2TIServer)
 
     args = build_parser().parse_args(argv)
-    if args.tp_ring or args.tp_ring_int8:
-        raise SystemExit("--tp_ring: ring tensor-parallel serving waits for "
-                         "multi-GPU (ROADMAP Queue 1, item 16)")
+    _check_ring_flags(args)
     if args.checkpoint is None and not args.tiny_model:
         raise SystemExit(
             "--checkpoint is required (or pass --tiny_model explicitly for "
             "a random-weight debug server)")
+    mesh = _ring_mesh(args) if args.tp_ring else None
     T = tk.TOKENS_A if args.variant == "a" else tk.TOKENS_M
     cfg, params, tokenizer = _load_llada(args, T)
     if args.quant:
         from mmada_parallel_torch.ops.quant import quantize_llada_params
         params = quantize_llada_params(
             params, quantize_head="bf16head" not in args.quant)
+    hidden_fn = None
+    if mesh is not None:
+        from mmada_parallel_torch.parallel import shard_params
+        from mmada_parallel_torch.parallel.tp_overlap import (
+            ring_hidden_fn, ring_param_shardings)
+        params = shard_params(params, ring_param_shardings(cfg), mesh)
+        hidden_fn = ring_hidden_fn(mesh, int8_payload=args.tp_ring_int8)
 
     a_encode = None
     t2i_server = mmu_server = None
@@ -217,7 +278,7 @@ def main(argv=None):
                         max_prompt_len=(args.max_prompt_len
                                         or 1024 + (gh * (gw + 1) + 2
                                                    if a_encode else 0))),
-            tokenizer=tokenizer, tokens=T)
+            tokenizer=tokenizer, tokens=T, hidden_fn=hidden_fn)
     else:
         m_opts = InterleaveOptions(
             text_steps=args.text_steps, image_steps=args.image_steps,
@@ -265,6 +326,11 @@ def main(argv=None):
               flush=True)
         for s in servers:
             s.warmup(lens)
+    if mesh is not None and mesh.get_rank() != 0:
+        print(f"[serve] rank {mesh.get_rank()} of the --tp_ring "
+              f"{args.tp_ring} ring follows rank 0", flush=True)
+        server.close()                      # returns when rank 0 closes
+        return
 
     def need_tokenizer(field):
         return {"error": f"no tokenizer loaded; send {field}"}

@@ -150,7 +150,8 @@ def main(argv=None):
             or args.shard_strategy != "full"):
         raise SystemExit("--mesh_fsdp, --mesh_tensor, --tp_ring and "
                          "--shard_strategy need multi-GPU training, which is "
-                         "not ported: leave them at 1, 1, off and 'full'")
+                         "not ported yet (ROADMAP Queue 1, item 16b): "
+                         "leave them at 1, 1, off and 'full'")
     os.makedirs(args.output_dir, exist_ok=True)
     device = torch.device(args.device)
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32

@@ -280,7 +280,7 @@ def _check_one_device(cfg) -> None:
         raise SystemExit(
             "mesh.fsdp, mesh.tensor and training.shard_strategy need "
             "multi-GPU training, which is not ported yet (ROADMAP.md Queue "
-            "1, item 16): leave them at 1, 1 and 'full'")
+            "1, item 16b): leave them at 1, 1 and 'full'")
 
 
 def _device(name: str):

@@ -6,8 +6,9 @@ does not move to the CPU): sample trajectories from the current policy with
 the TI2TI sampler's step, score the final (text, image) pairs with reward
 callables, and apply REINFORCE updates through the per-step commit
 log-probabilities (:mod:`mmada_parallel_torch.training.pararl`), with the
-port's AdamW, train step and checkpoints.  One device; the JAX loop's mesh
-is its one-device default.
+port's AdamW, train step and checkpoints.  One device: the JAX loop's mesh
+is its one-device default here (ParaRL over a mesh is ROADMAP Queue 1,
+item 16b).
 
 ``--reward module:fn`` plugs in a reward ``(final_ids, codes, meta) -> [B]``
 (tensors); the default is the code-diversity proxy.

@@ -70,7 +70,7 @@ def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "mesh: multi-GPU sweeps are not ported yet (ROADMAP Queue 1, "
-            "item 16)")
+            "item 16b)")
 
 
 def _sync(device: torch.device) -> None:

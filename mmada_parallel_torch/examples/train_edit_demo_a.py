@@ -201,12 +201,15 @@ def assemble_eval_sequence(tokz, T, codes_in):
 
 
 def eval_a_model(params, cfg, T, tokz, seed=0, use_cached=False,
-                 **cache_kw):
+                 hidden_fn=None, **cache_kw):
     """The eval protocol of the trained A model: 4 seeded palette edits
     through the reference TI2TI template at temperature 0; returns
     ``(accs, codes, texts, inputs)``.  ``use_cached=True`` samples through
     ``generate_ti2ti_cached`` (with ``cache_kw``): every opt-in
-    approximation is judged by its accuracy delta on this task."""
+    approximation is judged by its accuracy delta on this task.
+    ``hidden_fn`` swaps the backbone (e.g. ``ring_hidden_fn(mesh,
+    int8_payload=True)``; the eval sequence is ring-compatible: 64 tokens,
+    maskless, B=1)."""
     device = params["wte"].device
     ans_len = len(tokz("rotated colors done")["input_ids"])  # bos..eos
     opts = TI2TIOptions(text_steps=ans_len, timesteps=8, temperature=0.0,
@@ -224,7 +227,8 @@ def eval_a_model(params, cfg, T, tokz, seed=0, use_cached=False,
             fin, out_codes = generate_ti2ti_cached(params, cfg, ids_t, lay,
                                                    opts, **cache_kw)
         else:
-            fin, out_codes = generate_ti2ti(params, cfg, ids_t, lay, opts)
+            fin, out_codes = generate_ti2ti(params, cfg, ids_t, lay, opts,
+                                            hidden_fn=hidden_fn)
         got = out_codes[0].cpu().numpy()   # raw codes
         want = (codes_in + 1) % CB
         accs.append(float((got == want).mean()))

@@ -39,7 +39,7 @@ from mmada_parallel_torch.ops.rope_attention import rope_tensor
 
 __all__ = ["LLaDAConfig", "init_llada_params", "llada_hidden", "llada_head",
            "llada_forward", "llada_hidden_with_cache", "llada_hidden_partial",
-           "count_params"]
+           "count_params", "param_shardings"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -576,3 +576,52 @@ def llada_hidden_partial(params: Dict[str, Any], cfg: LLaDAConfig,
                 impl=cfg.attention_impl)
         x = _cached_block(x, _layer(blocks, i), cfg, attend)
     return _norm(x, params["ln_f"], cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# Sharding metadata
+# ---------------------------------------------------------------------------
+
+
+def param_shardings(cfg: LLaDAConfig, fsdp_axis: str = "fsdp",
+                    tensor_axis: str = "tensor") -> Dict[str, Any]:
+    """Placement tree mirroring :func:`init_llada_params`, one
+    :class:`~mmada_parallel_torch.parallel.mesh.PartitionSpec` a leaf, as
+    the JAX ``param_shardings``: tensor parallelism splits the attention
+    heads and the MLP hidden dimension (Megatron), FSDP the other large
+    axis, ``wte`` its vocab over ``tensor``, and the untied head its vocab
+    over both axes.  :func:`~mmada_parallel_torch.parallel.mesh.shard_params`
+    cuts a tree by it."""
+    from mmada_parallel_torch.parallel.mesh import PartitionSpec as P
+    fs, tp = fsdp_axis, tensor_axis
+    if cfg.block_type == "sequential":
+        blocks = {
+            "attn_norm": P(None, None),
+            "ff_norm": P(None, None),
+            "att_proj": P(None, fs, tp),
+            "attn_out": P(None, tp, fs),
+            "ff_proj": P(None, fs, tp),
+            "ff_out": P(None, tp, fs),
+        }
+        if cfg.include_qkv_bias:
+            blocks["att_proj_bias"] = P(None, tp)
+    else:
+        blocks = {
+            "attn_norm": P(None, None),
+            "ff_norm": P(None, None),
+            "q_proj": P(None, fs, tp),
+            "k_proj": P(None, fs, tp),
+            "v_proj": P(None, fs, tp),
+            "attn_out": P(None, tp, fs),
+            "ff_proj": P(None, fs, tp),
+            "up_proj": P(None, fs, tp),
+            "ff_out": P(None, tp, fs),
+        }
+        if cfg.include_qkv_bias:
+            blocks["q_bias"] = P(None, tp)
+            blocks["k_bias"] = P(None, tp)
+            blocks["v_bias"] = P(None, tp)
+    specs = {"wte": P(tp, fs), "ln_f": P(None), "blocks": blocks}
+    if not cfg.weight_tying:
+        specs["head"] = P(None, (fs, tp))
+    return specs

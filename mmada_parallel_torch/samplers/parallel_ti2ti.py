@@ -103,7 +103,7 @@ def _cfg_plan(opts: TI2TIOptions, uncond_text_prefix, uncond_image_prefix,
 
 
 def _uncond_vq(params, cfg, ids, cond_vq, plan, img_pos, tvs, cb,
-               attn_mask=None, position_ids=None):
+               attn_mask=None, position_ids=None, hidden_fn=llada_hidden):
     """Uncond CFG forwards, batched into one -> codebook logits at the image
     positions, as ``(text-uncond, image-uncond)``."""
     B = ids.shape[0]
@@ -122,7 +122,7 @@ def _uncond_vq(params, cfg, ids, cond_vq, plan, img_pos, tvs, cb,
     mask2 = (attn_mask.repeat(n_rep, 1) if attn_mask is not None else None)
     pos2 = (position_ids.repeat(n_rep, 1) if position_ids is not None
             else None)
-    hidden = llada_hidden(params, cfg, stacked, mask2, pos2)
+    hidden = hidden_fn(params, cfg, stacked, mask2, pos2)
     vq = llada_head(params, cfg, hidden[:, img_pos], vocab_slice=(tvs, cb))
     if plan["need_ut"] and plan["need_ui"]:
         return vq[:B], vq[B:]
@@ -182,12 +182,18 @@ def make_ti2ti_step(
     uncond_image_prefix: Optional[np.ndarray],
     attn_mask: Optional[torch.Tensor] = None,
     device=None,
+    hidden_fn: Optional[Callable] = None,
 ) -> Callable:
     """Build one denoising step ``step(ids, step_idx, budget, generator) ->
     ids``; the image-step schedule inside it is a host bool array.
 
     ``attn_mask`` (``[B, L]`` bool, True = real) hides pad positions and
-    re-ranks RoPE positions so each row reproduces its unpadded run."""
+    re-ranks RoPE positions so each row reproduces its unpadded run.
+    ``hidden_fn`` swaps the backbone (``llada_hidden``'s signature); the
+    ring tensor-parallel backbone plugs in through
+    :func:`mmada_parallel_torch.parallel.tp_overlap.ring_hidden_fn`."""
+    if hidden_fn is None:
+        hidden_fn = llada_hidden
     pos_ids = ragged_positions(attn_mask) if attn_mask is not None else None
     img_pos = torch.as_tensor(layout.image_positions(), dtype=torch.long,
                               device=device)
@@ -205,7 +211,7 @@ def make_ti2ti_step(
 
     def step(ids: torch.Tensor, step_idx: int, budget: torch.Tensor,
              generator: Optional[torch.Generator]) -> torch.Tensor:
-        hidden = llada_hidden(params, cfg, ids, attn_mask, pos_ids)
+        hidden = hidden_fn(params, cfg, ids, attn_mask, pos_ids)
         text_logits = llada_head(params, cfg, hidden[:, ts:te])
         cond_vq = llada_head(params, cfg, hidden[:, img_pos],
                              vocab_slice=(tvs, cb))
@@ -213,7 +219,8 @@ def make_ti2ti_step(
         ids = _text_update(ids, text_logits, budget, opts, layout, generator)
         if img_step[step_idx]:
             ut_vq, ui_vq = _uncond_vq(params, cfg, ids, cond_vq, plan,
-                                      img_pos, tvs, cb, attn_mask, pos_ids)
+                                      img_pos, tvs, cb, attn_mask, pos_ids,
+                                      hidden_fn)
             ids = _image_update(ids, cond_vq, ut_vq, ui_vq, img_pos,
                                 mask_ratios[step_idx], img_temps[step_idx],
                                 opts, generator)
@@ -233,6 +240,7 @@ def generate_ti2ti(
     uncond_image_prefix: Optional[np.ndarray] = None,
     generator: Optional[torch.Generator] = None,
     attn_mask: Optional[torch.Tensor] = None,
+    hidden_fn: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the full denoising trajectory.
 
@@ -244,6 +252,10 @@ def generate_ti2ti(
             (they overwrite ``ids[:, :len(prefix)]``).
         generator: ``None`` -> fully deterministic (argmax everywhere).
         attn_mask: optional ``[B, L]`` bool (True = real) for ragged batches.
+        hidden_fn: optional backbone override (``llada_hidden``'s
+            signature); pass
+            :func:`mmada_parallel_torch.parallel.tp_overlap.ring_hidden_fn`
+            to run the trajectory tensor-parallel over a mesh.
 
     Returns:
         ``(final_ids [B, L], image_codes [B, N_vq])`` as int64 tensors.
@@ -252,7 +264,7 @@ def generate_ti2ti(
         raise ValueError("remasking='random' requires a generator")
     device = input_ids.device
     step = make_ti2ti_step(params, cfg, layout, opts, uncond_text_prefix,
-                           uncond_image_prefix, attn_mask, device)
+                           uncond_image_prefix, attn_mask, device, hidden_fn)
     ts, te = layout.text_start, layout.text_end
     ids = input_ids.long()
     masked0 = (ids[:, ts:te] == opts.mask_token).sum(dim=1)

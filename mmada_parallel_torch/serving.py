@@ -20,6 +20,15 @@ device: the device of the params, named explicitly, never the thread's
 current one.  ``warmup`` runs each named bucket's sampler once on pad rows,
 which builds the attention kernels and warms cuBLAS and cuDNN, and records
 the bucket.  Producer threads only enqueue and wait.
+
+``TI2TIServer(hidden_fn=ring_hidden_fn(mesh))`` serves over the ring
+tensor parallelism of :mod:`mmada_parallel_torch.parallel.tp_overlap`, the
+SPMD form of the JAX package's single-controller server: every rank of the
+mesh (which spans the default process group) makes the same sampler calls
+in the same order.  Rank 0 owns the queue and the batching and, before each
+batch (warmups included), broadcasts the batch's prompt length and rows;
+every other rank's worker receives them and runs the same batch, until
+``close()`` on rank 0 ends it.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mmada_parallel_torch import tokens as tk
 from mmada_parallel_torch.models.llada import LLaDAConfig
@@ -81,7 +91,8 @@ class _BatchServerBase:
     and ``event``), and ``_warm_bucket(bucket)`` for :meth:`warmup`."""
 
     def __init__(self, params: Any, batch_size: int, max_wait_ms: float,
-                 deterministic: bool, seed: int):
+                 deterministic: bool, seed: int,
+                 worker: Optional[Callable] = None):
         self.params = params
         self.device = params["wte"].device
         self._batch_size = batch_size
@@ -94,7 +105,9 @@ class _BatchServerBase:
         self._q: "queue.Queue[_Pending]" = queue.Queue()
         self._stats = {"requests": 0, "batches": 0, "batched_rows": 0}
         self._stop = threading.Event()
-        self._worker = threading.Thread(target=self._run, daemon=True)
+        self._worker = threading.Thread(target=self._on_device,
+                                        args=(worker or self._run,),
+                                        daemon=True)
         self._worker.start()
 
     def _submit(self, payload, timeout: Optional[float]) -> Any:
@@ -123,6 +136,12 @@ class _BatchServerBase:
         self._stats["requests"] += len(group)
         self._stats["batches"] += 1
         self._stats["batched_rows"] += self._batch_size
+
+    def _on_device(self, loop: Callable) -> None:
+        # the current CUDA device is per thread: the worker's is the params'
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        loop()
 
     def _run(self) -> None:
         while not self._stop.is_set():
@@ -185,7 +204,20 @@ class TI2TIServer(_BatchServerBase):
     ``submit(prompt_ids)`` blocks until the edit is done and returns
     ``{"text_ids", "codes", "text"}``; call it from any number of threads.
     Rows are the prompt right-padded to the bucket with pads hidden by the
-    mask."""
+    mask.
+
+    ``hidden_fn`` swaps the backbone (``llada_hidden``'s signature).  It
+    takes no padding mask, so requests then group by exact prompt length.
+    A ring backbone (:func:`~mmada_parallel_torch.parallel.tp_overlap.
+    ring_hidden_fn`, whose ``mesh`` attribute says so) makes the server
+    SPMD: construct it on every rank with the same arguments; rank 0 takes
+    the submissions, the other ranks follow its batches until rank 0's
+    ``close()``, and their ``close()`` waits for that.  Rank 0 refuses a
+    batch the ring cannot run (its ``check``) before sending it.  A batch
+    that fails once sent leaves the ranks' collectives out of step, so it
+    ends the server: rank 0 answers every later request with the failure,
+    and ``close()`` raises it on every rank that saw it, so the process
+    exits and the launcher ends the job."""
 
     def __init__(self, params: Any, cfg: LLaDAConfig,
                  opts: TI2TIOptions = TI2TIOptions(),
@@ -193,19 +225,30 @@ class TI2TIServer(_BatchServerBase):
                  tokenizer: Any = None,
                  uncond_image_prefix: Optional[np.ndarray] = None,
                  tokens: tk.VariantATokens = tk.TOKENS_A,
-                 seed: int = 0):
+                 seed: int = 0,
+                 hidden_fn: Optional[Callable] = None):
         self.cfg, self.opts = cfg, opts
         self.serve, self.tokens = serve, tokens
         self.tokenizer = tokenizer
         self.uncond_image_prefix = uncond_image_prefix
+        self.hidden_fn = hidden_fn
         self._layouts: Dict[int, tk.SequenceLayout] = {}
+        self._spmd = getattr(hidden_fn, "mesh", None) is not None
+        self._leader = not self._spmd or dist.get_rank() == 0
+        self._failure: Optional[BaseException] = None
+        # one batch at a time: a leader's broadcast and its ring collectives
+        # must not interleave with another thread's (warmup vs worker)
+        self._batch_lock = threading.Lock()
         super().__init__(params, serve.batch_size, serve.max_wait_ms,
                          opts.temperature == 0.0
                          and opts.text_temperature == 0.0
-                         and opts.remasking != "random", seed)
+                         and opts.remasking != "random", seed,
+                         worker=None if self._leader else self._follow)
 
     def submit(self, prompt_ids: Sequence[int],
                timeout: Optional[float] = None) -> Dict[str, Any]:
+        if not self._leader:
+            raise RuntimeError("an SPMD server takes submissions on rank 0")
         if len(prompt_ids) > self.serve.max_prompt_len:
             raise ValueError(
                 f"prompt length {len(prompt_ids)} exceeds max_prompt_len "
@@ -213,10 +256,43 @@ class TI2TIServer(_BatchServerBase):
         return self._submit(list(prompt_ids), timeout)
 
     def warmup(self, prompt_lens: Sequence[int]) -> None:
-        """Run the buckets of these prompt lengths once on pad rows."""
-        self._warm(self._bucket_of([0] * n) for n in prompt_lens)
+        """Run the buckets of these prompt lengths once on pad rows (on an
+        SPMD server, rank 0's warmups run on every rank)."""
+        if self._leader:
+            self._warm(self._bucket_of([0] * n) for n in prompt_lens)
+
+    def close(self) -> None:
+        if not self._spmd:
+            return super().close()
+        if self._leader:
+            self._stop.set()
+            self._worker.join()          # the batch in flight ends first
+            with self._batch_lock:
+                if self._failure is None:
+                    dist.broadcast_object_list([None], src=0)
+        else:
+            self._worker.join()          # until rank 0's close
+        if self._failure is not None:
+            # the ranks' collectives no longer match: the job must end
+            raise RuntimeError("a batch of the SPMD server failed on rank "
+                               f"{dist.get_rank()}") from self._failure
+
+    def _follow(self) -> None:
+        """A follower rank's worker: run each batch rank 0 broadcasts; a
+        failure ends it, and ``close()`` raises it."""
+        try:
+            while True:
+                msg = [None]
+                dist.broadcast_object_list(msg, src=0)
+                if msg[0] is None:
+                    return
+                self._sample(*msg[0])
+        except BaseException as e:
+            self._failure = e
 
     def _bucket_of(self, payload) -> int:
+        if self.hidden_fn is not None:
+            return len(payload)   # exact-length groups: no padding mask
         return _round_bucket(len(payload), self.serve.bucket_quantum,
                              self.serve.max_prompt_len)
 
@@ -233,7 +309,26 @@ class TI2TIServer(_BatchServerBase):
 
     def _generate(self, plen: int, prompts: List[List[int]]):
         """One ragged batch of ``batch_size`` rows (the last prompt repeats
-        to fill it) -> host ``(final ids, codes)``."""
+        to fill it) -> host ``(final ids, codes)``; an SPMD leader first
+        sends the batch to the followers."""
+        if not self._spmd:
+            return self._sample(plen, prompts)
+        with self._batch_lock:
+            if self._failure is not None:
+                raise RuntimeError("the SPMD server failed on an earlier "
+                                   "batch") from self._failure
+            # refused here, the batch never reaches the followers
+            self.hidden_fn.check(self.cfg, self._batch_size,
+                                 self._layout(plen).total_len)
+            dist.broadcast_object_list([(plen, prompts)], src=0)
+            try:
+                return self._sample(plen, prompts)
+            except BaseException as e:
+                # the followers may be mid-ring: no later batch can run
+                self._failure = e
+                raise
+
+    def _sample(self, plen: int, prompts: List[List[int]]):
         layout = self._layout(plen)
         B = self._batch_size
         ids = np.zeros((B, layout.total_len), np.int64)
@@ -246,7 +341,10 @@ class TI2TIServer(_BatchServerBase):
         fin, codes = generate_ti2ti(
             self.params, self.cfg, self._tensor(ids), layout, self.opts,
             uncond_image_prefix=self.uncond_image_prefix,
-            generator=self._generator, attn_mask=self._tensor(mask))
+            generator=self._generator,
+            # exact-length rows under a hidden_fn: the mask is all-True
+            attn_mask=None if self.hidden_fn else self._tensor(mask),
+            hidden_fn=self.hidden_fn)
         return fin.cpu().numpy(), codes.cpu().numpy()
 
     def _warm_bucket(self, plen: int) -> None:

@@ -440,6 +440,28 @@ def test_a_eval_on_the_jax_trained_model(trained_a, mode, monkeypatch):
     assert np.mean(taccs) >= 0.85 and ttexts[0] == "rotated colors done"
 
 
+def test_int8_ring_preserves_trained_task_accuracy(trained_a, tmp_path):
+    """JAX's test of this name on the port: the JAX-trained A model's eval
+    (64 tokens, maskless, B=1) over a ring of 4 spawned CPU ranks (gloo).
+    The exact ring gives the solo accuracy, the int8 payload stays within
+    0.1 of it, and both keep "rotated" in the text, on every rank."""
+    from test_torch_tp_overlap import _demo_ring_rank, start_ranks
+    tparams = trained_a[5]
+    tT = TA.demo_tokens()
+    base = float(np.mean(TA.eval_a_model(tparams, TA.demo_config(tT), tT,
+                                         TA.WordTokA())[0]))
+    torch.save(tparams, tmp_path / "params.pt")
+    ranks = start_ranks(_demo_ring_rank, 4, tmp_path, timeout=240)()
+    for res in ranks:
+        accs, texts = res["exact"]
+        assert float(np.mean(accs)) == pytest.approx(base), (accs, base)
+        assert "rotated" in texts[0], texts
+        accs_q, texts_q = res["int8"]
+        assert float(np.mean(accs_q)) >= base - 0.1, (accs_q, base)
+        assert "rotated" in texts_q[0], texts_q
+        assert res == ranks[0]
+
+
 def test_multitask_sweeps_on_the_jax_trained_model():
     m, jparams, cfg, T, tokz = JMT.run_demo(
         out_dir=None, return_params=True,

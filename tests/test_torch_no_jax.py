@@ -18,7 +18,8 @@ reader and token store, ``lfq_losses``, the utils, and two steps of
 ``train_m.train_loop``); and the capability demos (every
 ``mmada_parallel_torch.examples`` module, the checkpoint export, the
 conversation item processor, and two steps of the A demo run as
-``python -m``)."""
+``python -m``); and the ring tensor parallelism (``parallel/`` and the
+serve CLI, and a two-rank ring forward in two processes)."""
 
 import json
 import os
@@ -559,3 +560,67 @@ def test_demos_and_export_import_no_jax(tmp_path):
     assert metrics["steps"] == 2 and len(metrics["generated_text"]) == 4
     assert (tmp_path / "ckpt" / "2" / "state.pt").exists()
     assert (tmp_path / "sample0_generated.png").exists()
+
+
+RING_SCRIPT = r"""
+import importlib.abc, json, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "mmada_parallel_tpu"):
+            raise ImportError(f"{name} is blocked here")
+        return None
+
+sys.meta_path.insert(0, Block())
+
+import torch
+torch.set_num_threads(1)
+from mmada_parallel_torch.cli import serve  # noqa: F401
+from mmada_parallel_torch.models.llada import (LLaDAConfig,
+                                               init_llada_params,
+                                               llada_hidden)
+from mmada_parallel_torch.parallel import (MeshConfig, init_distributed,
+                                           make_mesh, shard_params)
+from mmada_parallel_torch.parallel import launch  # noqa: F401
+from mmada_parallel_torch.parallel.tp_overlap import (
+    llada_hidden_tp_overlap, ring_param_shardings)
+
+rank, workdir = int(sys.argv[1]), sys.argv[2]
+init_distributed(f"file://{workdir}/rdv", 2, rank, "gloo")
+cfg = LLaDAConfig.tiny()
+params = init_llada_params(cfg, torch.Generator().manual_seed(0))
+ids = torch.randint(0, cfg.vocab_size, (2, 12),
+                    generator=torch.Generator().manual_seed(1))
+mesh = make_mesh(MeshConfig(data=1, fsdp=1, tensor=2), "cpu")
+ring = llada_hidden_tp_overlap(
+    shard_params(params, ring_param_shardings(cfg), mesh), cfg, ids, mesh)
+err = float((ring - llada_hidden(params, cfg, ids)).abs().max())
+print(json.dumps({
+    "jax": sorted(m for m in sys.modules if m.split(".")[0] in
+                  ("jax", "jaxlib", "mmada_parallel_tpu")),
+    "shape": list(ring.shape), "err": err}))
+"""
+
+
+def test_ring_forward_and_serve_cli_import_no_jax(tmp_path):
+    """``parallel/`` and the serve CLI import with the JAX imports blocked,
+    and a two-rank ring forward (two processes, gloo, a ``file://``
+    rendezvous) equals the solo forward on both ranks."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    procs = [subprocess.Popen([sys.executable, "-c", RING_SCRIPT, str(r),
+                               str(tmp_path)], cwd=REPO, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+        res = json.loads(out.strip().splitlines()[-1])
+        assert res["jax"] == [] and res["shape"] == [2, 12, 64]
+        assert res["err"] < 1e-5, res
+

@@ -417,12 +417,109 @@ def test_http_serve_cli_both_variants():
         m.stop()
 
 
-@pytest.mark.parametrize("flags,item", [(["--tp_ring", "2"], "item 16"),
-                                        (["--tp_ring_int8"], "item 16")])
-def test_serve_cli_refuses_unported_flags(flags, item):
+@pytest.mark.parametrize("flags,message", [
+    (["--tp_ring_int8"], "--tp_ring_int8 requires --tp_ring N"),
+    (["--tp_ring", "2", "--quant", "int8"], "combine with --quant is not"),
+    (["--tp_ring", "2", "--variant", "m"], "currently serves variant a"),
+    (["--tp_ring", "1"], "needs N >= 2"),
+    (["--tp_ring", "2", "--device", "cuda"], "needs 2 cards, one a rank"),
+    (["--tp_ring", "2"], "needs 2 ranks"),
+])
+def test_serve_cli_refuses_unported_flags(flags, message):
+    """The ring flags' refusals: JAX's four (``--tp_ring_int8`` alone,
+    ``--quant``, variant m, N < 2, with its messages), then fewer cards
+    than ranks for ``--device cuda`` and a world that is not N ranks (no
+    launcher here), all before any process group starts."""
+    import torch.distributed as dist
     from mmada_parallel_torch.cli import serve
-    with pytest.raises(SystemExit, match=item):
+    with pytest.raises(SystemExit, match=message):
         serve.main(["--tiny_model", "--device", "cpu"] + flags)
+    assert not dist.is_initialized()
+
+
+def test_serve_cli_jax_refusal_messages_kept():
+    """The four messages JAX's CLI gives (``cli/serve.py:175-187``)."""
+    import inspect
+    from mmada_parallel_tpu.cli import serve as jcli
+    from mmada_parallel_torch.cli import serve as tcli
+    jsrc = inspect.getsource(jcli.main)
+    tsrc = inspect.getsource(tcli._check_ring_flags)
+    for msg in ('"--tp_ring_int8 requires --tp_ring N"',
+                '"--tp_ring serves the dense bf16 path; "',
+                '"combine with --quant is not supported"',
+                '"--tp_ring currently serves variant a "',
+                '"(the M reference layout length 2341 does not "',
+                '"divide the TP degree)"',
+                '"--tp_ring needs N >= 2 (the ring protocols "',
+                '"have no single-chip form)"'):
+        assert msg in jsrc and msg in tsrc, msg
+
+
+def _child_pids(pid: int) -> list:
+    """The processes whose parent is ``pid`` (from ``/proc``)."""
+    out = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, ValueError, IndexError):
+            continue          # gone meanwhile
+        if ppid == pid:
+            out.append(int(entry))
+    return out
+
+
+def test_http_serve_cli_tp_ring_under_torchrun():
+    """``python -m torch.distributed.run --standalone --nproc_per_node 2 -m
+    mmada_parallel_torch.cli.serve --tp_ring 2 --tiny_model --device cpu``:
+    rank 0 answers /edit, rank 1 follows, and the answer is the solo run's
+    (the same exact-length batch of ``batch_size`` rows and the server's
+    generator, seed 0, through ``llada_hidden``)."""
+    import signal
+    A = tk.TOKENS_A
+    argv = ["--tiny_model", "--device", "cpu", "--port", "0",
+            "--batch_size", "2", "--max_wait_ms", "20", "--height", "32",
+            "--width", "32", "--text_gen_length", "8", "--timesteps", "2",
+            "--text_steps", "4", "--cfg_img", "0"]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", "-m", "mmada_parallel_torch.cli.serve",
+         "--tp_ring", "2"] + argv,
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    served = _Served.__new__(_Served)
+    served.proc = proc
+    prompt = list(range(1000, 1006))          # a layout of 24 tokens
+    try:
+        served.wait_ready()
+        out = served.post("/edit", {"prompt_ids": prompt})
+        stats = served.get("/stats")
+    finally:
+        # torchrun starts each rank with setsid: kill them, then torchrun
+        for pid in _child_pids(proc.pid) + [proc.pid]:
+            os.kill(pid, signal.SIGKILL)
+        proc.wait(timeout=30)
+    assert stats["requests"] == 1
+
+    # the solo run: the CLI's tiny model, options and rows
+    cfg = TL.LLaDAConfig.tiny(vocab_size=A.full_vocab_size,
+                              mask_token_id=A.mask)
+    params = TL.init_llada_params(cfg, torch.Generator().manual_seed(0))
+    opts = TT.TI2TIOptions(timesteps=2, text_steps=4, cfg_scale=0.0,
+                           cfg_img=0.0, text_vocab_size=A.text_vocab_size,
+                           codebook_size=A.codebook_size, mask_token=A.mask)
+    row, lay = tk.assemble_ti2ti_sequence(prompt, 8, 2, 2, [A.answer_end],
+                                          tokens=A)
+    assert lay.total_len % 2 == 0
+    fin, codes = TT.generate_ti2ti(
+        params, cfg, torch.as_tensor(np.stack([row, row])), lay, opts,
+        generator=torch.Generator().manual_seed(0))
+    assert out["codes"] == codes[0].tolist()
+    assert out["text"] == [int(t) for t in fin[0, lay.text_start:
+                                               lay.text_end]
+                           if int(t) != A.mask]
 
 
 @pytest.mark.parametrize("quant", ["int8", "int8_bf16head"])
