@@ -1195,6 +1195,52 @@ def phase_kernel_grads() -> None:
                 f"{'x'.join(map(str, shapes[0]))}: one launch, max |err| "
                 f"out/dq/dk/dv {[f'{float(e):.3e}' for e in errs]} tol "
                 f"{tol}")
+    _ring_train_grad(gen)
+
+
+def _ring_train_grad(gen) -> None:
+    """K2's Function at the shape ``train_a --tp_ring`` gives it at g=2 and
+    the 8B widths (``[train-a-ring]``): the queries of one sigma-chunk half
+    (B=1, Lq=606) against all 2424 pre-rotated keys, 16 of the 32 heads,
+    bf16, no bias; forward and q/k/v gradients against plain autograd."""
+    import torch
+    from mmada_parallel_torch.ops import attention as A
+    from mmada_parallel_torch.parallel.tp_overlap import sigma_positions
+    dev = torch.device("cuda")
+    g, H, D, L = 2, EDIT_H // 2, EDIT_D, EDIT_L
+    C = L // g
+    pos = sigma_positions(g, C, 1, dev)[C // 2:C]     # rank 1's second half
+    sin, cos = _rope_tables(L, D, dev)
+    sin, cos = sin[pos].contiguous(), cos[pos].contiguous()
+    shapes = ((1, C // 2, H * D), (1, L, H * D), (1, L, H * D))
+    xs = [torch.randn(*sh, generator=gen, device=dev).to(torch.bfloat16)
+          for sh in shapes]
+    w = torch.randn(*shapes[0], generator=gen, device=dev)
+    outs, grads = [], []
+    for impl in ("pallas", "xla"):
+        reset_launches()
+        ins = [x.detach().requires_grad_(True) for x in xs]
+        out = A.rope_attention_qonly(*ins, sin, cos, None, n_heads=H,
+                                     n_kv_heads=H, impl=impl)
+        (out.float() * w).sum().backward()
+        torch.cuda.synchronize()
+        launched = read_launches()["flash_attention_rope_qonly"]
+        if launched != (1 if impl == "pallas" else 0):
+            raise AssertionError(f"K2 ring-train grad impl={impl}: "
+                                 f"{launched} launches")
+        outs.append(out.detach().float())
+        grads.append([t.grad.float() for t in ins])
+    errs = []
+    for a, b in zip([outs[0], *grads[0]], [outs[1], *grads[1]]):
+        errs.append(float((a - b).abs().max()))
+        if not torch.allclose(a, b, **BF16_TOL):
+            raise AssertionError(f"K2 ring-train grad: Function and plain "
+                                 f"autograd differ, max |err| out/dq/dk/dv "
+                                 f"{errs} ({BF16_TOL})")
+    log(f"[grad] K2 rope_attention_qonly at the ring's training chunk "
+        f"(g=2): bf16 B=1 Lq={C // 2} Lk={L} H=KV={H} D={D}, no bias: one "
+        f"launch, max |err| out/dq/dk/dv {[f'{e:.3e}' for e in errs]} tol "
+        f"{BF16_TOL}")
 
 
 # ---------------------------------------------------------------------------
@@ -1761,6 +1807,7 @@ def _counted_step(step):
         records.append((read_launches(), time.time() - t0))
         return out
 
+    counted.__dict__.update(getattr(step, "__dict__", {}))  # mesh, specs
     return counted, records
 
 
@@ -4043,12 +4090,14 @@ def _ring_qonly_case(name, B, L, H, D, dtype, tol, gen, timed=False):
                        positions=pos, timed=timed)
 
 
-def phase_kernel_ring() -> dict:
+def phase_kernel_ring() -> tuple:
     """K2 at the ring's per-chunk shapes: at 8B and g=4 a rank has 8 of the
     32 heads and attends Lq = 2424 / 8 = 303 sigma-ordered queries against
-    all 2424 keys, B=1 (cond) and B=2 (uncond); and at a small f32 shape.
-    Returns the B=1 case's record."""
+    all 2424 keys, B=1 (cond) and B=2 (uncond); and at a small f32 shape;
+    and the training ring's chunk (g=2: 16 heads, Lq = 606).  Returns the
+    serving B=1 case's record and the training case's."""
     import torch
+    from mmada_parallel_torch.parallel.tp_overlap import sigma_positions
     gen = torch.Generator(device="cuda").manual_seed(5)
     H = EDIT_H // RING_G
     one = _ring_qonly_case("ring/B1", 1, EDIT_L, H, EDIT_D, torch.bfloat16,
@@ -4066,9 +4115,20 @@ def phase_kernel_ring() -> dict:
         f"(split {two['splits']}): {two['ms']:.3f} ms, "
         f"{100 * two['bound_ms'] / two['ms']:.1f} % of bound; "
         f"{2 * RING_G} calls a layer on each rank")
-    return dict(one, max_abs_err=max(r["max_abs_err"]
-                                     for r in (one, two, small)),
-                library_ms=None)
+    train = _qonly_case(
+        "ring-train/B1", 1, EDIT_L // 4, EDIT_L, EDIT_H // 2, EDIT_H // 2,
+        EDIT_D, torch.bfloat16, BF16_TOL, gen, timed=True,
+        positions=sigma_positions(2, EDIT_L // 2, 1)[EDIT_L // 4:
+                                                     EDIT_L // 2])
+    log(f"[kernel] K2 at the ring's training chunk, g=2: B=1 Lq="
+        f"{EDIT_L // 4} Lk={EDIT_L} H=KV={EDIT_H // 2} (split "
+        f"{train['splits']}): {train['ms']:.3f} ms, bound "
+        f"{train['bound_ms']:.4f} ms, "
+        f"{100 * train['bound_ms'] / train['ms']:.1f} % of bound; 4 calls a "
+        f"layer on each rank of [train-a-ring]")
+    return (dict(one, max_abs_err=max(r["max_abs_err"]
+                                      for r in (one, two, small)),
+                 library_ms=None), dict(train, library_ms=None))
 
 
 # -- [ring-small]: a small f32 model (head_dim 64) on the ring -------------
@@ -4658,6 +4718,466 @@ def phase_demo_a_ring(trained) -> None:
         f"kernel launch (head_dim {cfg.head_dim}), every rank alike")
 
 
+# ---------------------------------------------------------------------------
+# Training over the (data, fsdp, tensor) mesh: ranks on the card
+# ---------------------------------------------------------------------------
+
+MESH_LAYERS, MESH_STEPS, MESH_SEED = 2, 2, 21
+MESH_LABEL = ("ranks sharing one card over host-staged gloo: not multi-GPU "
+              "times")
+# Gates against the solo step of this process on the same global batch
+# (PERF.md section 6, with their basis).  f32: the ranks differ from
+# the solo step in GEMM shapes (1 row against the whole batch) and in the
+# order of the gradient sums, so the loss and the grad norm agree to f32
+# rounding; each leaf's parameters to a relative L2 of 1e-3 of the solo
+# step's update of that leaf over the two steps (AdamW's first updates are
+# +-lr wherever |grad| >> eps = 1e-8, and an element whose gradient sits
+# near eps moves by a part of lr under a reordered f32 sum: on the H100 one
+# wte element came 2.0e-6 off a 4.0e-5 update; a wrong gradient sync
+# moves whole rows by their update, a relative L2 of 0.1 or more).
+# bf16: the loss and grad norm within twice the
+# solo bf16 step's own distance from the solo f32 step (at least 1e-5
+# relative): the ring's reduce-scatter sums round in bf16 where the solo
+# GEMM does not (PERF.md section 6), so its bf16 noise is not the solo's.
+MESH_LOSS_RTOL, MESH_NORM_RTOL, MESH_PARAM_REL_L2 = 1e-5, 1e-4, 1e-3
+MESH_BF16_FACTOR, MESH_BF16_FLOOR = 2.0, 1e-5
+
+
+def _mesh_cfg(dtype):
+    """``llada_8b`` widths, 2 of 32 layers: f32 params, ``dtype`` compute,
+    remat ``whole_layer``, the kernels."""
+    import torch
+    from mmada_parallel_torch.models.llada import LLaDAConfig
+    return LLaDAConfig.llada_8b(n_layers=MESH_LAYERS,
+                                param_dtype=torch.float32,
+                                compute_dtype=dtype, remat="whole_layer")
+
+
+def _mesh_build(cfg, params, **kw):
+    """``cli/train_a.build_train_step`` with the A recipe (lr 2e-5, wd 0.1,
+    clip 4.0), one microbatch."""
+    from mmada_parallel_torch.cli.train_a import build_train_step
+    return build_train_step(cfg, params, lr=2e-5, min_lr=0.0, wd=0.1,
+                            clip_grad=4.0, warmup_steps=0, total_steps=100,
+                            accum_steps=1, **kw)
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_leaves(v, f"{prefix}.{k}" if prefix else k))
+        return out
+    return {prefix: tree}
+
+
+def _mesh_solo(batch, precisions) -> dict:
+    """The solo A step of this process in each of ``precisions`` (compute
+    dtypes, f32 among them), ``MESH_STEPS`` steps on the whole batch, and
+    the f32 run's final parameters (CPU)."""
+    import gc
+    import torch
+    from mmada_parallel_torch.models.llada import init_llada_params
+    out = {}
+    for name in precisions:
+        cfg = _mesh_cfg({"f32": torch.float32, "bf16": torch.bfloat16}[name])
+        params = init_llada_params(
+            cfg, torch.Generator(device="cuda").manual_seed(MESH_SEED))
+        sizes = {k: v.numel() for k, v in _leaves(params).items()}
+        state, step, _ = _mesh_build(cfg, params)
+        del params
+        ms, secs = [], []
+        for _ in range(MESH_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            ms.append({k: float(v) for k, v in m.items()})
+        out[name] = {"metrics": ms, "secs": secs, "sizes": sizes}
+        if name == "f32":
+            out["final"] = {k: v.detach().cpu().clone()
+                            for k, v in _leaves(state.params).items()}
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_reckon(sizes: dict, mode: str, strategy: str, world: int,
+                 n_data: int) -> dict:
+    """Bytes a rank holds (f32: parameter, gradient, mu, nu) and the most it
+    gathers at once (``wte``, ``head`` and one layer, with their gradients
+    in the backward), from the leaf sizes; the head stays split over fsdp
+    under every strategy (JAX's ``drop_axis`` keeps its (fsdp, tensor)
+    entry)."""
+    head, wte = sizes["head"], sizes["wte"]
+    layer = sum(v for k, v in sizes.items()
+                if k.startswith("blocks.")) // MESH_LAYERS
+    total = sum(sizes.values())
+    n = world // n_data
+    if mode == "ring":
+        blocks = total - head - wte - sizes["ln_f"]
+        state = 16 * (blocks // n + head + wte + sizes["ln_f"])
+        gathered = 0
+    elif strategy == "full":
+        state = 16 * total // n
+        gathered = 4 * 2 * (wte + head + layer)
+    elif strategy == "zero2":
+        state = 8 * (total - head) + 8 * (total - head) // n + 16 * head // n
+        gathered = 4 * 2 * head
+    else:
+        state = 16 * (total - head) + 16 * head // n
+        gathered = 4 * 2 * head
+    return {"state": state, "gathered": gathered}
+
+
+def _ring_counted():
+    """Patch ``tp_overlap._post_round`` and ``_all_gather_rows`` (every ring
+    round, forward and backward, and the row gathers) to add their bytes
+    sent and host seconds to a tally; returns the tally."""
+    from mmada_parallel_torch.parallel import tp_overlap as TP
+    tally = {"sent": 0, "seconds": 0.0}
+    post, rows = TP._post_round, TP._all_gather_rows
+
+    def counted_post(xs, directions, group):
+        t0 = time.perf_counter()
+        wait = post(xs, directions, group)
+        tally["sent"] += sum(x.numel() * x.element_size() for x in xs)
+
+        def timed_wait():
+            out = wait()
+            tally["seconds"] += time.perf_counter() - t0
+            return out
+        return timed_wait
+
+    def counted_rows(x, group):
+        t0 = time.perf_counter()
+        out = rows(x, group)
+        tally["sent"] += x.numel() * x.element_size()
+        tally["seconds"] += time.perf_counter() - t0
+        return out
+
+    TP._post_round, TP._all_gather_rows = counted_post, counted_rows
+    return tally
+
+
+def _mesh_train_rank(rank, world, workdir):
+    """One spawned rank of ``[train-a-fsdp]`` / ``[train-a-ring]`` /
+    ``[fsdp-nccl]``: for each strategy, f32 then bf16, the tree drawn from
+    the seed in turn, the sharded A step of ``cli/train_a`` for
+    ``MESH_STEPS`` steps on this rank's rows; launches, seconds, transfer
+    tallies and the peak by step, and (f32) each leaf's largest difference
+    from the solo step's parameters."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from mmada_parallel_torch.models.llada import init_llada_params
+    from mmada_parallel_torch.parallel import MeshConfig, make_mesh
+    from mmada_parallel_torch.parallel.mesh import _local_view, local_rows
+    inp = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(MeshConfig(*inp["shape"]), "cuda")
+    ring = inp["mode"] == "ring"
+    batch = tuple(x.to(dev) for x in inp["batch"])
+    if not ring:
+        batch = local_rows(batch, mesh)
+    ref = (torch.load(inp["ref"], mmap=True, weights_only=True)
+           if inp.get("ref") else None)
+    ring_tally = _ring_counted() if ring else None
+    out = {"coord": tuple(mesh.get_coordinate()), "backend":
+           dist.get_backend(), "device": str(dev)}
+    for strategy in inp["strategies"]:
+        for name in inp["precisions"]:
+            dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[name]
+            cfg = _mesh_cfg(dtype)
+            tally = {}
+            for turn in range(world):      # one whole tree on the card
+                if rank == turn:
+                    params = init_llada_params(
+                        cfg, torch.Generator(device=dev).manual_seed(
+                            MESH_SEED))
+                    state, step, _ = _mesh_build(
+                        cfg, params, mesh=mesh, shard_strategy=strategy,
+                        tp_ring=ring, tally=tally)
+                    del params
+                    torch.cuda.empty_cache()
+                dist.barrier()
+            init = ({k: v.detach().to("cpu", copy=True)
+                     for k, v in _leaves(state.params).items()}
+                    if ref is not None and name == "f32" else None)
+            torch.cuda.reset_peak_memory_stats()
+            run = {"metrics": [], "secs": [], "launches": [], "moved": []}
+            for _ in range(MESH_STEPS):
+                tally.clear()
+                if ring_tally is not None:
+                    ring_tally.update(sent=0, seconds=0.0)
+                torch.cuda.synchronize()
+                reset_launches()
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                run["secs"].append(time.perf_counter() - t0)
+                run["launches"].append(read_launches())
+                run["metrics"].append({k: float(v) for k, v in m.items()})
+                run["moved"].append(dict(ring_tally if ring else tally))
+            run["peak"] = torch.cuda.max_memory_allocated()
+            if init is not None:      # max |diff|, |diff|, |solo update|
+                specs = _leaves(step.state_specs.params)
+                run["param_err"] = {}
+                for k, v in _leaves(state.params).items():
+                    want = _local_view(ref[k], specs[k], mesh).to(dev)
+                    diff = v.detach() - want
+                    run["param_err"][k] = (
+                        float(diff.abs().max()), float(diff.norm()),
+                        float((want - init[k].to(dev)).norm()))
+                    del want, diff
+                del init
+            out[(strategy, name)] = run
+            del state, step
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_gate(phase: str, strategy: str, what: str, got: list,
+               solo: dict) -> None:
+    """Each step's loss and grad norm against the solo step's (f32: rtol;
+    bf16: the solo bf16 step's distance from the solo f32 step)."""
+    for i, m in enumerate(got):
+        for key, rtol in (("loss", MESH_LOSS_RTOL),
+                          ("grad_norm", MESH_NORM_RTOL)):
+            if what == "f32":
+                want = solo["f32"]["metrics"][i][key]
+                bound = rtol * abs(want)
+            else:
+                want = solo["bf16"]["metrics"][i][key]
+                bound = max(MESH_BF16_FACTOR * abs(
+                    want - solo["f32"]["metrics"][i][key]),
+                    MESH_BF16_FLOOR * abs(want))
+            if not (math.isfinite(m[key]) and abs(m[key] - want) <= bound):
+                raise AssertionError(
+                    f"[{phase}] {strategy} {what} step {i + 1} {key} "
+                    f"{m[key]} against the solo step's {want} (bound "
+                    f"{bound:.3e})")
+        if m["nonfinite"]:
+            raise AssertionError(f"[{phase}] {strategy} {what} step {i + 1} "
+                                 f"skipped")
+
+
+def _mesh_phase(phase: str, mode: str, strategies, world: int,
+                backend: str = "gloo", precisions=("f32", "bf16")) -> dict:
+    """Spawn ``world`` ranks of ``_mesh_train_rank`` (``mode`` "fsdp" on
+    the mesh ``(1, world, 1)``, "ring" on ``(1, 1, world)``) for each
+    strategy in each of ``precisions`` (compute dtypes), gate them against
+    the solo step, print and return rank 0's runs."""
+    import tempfile
+    import torch
+    shape = (1, world, 1) if mode == "fsdp" else (1, 1, world)
+    rows = world if mode == "fsdp" else 1
+    batch = _a_train_batch(torch.Generator(device="cuda").manual_seed(22),
+                           rows, EDIT_L)
+    solo = _mesh_solo(batch, precisions)
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    # the ranks share the card: let their allocators return what they free
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ref = os.path.join(tmp, "solo_f32.pt")
+            torch.save(solo["final"], ref)
+            t0 = time.time()
+            ranks = _run_ranks(phase, _mesh_train_rank, world, backend,
+                               inputs={"shape": shape, "mode": mode,
+                                       "strategies": list(strategies),
+                                       "precisions": list(precisions),
+                                       "batch": tuple(x.cpu()
+                                                      for x in batch),
+                                       "ref": ref}, timeout=900)
+            wall = time.time() - t0
+    finally:
+        if alloc is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    sizes = solo["f32"]["sizes"]
+    n_layers = MESH_LAYERS
+    want = {n: 0 for n in KERNELS}
+    if mode == "fsdp":              # forward + remat recompute, one row
+        want["flash_attention_rope"] = n_layers * 2
+    else:                           # 2g sigma-chunks a layer, no remat
+        want["flash_attention_rope_qonly"] = 2 * world * n_layers
+    for strategy in strategies:
+        for what in precisions:
+            runs = [res[(strategy, what)] for res in ranks]
+            rk = _mesh_reckon(sizes, mode, strategy, world, 1)
+            act = 3 * 4 * EDIT_L * sizes["head"] // 4096
+            r0 = runs[0]
+            step_s = r0["secs"][-1]
+            moved = r0["moved"][-1]
+            xfer = moved.get("seconds", 0.0)
+            if mode == "fsdp":
+                vol = (f"gathers {moved.get('gathered', 0) / 1e9:.3f} GB and "
+                       f"reduce-scatters {moved.get('scattered', 0) / 1e9:.3f}"
+                       f" GB a step through the gather Function")
+            else:
+                vol = (f"sends {moved['sent'] / 1e9:.3f} GB a step in ring "
+                       f"rounds and row gathers")
+            rel = {(r, k): (e[1] / e[2] if e[2] else float(e[1] > 0))
+                   for r, run in enumerate(runs)
+                   for k, e in run.get("param_err", {}).items()}
+            log(f"[{phase}] {MESH_LABEL}. {strategy} {what}, {world} ranks "
+                f"({ranks[0]['backend']}), mesh {shape}: losses "
+                f"{[round(m['loss'], 6) for m in r0['metrics']]} (solo "
+                f"{[round(m['loss'], 6) for m in solo[what]['metrics']]}), "
+                f"grad norms {[round(m['grad_norm'], 6) for m in r0['metrics']]}"
+                f" (solo "
+                f"{[round(m['grad_norm'], 6) for m in solo[what]['metrics']]})"
+                + (f"; parameters against the solo step, largest relative "
+                   f"L2 of a leaf's update {max(rel.values()):.3e} (rank, "
+                   f"leaf {max(rel, key=rel.get)}), largest |diff| "
+                   f"{max(e[0] for run in runs for e in run['param_err'].values()):.3e}"
+                   f"; by leaf (rank 0): " + ", ".join(
+                       f"{k} {e[0]:.2e}/{e[1] / max(e[2], 1e-30):.2e}"
+                       for k, e in r0["param_err"].items())
+                   if what == "f32" else ""))
+            log(f"[{phase}] {strategy} {what}: s/step {[round(s, 3) for s in r0['secs']]}"
+                f" (solo {[round(s, 3) for s in solo[what]['secs']]}); rank 0 "
+                f"{vol}, {xfer:.3f} s in them ({100 * xfer / step_s:.1f} % of "
+                f"the step); peaks by rank "
+                f"{[round(run['peak'] / 2 ** 30, 2) for run in runs]} GiB, "
+                f"sum {sum(run['peak'] for run in runs) / 2 ** 30:.2f} GiB "
+                f"against the reckoning {world} x ({rk['state'] / 2 ** 30:.2f}"
+                f" state + {rk['gathered'] / 2 ** 30:.2f} gathered + "
+                f"~{act / 2 ** 30:.2f} logits) = "
+                f"{world * (rk['state'] + rk['gathered'] + act) / 2 ** 30:.2f}"
+                f" GiB; launches a step a rank {want}")
+            for r, run in enumerate(runs):
+                if any(x != want for x in run["launches"]):
+                    raise AssertionError(
+                        f"[{phase}] {strategy} {what} rank {r} launches "
+                        f"{run['launches']}, expected {want} a step")
+                _mesh_gate(phase, strategy, what, run["metrics"], solo)
+            for (r, k), x in rel.items():
+                if not x <= MESH_PARAM_REL_L2:
+                    raise AssertionError(
+                        f"[{phase}] {strategy} f32 rank {r} parameter {k}: "
+                        f"|diff| from the solo step {x:.3e} of the solo "
+                        f"update (bound {MESH_PARAM_REL_L2})")
+    log(f"[{phase}] {len(strategies)} strategies x {'/'.join(precisions)} in "
+        f"{wall:.1f} s with the spawn and the draws")
+    return {"ranks": ranks, "solo": solo, "batch": batch}
+
+
+def phase_train_a_fsdp() -> dict:
+    """[train-a-fsdp]: ``cli/train_a``'s sharded A step at the 8B widths (2
+    of 32 layers, f32 params, remat, one row of 2424 a data-parallel rank,
+    2 steps), ``full`` on 4 ranks (mesh (1, 4, 1)) in f32 for parity with
+    the solo step and in bf16 for time, then ``zero2`` and ``ddp`` on 2 in
+    f32 (their host-staged gradient syncs make a step 13-30 s on one card,
+    and the script keeps inside its time limit; PERF.md).  Returns rank
+    0's bf16 ``full`` run."""
+    out = _mesh_phase("train-a-fsdp", "fsdp", ("full",), 4)
+    run = out["ranks"][0][("full", "bf16")]
+    del out
+    _mesh_phase("train-a-fsdp", "fsdp", ("zero2", "ddp"), 2,
+                precisions=("f32",))
+    return run
+
+
+def phase_train_a_ring() -> dict:
+    """[train-a-ring]: ``train_a --tp_ring`` at g=2 (mesh (1, 1, 2)) on the
+    same model, one row of 2424 (each rank's K2 at Lq=606 a sigma-chunk
+    half, 16 heads), f32 and bf16, against the solo step.  Returns rank
+    0's bf16 run."""
+    out = _mesh_phase("train-a-ring", "ring", ("full",), 2)
+    return out["ranks"][0][("full", "bf16")]
+
+
+def phase_fsdp_nccl() -> None:
+    """[train-a-fsdp]'s ``full`` case over NCCL, one card a rank, where the
+    machine has two or more cards."""
+    import torch
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"[fsdp-nccl] not run: {n} card visible; NCCL needs one card a "
+            f"rank (two ranks on one device are refused), so FSDP over "
+            f"NCCL across cards is not verified by this run")
+        return
+    _mesh_phase("fsdp-nccl", "fsdp", ("full",), 4 if n >= 4 else 2, "nccl")
+
+
+def _train_m_fsdp_rank(rank, world, workdir):
+    """[train-m-fsdp] on one rank: the small M models from their seeds,
+    ``train_m.build_train_step(..., mesh)`` at ``mesh.fsdp=2`` and
+    ``train_loop`` over the same samples and noising seed as the solo
+    run."""
+    import tempfile
+    import torch
+    from mmada_parallel_torch.cli import train_m as TM
+    from mmada_parallel_torch.parallel import MeshConfig, make_mesh
+    inp = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
+    mesh = make_mesh(MeshConfig(1, world, 1), "cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = _m_cli_cfg(tmp, **inp["cfg"])
+        models = _small_m_models("auto")
+        state, step, sched = TM.build_train_step(models.mcfg, models.params,
+                                                 cfg, mesh)
+        counted, records = _counted_step(step)
+        state, hist = TM.train_loop(
+            cfg, state, counted, inp["samples"], models, sched,
+            torch.Generator(device="cuda").manual_seed(16))
+    return {"history": hist, "records": records}
+
+
+def phase_train_m_fsdp() -> None:
+    """[train-m-fsdp]: ``cli/train_m.train_loop`` with ``mesh.fsdp=2`` on 2
+    ranks, the small f32 M model (2 layers, head_dim 64, the full M vocab)
+    and 2 steps of 2 microbatches of a global batch of 2; every rank
+    assembles the global batch and keeps its rows.  Its losses equal the
+    one-rank run's on the same samples (rtol 1e-5, the grad norm 1e-4)."""
+    import tempfile
+    res, msl = 16, 16
+    kw = dict(steps=2, msl=msl, n_vq=(res // 2) ** 2, res=res, accum=2,
+              **{"training.lr": 1e-3, "training.warmup_steps": 1,
+                 "training.batch_size": 2})
+    samples = _m_samples(8, res)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = _m_cli_cfg(tmp, **kw)
+        models = _small_m_models("auto")
+        _, solo, solo_rec, _ = _train_m_run(cfg, models, samples, 16)
+        n_layers = models.mcfg.n_layers
+        del models
+    t0 = time.time()
+    ranks = _run_ranks("train-m-fsdp", _train_m_fsdp_rank, 2, "gloo",
+                       inputs={"cfg": kw, "samples": samples}, timeout=300)
+    wall = time.time() - t0
+    want = {n: 0 for n in KERNELS}
+    want["flash_attention_rope"] = n_layers * 2 * 2   # 1 row x 2 mb, remat
+    for r, out in enumerate(ranks):
+        if [x for x, _ in out["records"]] != [want] * 2:
+            raise AssertionError(f"[train-m-fsdp] rank {r} launches "
+                                 f"{out['records']}, expected {want} a step")
+        for i, (a, b) in enumerate(zip(out["history"], solo)):
+            for key in M_KEYS:
+                rtol = MESH_NORM_RTOL if key == "grad_norm" else \
+                    MESH_LOSS_RTOL
+                if not abs(a[key] - b[key]) <= rtol * abs(b[key]):
+                    raise AssertionError(
+                        f"[train-m-fsdp] rank {r} step {i + 1} {key} "
+                        f"{a[key]} against the one-rank run's {b[key]} "
+                        f"(rtol {rtol})")
+    h0 = ranks[0]["history"]
+    log(f"[train-m-fsdp] {MESH_LABEL}. train_loop at mesh.fsdp=2, 2 "
+        f"ranks, small f32 M model ({n_layers} layers), global batch 2 x 2 "
+        f"microbatches: losses {[round(h['loss'], 6) for h in h0]} (one "
+        f"rank {[round(h['loss'], 6) for h in solo]}), grad norms "
+        f"{[round(h['grad_norm'], 6) for h in h0]} (one rank "
+        f"{[round(h['grad_norm'], 6) for h in solo]}); K1 {want['flash_attention_rope']} a step a rank; s/step "
+        f"{[round(s, 3) for _, s in ranks[0]['records']]} (one rank "
+        f"{[round(s, 3) for _, s in solo_rec]}); {wall:.1f} s with the "
+        f"spawn")
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     import torch
@@ -4675,7 +5195,7 @@ def main() -> int:
                "flash_attention_rope_qonly": phase_kernel_qonly(),
                "flash_attention": phase_kernel_blhd(),
                "flash_attention_rope_prefix": phase_kernel_prefix()}
-    ring_record = phase_kernel_ring()
+    ring_record, ring_train_record = phase_kernel_ring()
     prefix_launches = phase_prefix_crossover()
     phase_kernel_grads()
     mark("phase 2 (kernels)")
@@ -4724,6 +5244,13 @@ def main() -> int:
     phase_train_m_cli()
     gc.collect()
     torch.cuda.empty_cache()
+    mark("phase 5 (training) up to the mesh")
+    fsdp_run = phase_train_a_fsdp()
+    ring_train_run = phase_train_a_ring()
+    phase_train_m_fsdp()
+    phase_fsdp_nccl()
+    gc.collect()
+    torch.cuda.empty_cache()
     mark("phase 5 (training) up to ParaRL")
     phase_pararl()
     mark("phase 5 (training)")
@@ -4750,6 +5277,16 @@ def main() -> int:
                     "route": "cuda", "source": src, "replaces": replaces,
                     "launches": ring_launches,
                     **{f: ring_record[f] for f in fields}})
+    for name, path, run, record in (
+            ("flash_attention_rope", "train-a-fsdp", fsdp_run,
+             records["flash_attention_rope"]),
+            ("flash_attention_rope_qonly", "train-a-ring", ring_train_run,
+             ring_train_record)):
+        src, replaces = KERNELS[name]
+        kernels.append({"name": f"{name}/{path}", "route": "cuda",
+                        "source": src, "replaces": replaces,
+                        "launches": sum(x[name] for x in run["launches"]),
+                        **{f: record[f] for f in fields}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

@@ -11,8 +11,18 @@ loss, checkpoints, periodic validation generation.
 Counterpart of :mod:`mmada_parallel_tpu.cli.train_m`: the same ``DEFAULTS``,
 command line (``config=`` plus dotted overrides), loop, logging,
 checkpoints and validators, plus a ``device`` key (default ``cuda``; a
-missing card raises).  One device: ``mesh.fsdp``, ``mesh.tensor`` and
-``training.shard_strategy`` raise away from ``1``, ``1`` and ``"full"``.
+missing card raises).  Under ``torchrun`` the ranks form the ``(data,
+fsdp, 1)`` mesh: ``mesh.fsdp`` with ``training.shard_strategy`` (``full``,
+``zero2``, ``ddp``) shards over ``fsdp``, the rest of the world is
+``data``.  As in JAX, ``training.batch_size`` is global: every rank
+assembles the same batch from the same stream and generator and keeps its
+rows of each microbatch; only rank 0 logs and validates, and the checkpoint
+is sharded.  ``mesh.tensor > 1`` (tensor parallelism; the JAX M trainer has
+no ring) raises.
+
+    torchrun --nproc_per_node 2 -m mmada_parallel_torch.cli.train_m \
+        config=configs/train_m.yaml mesh.fsdp=2
+
 The interleave noising draws from one ``torch.Generator`` on the device,
 seeded from ``training.seed``.  The pieces :func:`main` wires together are
 functions of their own, which ``chip_smoke.py`` and the tests call:
@@ -274,13 +284,19 @@ def _validate_chat(params, mcfg, tokenizer, cfg, step):
     print(f"[validate_chat] step {step}: {len(rows)} prompts")
 
 
-def _check_one_device(cfg) -> None:
-    if (cfg.mesh.fsdp != 1 or cfg.mesh.tensor != 1
-            or cfg.training.get("shard_strategy", "full") != "full"):
+def _check_mesh(cfg, world: int) -> None:
+    strategy = cfg.training.get("shard_strategy", "full")
+    if strategy not in ("full", "zero2", "ddp"):
+        raise SystemExit(f"unknown shard_strategy: {strategy} (full, zero2 "
+                         f"or ddp)")
+    if cfg.mesh.tensor != 1:
         raise SystemExit(
-            "mesh.fsdp, mesh.tensor and training.shard_strategy need "
-            "multi-GPU training, which is not ported yet (ROADMAP.md Queue "
-            "1, item 16b): leave them at 1, 1 and 'full'")
+            "mesh.tensor > 1 is plain Megatron tensor parallelism in "
+            "training, which is not ported (ROADMAP Queue 1, item 16b.11); "
+            "the JAX M trainer has no ring")
+    if world == 1 and cfg.mesh.fsdp != 1:
+        raise SystemExit("mesh.fsdp > 1 needs the ranks of a torchrun "
+                         "world (one process has one device)")
 
 
 def _device(name: str):
@@ -337,10 +353,12 @@ def build_models(cfg, device) -> Models:
     return Models(mcfg, params, tokenizer, vq_cfg, vq_params)
 
 
-def make_loss_fn(mcfg, cfg):
+def make_loss_fn(mcfg, cfg, dp_groups=(), gather=None):
     """``loss_fn(params, batch, generator) -> (loss, {text_loss,
     image_loss})``: the full forward with the key-padding mask and
-    :func:`m_interleave_loss` on ``batch = (ids, labels, mask, t)``."""
+    :func:`m_interleave_loss` on ``batch = (ids, labels, mask, t)``; over a
+    mesh with the global denominators of ``dp_groups`` and the FSDP
+    parameter hook ``gather``."""
     from mmada_parallel_torch.models.llada import llada_forward
     from mmada_parallel_torch.training.losses import m_interleave_loss
     tr = cfg.training
@@ -349,20 +367,26 @@ def make_loss_fn(mcfg, cfg):
 
     def loss_fn(p, batch, generator):
         ids, labels, mask, t = batch
-        logits = llada_forward(p, mcfg, ids, mask.bool())
+        logits = llada_forward(p, mcfg, ids, mask.bool(), gather=gather)
         out = m_interleave_loss(logits, labels, t, msl, n_vq,
-                                tr.text_coeff, tr.image_coeff)
+                                tr.text_coeff, tr.image_coeff,
+                                dp_groups=dp_groups)
         return out["loss"], {"text_loss": out["text_loss"],
                              "image_loss": out["image_loss"]}
 
     return loss_fn
 
 
-def build_train_step(mcfg, params, cfg):
+def build_train_step(mcfg, params, cfg, mesh=None, tally=None):
     """``(state, step, schedule)`` of the recipe: :func:`make_loss_fn`,
     AdamW (betas 0.9 / 0.999, no decay on 1-D params) behind the
     global-norm clip, the ``training.scheduler`` schedule, gradients
-    accumulated over ``gradient_accumulation_steps`` microbatches."""
+    accumulated over ``gradient_accumulation_steps`` microbatches.
+
+    With a ``mesh`` the state holds this rank's slices under
+    ``training.shard_strategy`` and ``step`` takes the *global* batch and
+    keeps this rank's rows of each microbatch (``local_rows``); its spec
+    tree is ``step.state_specs``, and ``tally`` counts the FSDP gathers."""
     from mmada_parallel_torch.training.lr_schedules import get_scheduler
     from mmada_parallel_torch.training.trainer import (OptimizerConfig,
                                                        TrainState,
@@ -371,12 +395,37 @@ def build_train_step(mcfg, params, cfg):
     tr = cfg.training
     sched = get_scheduler(tr.scheduler, tr.lr, tr.warmup_steps,
                           tr.max_train_steps)
+    strategy = tr.get("shard_strategy", "full")
     opt = make_optimizer(OptimizerConfig(
         lr=tr.lr, weight_decay=tr.weight_decay, b1=0.9, b2=0.999,
-        grad_clip=tr.max_grad_norm, schedule=sched), params)
-    step = make_train_step(make_loss_fn(mcfg, cfg), opt,
-                           accum_steps=tr.gradient_accumulation_steps)
-    return TrainState.create(params, opt), step, sched
+        grad_clip=tr.max_grad_norm, schedule=sched,
+        shard_strategy=strategy), params)
+    accum = tr.gradient_accumulation_steps
+    if mesh is None:
+        step = make_train_step(make_loss_fn(mcfg, cfg), opt,
+                               accum_steps=accum)
+        return TrainState.create(params, opt), step, sched
+
+    from mmada_parallel_torch.models.llada import param_shardings
+    from mmada_parallel_torch.parallel.fsdp import FsdpGather
+    from mmada_parallel_torch.parallel.mesh import dp_groups, local_rows
+    from mmada_parallel_torch.training.trainer import (
+        create_sharded_state, make_sharded_train_step, state_shardings)
+    state, p_specs, o_specs = create_sharded_state(
+        params, opt, param_shardings(mcfg), mesh, strategy)
+    inner = make_sharded_train_step(
+        make_loss_fn(mcfg, cfg, dp_groups(mesh),
+                     FsdpGather(mesh, p_specs, tally)),
+        opt, mesh, p_specs, o_specs, accum_steps=accum)
+
+    def step(state, batch, generator=None):
+        return inner(state, local_rows(batch, mesh, accum), generator)
+
+    step.state_specs = state_shardings(state.params, state.opt_state,
+                                       p_specs, o_specs, mesh)
+    step.param_specs = p_specs
+    step.mesh = mesh
+    return state, step, sched
 
 
 def assemble_batch(group, get_code, tokenizer, up, generator, cfg, device):
@@ -448,9 +497,19 @@ def train_loop(cfg, state, step, samples, models: Models, sched,
     from mmada_parallel_torch.data.prompting import UniversalPrompting
     from mmada_parallel_torch.utils.logging import MetricLogger
 
+    import torch.distributed as dist
     tr = cfg.training
     tokenizer = models.tokenizer
     device = state.params["wte"].device
+    mesh = getattr(step, "mesh", None)
+    is_main = mesh is None or dist.get_rank() == 0
+
+    def whole(params):          # every rank gathers, rank 0 validates
+        if mesh is None:
+            return params
+        from mmada_parallel_torch.parallel.fsdp import whole_params
+        return whole_params(params, step.param_specs, mesh)
+
     up = None
     if tokenizer is not None:
         up = UniversalPrompting(
@@ -477,23 +536,30 @@ def train_loop(cfg, state, step, samples, models: Models, sched,
             if global_step % tr.log_every == 0:
                 if writer is not None:
                     writer.write(global_step, scalars)
-                print(f"step {global_step}: {logger}")
+                if is_main:
+                    print(f"step {global_step}: {logger}")
             if mngr is not None and global_step % tr.save_every == 0:
                 mngr.save(global_step, state, {"step": global_step})
             if (tr.generate_every and tokenizer is not None
                     and global_step % tr.generate_every == 0):
                 # periodic validation generation (train_interleave.py:950-964)
-                _validate(state.params, models.mcfg, models.vq_params,
-                          models.vq_cfg, tokenizer, group[0], cfg,
-                          global_step)
+                params = whole(state.params)
+                if is_main:
+                    _validate(params, models.mcfg, models.vq_params,
+                              models.vq_cfg, tokenizer, group[0], cfg,
+                              global_step)
             if (tr.get("validate_mmu_every", 0) and tokenizer is not None
                     and global_step % tr.validate_mmu_every == 0):
-                _validate_mmu(state.params, models.mcfg, models.get_code,
-                              tokenizer, cfg, global_step)
+                params = whole(state.params)
+                if is_main:
+                    _validate_mmu(params, models.mcfg, models.get_code,
+                                  tokenizer, cfg, global_step)
             if (tr.get("validate_chat_every", 0) and tokenizer is not None
                     and global_step % tr.validate_chat_every == 0):
-                _validate_chat(state.params, models.mcfg, tokenizer, cfg,
-                               global_step)
+                params = whole(state.params)
+                if is_main:
+                    _validate_chat(params, models.mcfg, tokenizer, cfg,
+                                   global_step)
             if global_step >= tr.max_train_steps:
                 break
         if epoch_steps == 0:
@@ -521,20 +587,42 @@ def main(argv=None):
         else:
             overrides.append(a)
     cfg = load_config(path, overrides, DEFAULTS)
-    _check_one_device(cfg)
     device = _device(cfg.device)
+    import torch.distributed as dist
+    from mmada_parallel_torch.parallel.mesh import (MeshConfig,
+                                                    init_distributed,
+                                                    make_mesh)
+    init_distributed(backend="gloo" if device.type == "cpu" else None)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    _check_mesh(cfg, world)
+    mesh = None
+    if world > 1:
+        if (device.type == "cuda" and device.index is None
+                and dist.get_backend() == "nccl"):
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
+                                                             0)))
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        mesh = make_mesh(MeshConfig(data=-1, fsdp=cfg.mesh.fsdp, tensor=1),
+                         device.type)
+    is_main = mesh is None or dist.get_rank() == 0
     tr = cfg.training
     os.makedirs(cfg.output_dir, exist_ok=True)
 
     models = build_models(cfg, device)
-    state, step, sched = build_train_step(models.mcfg, models.params, cfg)
-    mngr = CheckpointManager(os.path.join(cfg.output_dir, "ckpt"))
+    state, step, sched = build_train_step(models.mcfg, models.params, cfg,
+                                          mesh)
+    mngr = CheckpointManager(os.path.join(cfg.output_dir, "ckpt"),
+                             mesh=mesh,
+                             specs=getattr(step, "state_specs", None))
     restored, meta, last = mngr.restore(state)
     if restored is not None:
         state = restored
-        print(f"[resume] step {last}")
+        if is_main:
+            print(f"[resume] step {last}")
     wandb_cfg = cfg.get("wandb", {}) or {}
-    writer = ScalarWriter(os.path.join(cfg.output_dir, "tb"), is_main=True,
+    writer = ScalarWriter(os.path.join(cfg.output_dir, "tb"),
+                          is_main=is_main,
                           wandb_project=wandb_cfg.get("project"),
                           wandb_run_name=wandb_cfg.get("run_name"),
                           wandb_config=dict(cfg))
@@ -553,7 +641,8 @@ def main(argv=None):
     mngr.save(state.step, state, {"step": state.step})
     mngr.wait()
     writer.close()
-    print(f"[done] {state.step} steps")
+    if is_main:
+        print(f"[done] {state.step} steps")
 
 
 if __name__ == "__main__":

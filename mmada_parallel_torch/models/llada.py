@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -346,7 +346,9 @@ def _block(x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: LLaDAConfig,
 def llada_hidden(params: Dict[str, Any], cfg: LLaDAConfig,
                  input_ids: torch.Tensor,
                  attn_mask: Optional[torch.Tensor] = None,
-                 position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 position_ids: Optional[torch.Tensor] = None,
+                 gather: Optional[Callable[[str, Any], Any]] = None
+                 ) -> torch.Tensor:
     """Backbone only: ``[B, L]`` ids -> ``[B, L, d_model]`` hidden states
     after ``ln_f``.
 
@@ -358,7 +360,13 @@ def llada_hidden(params: Dict[str, Any], cfg: LLaDAConfig,
     ``cfg.remat``: ``whole_layer`` recomputes each layer in backward;
     ``one_in_{two,three,four}`` checkpoints only every k-th layer boundary
     (groups of k layers recompute together) and needs ``n_layers``
-    divisible by k."""
+    divisible by k.
+
+    ``gather(name, x)``, where given, turns this rank's shards into the
+    whole parameters (:class:`~mmada_parallel_torch.parallel.fsdp.
+    FsdpGather`): ``wte`` and ``ln_f`` once a forward, each layer's dict
+    (``name="blocks"``) where the layer runs, so a remat recompute gathers
+    again."""
     group = _REMAT_GROUPS.get(cfg.remat)
     if group is None:
         raise ValueError(f"unknown remat strategy: {cfg.remat}")
@@ -368,7 +376,7 @@ def llada_hidden(params: Dict[str, Any], cfg: LLaDAConfig,
             f"(got {cfg.n_layers}); use 'whole_layer' instead")
     cdt = cfg.compute_dtype
     B, L = input_ids.shape
-    wte = params["wte"]
+    wte = params["wte"] if gather is None else gather("wte", params["wte"])
     ids = input_ids.long().clamp(0, wte.shape[0] - 1)
     x = F.embedding(ids, wte).to(cdt)
     if cfg.input_emb_norm:
@@ -387,7 +395,10 @@ def llada_hidden(params: Dict[str, Any], cfg: LLaDAConfig,
 
     def layers(x, start: int, stop: int):
         for i in range(start, stop):
-            x = _block(x, _layer(blocks, i), cfg, sin, cos, attn_bias)
+            lp = _layer(blocks, i)
+            if gather is not None:
+                lp = gather("blocks", lp)
+            x = _block(x, lp, cfg, sin, cos, attn_bias)
         return x
 
     step = max(group, 1)
@@ -397,7 +408,9 @@ def llada_hidden(params: Dict[str, Any], cfg: LLaDAConfig,
             x = layers(x, start, stop)
         else:
             x = checkpoint(layers, x, start, stop, use_reentrant=False)
-    return _norm(x, params["ln_f"], cfg)
+    ln_f = params["ln_f"] if gather is None else gather("ln_f",
+                                                         params["ln_f"])
+    return _norm(x, ln_f, cfg)
 
 
 # layers per checkpointed group (0: no checkpointing), as in the JAX package
@@ -437,7 +450,9 @@ class _Bf16Head(torch.autograd.Function):
 def llada_head(params: Dict[str, Any], cfg: LLaDAConfig,
                hidden: torch.Tensor,
                vocab_slice: Optional[Tuple[int, int]] = None,
-               logits_dtype=torch.float32) -> torch.Tensor:
+               logits_dtype=torch.float32,
+               gather: Optional[Callable[[str, Any], Any]] = None
+               ) -> torch.Tensor:
     """Vocab projection ``[..., d_model] -> [..., V]``; ``vocab_slice=
     (start, size)`` projects onto that slice of the vocab only.  The product
     accumulates in ``logits_dtype`` (the JAX ``preferred_element_type``).
@@ -446,8 +461,11 @@ def llada_head(params: Dict[str, Any], cfg: LLaDAConfig,
     operands are upcast, which forms the same products (exact for bf16
     values) in f32.  A W8A8 head (a quantized-weight dict) takes the int8
     product, with ``vocab_slice`` slicing its ``w_q`` and ``scale`` columns
-    alike, rescaled straight into ``logits_dtype``."""
-    head = params["wte"].T if cfg.weight_tying else params["head"]
+    alike, rescaled straight into ``logits_dtype``.  ``gather``: as in
+    :func:`llada_hidden`, applied to the head once."""
+    name = "wte" if cfg.weight_tying else "head"
+    head = params[name] if gather is None else gather(name, params[name])
+    head = head.T if cfg.weight_tying else head
 
     def cols(w):
         if vocab_slice is None:
@@ -472,10 +490,14 @@ def llada_head(params: Dict[str, Any], cfg: LLaDAConfig,
 def llada_forward(params: Dict[str, Any], cfg: LLaDAConfig,
                   input_ids: torch.Tensor,
                   attn_mask: Optional[torch.Tensor] = None,
-                  logits_dtype=torch.float32) -> torch.Tensor:
-    """Full-sequence forward: ``[B, L]`` ids -> ``[B, L, emb_size]`` logits."""
-    hidden = llada_hidden(params, cfg, input_ids, attn_mask)
-    return llada_head(params, cfg, hidden, logits_dtype=logits_dtype)
+                  logits_dtype=torch.float32,
+                  gather: Optional[Callable[[str, Any], Any]] = None
+                  ) -> torch.Tensor:
+    """Full-sequence forward: ``[B, L]`` ids -> ``[B, L, emb_size]`` logits.
+    ``gather``: the FSDP parameter hook of :func:`llada_hidden`."""
+    hidden = llada_hidden(params, cfg, input_ids, attn_mask, gather=gather)
+    return llada_head(params, cfg, hidden, logits_dtype=logits_dtype,
+                      gather=gather)
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,13 @@
 workdir)``: CPU ranks on gloo with one thread each, or CUDA ranks (on gloo
 every rank on ``cuda:0``, on NCCL rank ``r`` on ``cuda:r``).  Each rank's
 result, or its traceback, lands in the working directory, and ``join()``
-collects them, killing what outlives its deadline.  The rings of
-``chip_smoke.py`` and of the port's tests start this way.
+collects them, killing what outlives its deadline.  A rank that returns
+waits at a barrier for its peers before it leaves the group, so none closes
+its sockets while a peer is still setting up a group of the mesh; a rank
+that raised skips it, and its peers leave at their deadline (or when its
+sockets close) with their results.  The rings
+and sharded trainers of ``chip_smoke.py`` and of the port's tests start this
+way.
 
 ``fn`` must be a module-level function: spawned children re-import its
 module to find it.
@@ -15,7 +20,9 @@ module to find it.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
+import sys
 import time
 import traceback
 from typing import Any, Callable, List, Optional
@@ -37,7 +44,18 @@ class RankOutcome:
     error: Optional[str] = None
 
 
-def _rank_entry(fn, rank, world, workdir, backend, device_type):
+def _teardown_barrier(backend: str, deadline: float) -> None:
+    """Wait for every rank of the default group, at most until
+    ``deadline`` (``time.time()``); on gloo ``monitored_barrier`` names the
+    ranks that never came."""
+    if backend == "gloo":
+        left = max(deadline - time.time(), 1.0)
+        dist.monitored_barrier(timeout=datetime.timedelta(seconds=left))
+    else:
+        dist.barrier()
+
+
+def _rank_entry(fn, rank, world, workdir, backend, device_type, deadline):
     if device_type == "cuda":
         torch.cuda.set_device(rank if backend == "nccl" else 0)
     else:
@@ -47,6 +65,14 @@ def _rank_entry(fn, rank, world, workdir, backend, device_type):
         init_distributed(f"file://{workdir}/rdv", world, rank, backend)
         out = fn(rank, world, workdir)
         torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+        # a rank whose fn raised never gets here: its peers' barrier fails
+        # at the deadline (or when the gone rank's sockets close), and the
+        # rank that raised is the one reported
+        try:
+            _teardown_barrier(backend, deadline)
+        except RuntimeError as e:
+            sys.stderr.write(f"rank {rank}: a peer never reached the "
+                             f"teardown barrier: {str(e)[:200]}\n")
     except BaseException:
         with open(os.path.join(workdir, f"rank{rank}.err"), "w") as f:
             f.write(traceback.format_exc())
@@ -66,12 +92,13 @@ def spawn_ranks(fn: Callable, world: int, workdir, backend: str = "gloo",
     import torch.multiprocessing as mp
     workdir = str(workdir)
     ctx = mp.get_context("spawn")
+    deadline = time.time() + timeout
     procs = [ctx.Process(target=_rank_entry,
-                         args=(fn, r, world, workdir, backend, device_type))
+                         args=(fn, r, world, workdir, backend, device_type,
+                               deadline))
              for r in range(world)]
     for p in procs:
         p.start()
-    deadline = time.time() + timeout
 
     def join() -> List[RankOutcome]:
         try:

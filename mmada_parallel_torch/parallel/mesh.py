@@ -1,5 +1,5 @@
-"""Device mesh, parameter placement and distributed start-up on
-``torch.distributed``: the serving half of
+"""Device mesh, parameter and optimizer-state placement and distributed
+start-up on ``torch.distributed``: the counterpart of
 :mod:`mmada_parallel_tpu.parallel.mesh`.
 
 One :class:`~torch.distributed.device_mesh.DeviceMesh` with the JAX axes
@@ -11,8 +11,11 @@ coordinates on the mesh, and the ring tensor parallelism of
 with explicit point-to-point rounds on the ``tensor`` axis's process group
 (``mesh.get_group("tensor")``).
 
-The training half of the JAX module (the batch sharding, ZeRO's
-optimizer-state specs) is not ported yet.
+The training half gives the same spec trees as JAX: :func:`batch_sharding`
+(rows over ``data`` x ``fsdp``), :func:`drop_axis` (ZeRO-2's replicated
+parameters), :func:`opt_state_specs` / :func:`shard_opt_state` (optimizer
+state placed like its parameters).  The collectives FSDP needs are written
+out in :mod:`mmada_parallel_torch.parallel.fsdp`.
 """
 
 from __future__ import annotations
@@ -25,7 +28,9 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["AXES", "MeshConfig", "PartitionSpec", "make_mesh",
-           "shard_params", "init_distributed"]
+           "shard_params", "init_distributed", "replicated",
+           "batch_sharding", "drop_axis", "opt_state_specs",
+           "shard_opt_state", "local_rows", "dp_coordinate", "dp_groups"]
 
 AXES = ("data", "fsdp", "tensor")
 
@@ -72,7 +77,8 @@ def make_mesh(cfg: MeshConfig = MeshConfig(), device_type: str = "cuda"):
                             mesh_dim_names=AXES)
 
 
-def _local_slice(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+def _local_view(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of ``t`` under ``spec`` as a view (no copy)."""
     for dim, entry in enumerate(spec):
         if entry is None:
             continue
@@ -86,7 +92,22 @@ def _local_slice(t: torch.Tensor, spec, mesh) -> torch.Tensor:
                              f"not split into {n} over {names}")
         step = t.shape[dim] // n
         t = t.narrow(dim, idx * step, step)
-    return t.clone(memory_format=torch.contiguous_format)
+    return t
+
+
+def _local_slice(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    return _local_view(t, spec, mesh).clone(
+        memory_format=torch.contiguous_format)
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, PartitionSpec)
+
+
+def _map_specs(fn, specs):
+    if isinstance(specs, dict):
+        return {k: _map_specs(fn, v) for k, v in specs.items()}
+    return fn(specs)
 
 
 def shard_params(params: Any, specs: Any, mesh) -> Any:
@@ -96,6 +117,98 @@ def shard_params(params: Any, specs: Any, mesh) -> Any:
     if isinstance(params, dict):
         return {k: shard_params(v, specs[k], mesh) for k, v in params.items()}
     return _local_slice(params, specs, mesh)
+
+
+def replicated(mesh=None) -> PartitionSpec:
+    """A leaf kept whole on every rank."""
+    return PartitionSpec()
+
+
+def batch_sharding(mesh=None) -> PartitionSpec:
+    """The batch dimension split over ``data`` x ``fsdp`` (data major):
+    parameters shard on ``fsdp`` and rows on both data-parallel axes, so
+    the ranks of one ``tensor`` ring hold the same rows."""
+    return PartitionSpec(("data", "fsdp"))
+
+
+def dp_coordinate(mesh) -> tuple:
+    """``(index, size)`` of this rank on the data-parallel axes ``data`` x
+    ``fsdp`` (data major): which share of a batch's rows it holds."""
+    shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return (mesh.get_local_rank("data") * shape["fsdp"]
+            + mesh.get_local_rank("fsdp"), shape["data"] * shape["fsdp"])
+
+
+def dp_groups(mesh) -> list:
+    """The process groups of the data-parallel axes with more than one
+    rank, data first: what a loss's global denominators sum over."""
+    shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return [mesh.get_group(a) for a in ("data", "fsdp") if shape[a] > 1]
+
+
+def local_rows(batch: Any, mesh, accum_steps: int = 1) -> Any:
+    """This rank's rows of a global batch under :func:`batch_sharding`:
+    each of the ``accum_steps`` microbatches (the leading dim is
+    ``accum_steps * microbatch``) split over ``data`` x ``fsdp``, and the
+    rank's shares of the microbatches stacked again in order."""
+    idx, n = dp_coordinate(mesh)
+
+    def rows(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        mb = x.reshape((accum_steps, -1) + tuple(x.shape[1:]))
+        if mb.shape[1] % n:
+            raise ValueError(f"a microbatch of {mb.shape[1]} rows does not "
+                             f"split over {n} data-parallel ranks")
+        step = mb.shape[1] // n
+        return mb[:, idx * step:(idx + 1) * step].reshape(
+            (-1,) + tuple(x.shape[1:]))
+
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(rows(x) for x in batch)
+    if isinstance(batch, dict):
+        return {k: rows(v) for k, v in batch.items()}
+    return rows(batch)
+
+
+def drop_axis(specs: Any, axis: str) -> Any:
+    """``axis`` replaced by ``None`` in every :class:`PartitionSpec` (ZeRO-2:
+    parameters whole over ``fsdp`` while the optimizer state keeps the
+    original specs).  As in JAX, an entry naming several axes is kept."""
+    return _map_specs(lambda s: PartitionSpec(
+        *(None if a == axis else a for a in s)), specs)
+
+
+def _same_structure(a: Any, b: Any) -> bool:
+    if isinstance(a, dict) and isinstance(b, dict):
+        return set(a) == set(b) and all(_same_structure(a[k], b[k])
+                                        for k in a)
+    return not isinstance(a, dict) and not isinstance(b, dict)
+
+
+def opt_state_specs(opt_state: Any, params: Any, param_specs: Any) -> Any:
+    """The :class:`PartitionSpec` tree of an optimizer state: subtrees
+    shaped like ``params`` (AdamW's ``mu``/``nu``, Lion's ``mu``) get
+    ``param_specs``; every other leaf (the update count) is whole."""
+    if isinstance(opt_state, dict):
+        if _same_structure(opt_state, params) and isinstance(params, dict):
+            return param_specs
+        return {k: opt_state_specs(v, params, param_specs)
+                for k, v in opt_state.items()}
+    return PartitionSpec()
+
+
+def shard_opt_state(opt_state: Any, params: Any, param_specs: Any,
+                    mesh) -> Any:
+    """This rank's slice of every tensor of a whole optimizer state, per
+    :func:`opt_state_specs`; other leaves pass through."""
+    specs = opt_state_specs(opt_state, params, param_specs)
+
+    def cut(x, s):
+        if isinstance(x, dict):
+            return {k: cut(v, s[k]) for k, v in x.items()}
+        return _local_slice(x, s, mesh) if isinstance(x, torch.Tensor) else x
+    return cut(opt_state, specs)
 
 
 def init_distributed(coordinator: Optional[str] = None,

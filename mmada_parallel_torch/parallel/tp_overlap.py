@@ -50,6 +50,13 @@ the ``tensor`` group, so the port has no counterpart.
 Scope as in JAX: the ``llama`` block, MHA or GQA with head counts dividing
 ``g``, no padding mask or position ids (the servers' exact-length batching
 never pads), ``fsdp == 1``.
+
+Training runs through the same functions: where a gradient is recorded a
+ring round is an autograd Function whose backward permutes the other way
+(:class:`_RingRound`), and the final gather's backward takes this rank's
+slice (:class:`_GatherRows`).  Which gradients are then summed over which
+groups is the sharded train step's rule
+(``training/trainer.py:_ring_syncs``).
 """
 
 from __future__ import annotations
@@ -81,15 +88,9 @@ def _host_staged(group, t: torch.Tensor) -> bool:
     return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
-def ring_permute(xs: Sequence[torch.Tensor], directions: Sequence[int],
-                 group=None) -> Callable[[], List[torch.Tensor]]:
-    """Post one ring round on ``group``: ``xs[i]`` goes to the next rank
-    of the +ring (``directions[i] == 1``) or of the -ring (``-1``), and its
-    replacement comes from the rank before.  All sends and receives of the
-    round go in one ``dist.batch_isend_irecv``, so both directions are in
-    flight at once.  Returns ``wait()``, which completes the round and
-    gives the received tensors, on ``xs``' devices."""
-    group = group if group is not None else dist.group.WORLD
+def _post_round(xs: Sequence[torch.Tensor], directions: Sequence[int],
+                group) -> Callable[[], List[torch.Tensor]]:
+    """Post one ring round (see :func:`ring_permute`); returns ``wait()``."""
     g, r = dist.get_world_size(group), dist.get_rank(group)
     fwd, bwd = _perms(g)
     ops, bufs = [], []
@@ -114,6 +115,42 @@ def ring_permute(xs: Sequence[torch.Tensor], directions: Sequence[int],
         return [b.to(x.device) for b, x in zip(bufs, xs)]
 
     return wait
+
+
+class _RingRound(torch.autograd.Function):
+    """One ring round with a gradient: the forward completes the round;
+    the backward sends each received tensor's gradient back the way it
+    came (the +ring's to the previous rank, the -ring's to the next)."""
+
+    @staticmethod
+    def forward(ctx, group, directions, *xs):
+        ctx.group, ctx.directions = group, directions
+        return tuple(_post_round(xs, directions, group)())
+
+    @staticmethod
+    def backward(ctx, *grads):
+        back = [-d for d in ctx.directions]
+        return (None, None) + tuple(_post_round(grads, back, ctx.group)())
+
+
+def ring_permute(xs: Sequence[torch.Tensor], directions: Sequence[int],
+                 group=None) -> Callable[[], List[torch.Tensor]]:
+    """Post one ring round on ``group``: ``xs[i]`` goes to the next rank
+    of the +ring (``directions[i] == 1``) or of the -ring (``-1``), and its
+    replacement comes from the rank before.  All sends and receives of the
+    round go in one ``dist.batch_isend_irecv``, so both directions are in
+    flight at once.  Returns ``wait()``, which completes the round and
+    gives the received tensors, on ``xs``' devices.
+
+    Where a gradient is recorded (grad mode on and an input that requires
+    it) the round is :class:`_RingRound`, completed before this returns:
+    training gives up the round's overlap with the products, serving keeps
+    it."""
+    group = group if group is not None else dist.group.WORLD
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        out = _RingRound.apply(group, tuple(directions), *xs)
+        return lambda: list(out)
+    return _post_round(xs, directions, group)
 
 
 def sigma_positions(g: int, C: int, r: int, device=None) -> torch.Tensor:
@@ -319,16 +356,35 @@ def _stack_tp(x, blocks, sin, cos, cfg, g, group=None, int8_payload=False,
     return x
 
 
+def _all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    from mmada_parallel_torch.parallel.fsdp import all_gather_dim
+    return all_gather_dim(x, 0, group).reshape(dist.get_world_size(group),
+                                               *x.shape)
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every rank goes on with the same gathered tensor and computes the
+    same head and loss from it, so each rank's gradient of the gathered
+    tensor is already the whole gradient: the backward takes this rank's
+    own slice (a reduce-scatter with a sum would count it ``g`` times)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.rank = dist.get_rank(group)
+        return _all_gather_rows(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[ctx.rank], None
+
+
 def _gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     """``[n, *rest]`` on each of the group's ``g`` ranks -> ``[g, n,
-    *rest]``, rank order, on every rank."""
-    g = dist.get_world_size(group)
-    src = (x.to("cpu", memory_format=torch.contiguous_format)
-           if _host_staged(group, x) else x.contiguous())
-    out = torch.empty((g * src.shape[0],) + tuple(src.shape[1:]),
-                      dtype=src.dtype, device=src.device)
-    dist.all_gather_into_tensor(out, src, group=group)
-    return out.to(x.device).reshape(g, *x.shape)
+    *rest]``, rank order, on every rank (:class:`_GatherRows` where a
+    gradient is recorded)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GatherRows.apply(x, group)
+    return _all_gather_rows(x, group)
 
 
 def check_ring_input(cfg, mesh, batch: int, length: int,

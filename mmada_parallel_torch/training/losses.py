@@ -12,15 +12,23 @@ Counterpart of :mod:`mmada_parallel_tpu.training.losses`:
   positions weighted ``1 / p_mask`` and ``1 / answer_length``.
 
 Every CE is computed in f32.
+
+Data parallelism: the JAX losses see the whole global batch.  Here each
+rank sees its own rows, so a loss that takes ``dp_groups`` (the process
+groups its batch is split over, data major) divides its rank's numerator by
+the *global* denominator (token or row counts summed over the groups, with
+no gradient): the ranks' losses, and their gradients, then sum to the
+whole-batch loss and gradient, whatever each rank's token count.  With no
+groups every loss is the one-device loss.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["token_cross_entropy", "masked_mean", "a_variant_losses",
+__all__ = ["token_cross_entropy", "masked_mean", "global_sum", "a_variant_losses",
            "m_interleave_loss", "m_forward_process_losses",
            "soft_target_cross_entropy", "masking_loss_weight"]
 
@@ -67,8 +75,23 @@ def token_cross_entropy(logits: torch.Tensor,
     return torch.where(valid, lse - sel, 0.0)
 
 
-def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    n = mask.sum()
+def global_sum(x: torch.Tensor, dp_groups: Sequence = ()) -> torch.Tensor:
+    """``x`` summed over every rank of ``dp_groups``, with no gradient (a
+    denominator; the identity with no groups)."""
+    if not dp_groups:
+        return x
+    from mmada_parallel_torch.parallel.fsdp import all_reduce_
+    x = x.detach().clone()
+    for group in dp_groups:
+        all_reduce_(x, group)
+    return x
+
+
+def masked_mean(values: torch.Tensor, mask: torch.Tensor,
+                dp_groups: Sequence = ()) -> torch.Tensor:
+    """Mean of ``values`` where ``mask`` holds (0 when it holds nowhere);
+    over ``dp_groups`` this rank's share of the global mean."""
+    n = global_sum(mask.sum(), dp_groups)
     return torch.where(n > 0, (values * mask).sum() / n.clamp_min(1),
                        torch.zeros((), device=values.device))
 
@@ -88,17 +111,19 @@ def a_variant_losses(logits: torch.Tensor, input_ids: torch.Tensor,
                      image_start_token: int = 126349,
                      image_end_token: int = 126350,
                      newline_token: int = 126084,
-                     debug_stats: bool = False) -> Dict[str, torch.Tensor]:
+                     debug_stats: bool = False,
+                     dp_groups: Sequence = ()) -> Dict[str, torch.Tensor]:
     """``{loss, interleave_loss, text_loss, image_loss}``.
 
     ``lengths``: true (unpadded) lengths, the fallback end of an answer with
     no ``<answer_end>``.  ``debug_stats`` adds per-region token counts and
-    CE min/max."""
+    CE min/max (of this rank's rows).  ``dp_groups``: the means' token
+    counts are global (module docstring)."""
     B, L = input_ids.shape
     dev = input_ids.device
     ce = token_cross_entropy(logits, labels)
     valid = labels != -100
-    interleave = masked_mean(ce, valid)
+    interleave = masked_mean(ce, valid, dp_groups)
 
     pos = torch.arange(L, device=dev)[None, :]
     if lengths is None:
@@ -133,11 +158,14 @@ def a_variant_losses(logits: torch.Tensor, input_ids: torch.Tensor,
                    & (pos > ans_start[:, None]) & (pos < ans_end[:, None]))
     text_region = (text_with_img | text_no_img) & valid
 
-    text_loss = masked_mean(ce, text_region)
-    image_loss = masked_mean(ce, img_region)
+    text_loss = masked_mean(ce, text_region, dp_groups)
+    image_loss = masked_mean(ce, img_region, dp_groups)
     if t is not None:
-        text_loss = torch.where(text_region.sum() > 0,
-                                text_loss / t.mean().clamp_min(0.01),
+        t_mean = t.mean() if not dp_groups else global_sum(
+            t.sum(), dp_groups) / global_sum(
+                torch.tensor(t.numel(), device=dev), dp_groups)
+        text_loss = torch.where(global_sum(text_region.sum(), dp_groups) > 0,
+                                text_loss / t_mean.clamp_min(0.01),
                                 text_loss)
 
     out = {"loss": interleave, "interleave_loss": interleave,
@@ -156,15 +184,20 @@ def a_variant_losses(logits: torch.Tensor, input_ids: torch.Tensor,
 def m_interleave_loss(logits: torch.Tensor, labels: torch.Tensor,
                       t: torch.Tensor, max_seq_length: int,
                       num_vq_tokens: int, text_coeff: float = 1.0,
-                      image_coeff: float = 1.0) -> Dict[str, torch.Tensor]:
+                      image_coeff: float = 1.0,
+                      dp_groups: Sequence = ()) -> Dict[str, torch.Tensor]:
     """The M interleave loss over fixed tail slices: the last
     ``max_seq_length`` positions are text (CE / t), the ``num_vq_tokens + 2``
-    before them the image span."""
+    before them the image span.  The text term sums over the batch, the
+    image term averages; over ``dp_groups`` the average divides by the
+    global row count (module docstring)."""
     ce = token_cross_entropy(logits, labels)
     text_ce = ce[:, -max_seq_length:] / t[:, None]
     text_loss = text_ce.sum() / max_seq_length
-    image_loss = ce[:, -max_seq_length - num_vq_tokens - 2:
-                    -max_seq_length].mean()
+    image = ce[:, -max_seq_length - num_vq_tokens - 2:-max_seq_length]
+    image_loss = (image.mean() if not dp_groups else image.sum() / (
+        global_sum(torch.tensor(image.shape[0], device=ce.device),
+                   dp_groups) * image.shape[1]))
     loss = text_coeff * text_loss + image_coeff * image_loss
     return {"loss": loss, "text_loss": text_loss, "image_loss": image_loss}
 
@@ -176,11 +209,13 @@ def m_forward_process_losses(
         p_mask_mmu: Optional[torch.Tensor] = None,
         answer_lengths_mmu: Optional[torch.Tensor] = None,
         answer_lengths_lm: Optional[torch.Tensor] = None,
-        mask_token: int = 126336) -> Dict[str, torch.Tensor]:
+        mask_token: int = 126336,
+        dp_groups: Sequence = ()) -> Dict[str, torch.Tensor]:
     """The three-task loss of M's ``forward_process`` on the concat
     ``[t2i | lm | mmu]`` batch: t2i CE over the image tail (positions
     ``max_seq_length + 1:``), lm/mmu CE at masked positions weighted
-    ``1 / p_mask`` (mmu also ``1 / answer_length``)."""
+    ``1 / p_mask`` (mmu also ``1 / answer_length``).  Over ``dp_groups``
+    the batch sizes are this rank's, and every denominator is global."""
     dev = logits.device
     ce = token_cross_entropy(logits, labels)
     masked = input_ids == mask_token
@@ -189,10 +224,12 @@ def m_forward_process_losses(
     one = torch.ones((), device=dev)
     out: Dict[str, torch.Tensor] = {}
 
+    n_dp = (int(global_sum(torch.ones((), device=dev), dp_groups))
+            if dp_groups else 1)
     if batch_size_t2i > 0:
         out["loss_t2i"] = masked_mean(
             ce[:batch_size_t2i, max_seq_length + 1:],
-            valid[:batch_size_t2i, max_seq_length + 1:])
+            valid[:batch_size_t2i, max_seq_length + 1:], dp_groups)
     else:
         out["loss_t2i"] = zero
 
@@ -203,9 +240,9 @@ def m_forward_process_losses(
         w = ce[lm_lo:lm_hi] / p.clamp_min(1e-9)
         if answer_lengths_lm is not None:
             w = w / answer_lengths_lm.clamp_min(1)
-            out["loss_lm"] = (w * m).sum() / batch_size_lm
+            out["loss_lm"] = (w * m).sum() / (n_dp * batch_size_lm)
         else:
-            out["loss_lm"] = (w * m).sum() / (batch_size_lm
+            out["loss_lm"] = (w * m).sum() / (n_dp * batch_size_lm
                                               * logits.shape[1])
     else:
         out["loss_lm"] = zero
@@ -215,7 +252,7 @@ def m_forward_process_losses(
         n = one if answer_lengths_mmu is None else answer_lengths_mmu
         m = masked[-batch_size_mmu:] & valid[-batch_size_mmu:]
         w = ce[-batch_size_mmu:] / p.clamp_min(1e-9) / n.clamp_min(1)
-        out["loss_mmu"] = (w * m).sum() / batch_size_mmu
+        out["loss_mmu"] = (w * m).sum() / (n_dp * batch_size_mmu)
     else:
         out["loss_mmu"] = zero
     return out

@@ -624,3 +624,101 @@ def test_ring_forward_and_serve_cli_import_no_jax(tmp_path):
         assert res["jax"] == [] and res["shape"] == [2, 12, 64]
         assert res["err"] < 1e-5, res
 
+
+
+SHARDED_SCRIPT = r"""
+import importlib.abc, json, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "mmada_parallel_tpu"):
+            raise ImportError(f"{name} is blocked here")
+        return None
+
+sys.meta_path.insert(0, Block())
+
+import torch
+torch.set_num_threads(1)
+from mmada_parallel_torch.cli import train_a, train_m
+from mmada_parallel_torch.config import load_config
+from mmada_parallel_torch.models.llada import LLaDAConfig, init_llada_params
+from mmada_parallel_torch.parallel import MeshConfig, init_distributed, make_mesh
+from mmada_parallel_torch.parallel import fsdp  # noqa: F401
+from mmada_parallel_torch.training.checkpoint import CheckpointManager
+
+rank, workdir = int(sys.argv[1]), sys.argv[2]
+init_distributed(f"file://{workdir}/rdv", 2, rank, "gloo")
+g = torch.Generator().manual_seed(0)
+ids = torch.randint(0, 512, (4, 16), generator=g)
+batch = (ids, torch.where(torch.rand(4, 16, generator=g) < 0.5, ids, -100),
+         torch.full((4,), 16))
+kw = dict(lr=1e-3, min_lr=0.0, wd=0.1, clip_grad=4.0, warmup_steps=1,
+          total_steps=4, accum_steps=2)
+out = {}
+for name, shape, ring in (("fsdp", (1, 2, 1), False),
+                          ("ring", (1, 1, 2), True)):
+    mesh = make_mesh(MeshConfig(*shape), "cpu")
+    cfg = LLaDAConfig.tiny(vocab_size=512, remat="whole_layer")
+    params = init_llada_params(cfg, torch.Generator().manual_seed(1))
+    state, step, _ = train_a.build_train_step(cfg, params, mesh=mesh,
+                                              tp_ring=ring, **kw)
+    rows = batch if ring else tuple(x[rank * 2:rank * 2 + 2] for x in batch)
+    state, metrics = step(state, rows)
+    CheckpointManager(f"{workdir}/{name}", mesh=mesh,
+                      specs=step.state_specs).save(1, state)
+    out[name] = float(metrics["loss"])
+cfg = load_config(None, ["tiny_debug=true", "mesh.fsdp=2",
+                         "training.gradient_accumulation_steps=1"],
+                  train_m.DEFAULTS)
+mcfg = LLaDAConfig.tiny(vocab_size=512)
+state, step, _ = train_m.build_train_step(
+    mcfg, init_llada_params(mcfg, torch.Generator().manual_seed(2)), cfg,
+    make_mesh(MeshConfig(1, 2, 1), "cpu"))
+out["m_specs"] = sorted(step.state_specs.params)
+# the ring's whole batch over data=2: each data group's rows, padded
+import numpy as np
+rows = (np.full((2, 4 + rank), rank), np.full((2, 4 + rank), rank),
+        np.array([4 + rank, 3 + rank]))
+rows[0][1] += 10                    # the second microbatch's row
+full = train_a.gather_ring_batch(rows, make_mesh(MeshConfig(2, 1, 1), "cpu"),
+                                 accum_steps=2)
+out["ring_batch"] = [a.tolist() for a in full]
+print(json.dumps({
+    "jax": sorted(m for m in sys.modules if m.split(".")[0] in
+                  ("jax", "jaxlib", "mmada_parallel_tpu")), **out}))
+"""
+
+
+def test_sharded_trainers_import_no_jax(tmp_path):
+    """``parallel/fsdp.py``, the trainers' sharded entry points
+    (``train_a.build_train_step(mesh=...)`` over ``fsdp`` and on the ring,
+    ``train_m.build_train_step(..., mesh)``), the sharded checkpoint and
+    the ring's batch gather over ``data`` run with the JAX imports
+    blocked, in two processes (gloo, a ``file://`` rendezvous), and both
+    ranks report the same results."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    procs = [subprocess.Popen([sys.executable, "-c", SHARDED_SCRIPT, str(r),
+                               str(tmp_path)], cwd=REPO, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            p.kill()
+    res = []
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+        res.append(json.loads(out.strip().splitlines()[-1]))
+    assert res[0] == res[1] and res[0]["jax"] == []
+    assert 0 < res[0]["fsdp"] < 20 and 0 < res[0]["ring"] < 20
+    assert res[0]["m_specs"] == ["blocks", "head", "ln_f", "wte"]
+    assert res[0]["ring_batch"] == [                # microbatch by microbatch
+        [[0, 0, 0, 0, 0], [1, 1, 1, 1, 1], [10, 10, 10, 10, 0],
+         [11, 11, 11, 11, 11]],
+        [[0, 0, 0, 0, -100], [1, 1, 1, 1, 1], [0, 0, 0, 0, -100],
+         [1, 1, 1, 1, 1]],
+        [4, 5, 3, 4]]
+    assert (tmp_path / "fsdp" / "1" / "shards.json").exists()

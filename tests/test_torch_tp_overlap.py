@@ -83,6 +83,9 @@ AG_CASES = {"ag": (2, 48, 16, 24), "odd": (1, 24, 8, 8),
 RS_CASE = (2, 48, 32, 16)                                  # B, L, K, F
 ERRORS = ("mask", "tensor1", "fsdp", "block", "heads", "kv_heads", "seq")
 WIRE = (2, 64)                                             # B, L
+RING_KV = {8: (1, 8), 4: (2, 4)}            # kv heads -> mesh (data, tensor)
+GRAD_IDS = (2, 16)                          # JAX's gradient test's ids
+STEP_BATCH = (4, 16)                        # JAX's train-step test's batch
 DEEP = dict(d_model=256, n_heads=8, n_kv_heads=8, mlp_hidden_size=768,
             vocab_size=1024, embedding_size=1024)       # llada_8b, narrowed
 
@@ -230,6 +233,43 @@ def _main_rank(rank, world, workdir):
                                    permute=_counting(tally))
         out[f"wire/{name}"] = tuple(tally)
 
+    # training over the ring: backbone gradients and two train steps
+    from mmada_parallel_torch.training import trainer as TTR
+    from mmada_parallel_torch.training.losses import a_variant_losses
+    for kv, mesh_shape in RING_KV.items():
+        mesh = meshes[mesh_shape]
+        cfg = cfg_of(n_kv_heads=kv)
+        specs = TP.ring_param_shardings(cfg)
+
+        def hidden_sq(p, ids, generator, cfg=cfg, mesh=mesh):
+            h = TP.llada_hidden_tp_overlap(p, cfg, ids, mesh)
+            return h.float().square().sum(), {}
+        sp = shard_params(inp["grad_params"][kv], specs, mesh)
+        _, _, grads, _, _ = TTR.sharded_value_and_grad(
+            hidden_sq, sp, inp["grad_ids"], mesh, specs, ring=True)
+        out[f"ring_grads/{kv}"] = dict(zip(_leaf_names(sp),
+                                           [g.numpy() for g in grads]))
+
+        def a_loss(p, batch, generator, cfg=cfg, mesh=mesh):
+            ids, labels, lengths = batch
+            o = a_variant_losses(TP.llada_forward_tp_overlap(p, cfg, ids,
+                                                             mesh),
+                                 ids, labels, lengths)
+            return o["loss"], {"text_loss": o["text_loss"]}
+        opt = TTR.make_optimizer(TTR.OptimizerConfig(lr=1e-3),
+                                 inp["step_params"][kv])
+        state, p_specs, o_specs = TTR.create_sharded_state(
+            inp["step_params"][kv], opt, specs, mesh, "full")
+        step = TTR.make_sharded_train_step(a_loss, opt, mesh, p_specs,
+                                           o_specs, accum_steps=2, ring=True)
+        losses = []
+        for _ in range(2):
+            state, m = step(state, inp["step_batch"])
+            losses.append(float(m["loss"]))
+        out[f"ring_step/{kv}"] = (losses, dict(zip(
+            _leaf_names(state.params),
+            [t.detach().numpy() for t in TTR.tree_leaves(state.params)])))
+
     # the samplers over the ring
     tok = _torch_tokens()
     scfg = cfg_of(vocab_size=TVS + CB, mask_token_id=MASK)
@@ -294,6 +334,13 @@ def _main_rank(rank, world, workdir):
     srv.close()               # followers: returns once rank 0 has closed
     out["server_closed"] = not srv._worker.is_alive()
     return out
+
+
+def _leaf_names(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items()
+                for n in _leaf_names(v, f"{prefix}.{k}" if prefix else k)]
+    return [prefix]
 
 
 def _demo_ring_rank(rank, world, workdir):
@@ -484,6 +531,16 @@ def ring(tmp_path_factory):
     deep_params = init_llada_params(_deep_cfg(),
                                     torch.Generator().manual_seed(0))
     deep_ids = torch.from_numpy(rng.integers(0, 1024, (2, 96)))
+    grad_params = {kv: jinit(jax.random.key(5), _jax_cfg(n_kv_heads=kv))
+                   for kv in RING_KV}
+    step_params = {kv: jinit(jax.random.key(7), _jax_cfg(n_kv_heads=kv))
+                   for kv in RING_KV}
+    grad_ids = rng.integers(0, 512, GRAD_IDS).astype(np.int64)
+    B, L = STEP_BATCH
+    s_ids = rng.integers(0, 512, (B, L)).astype(np.int64)
+    step_batch = (s_ids, np.where(rng.random((B, L)) < 0.5, s_ids,
+                                  -100).astype(np.int64),
+                  np.full((B,), L, np.int64))
     scfg = _jax_cfg(vocab_size=TVS + CB, mask_token_id=MASK)
     sampler_params = {k: jinit(jax.random.key(seed), scfg) for k, seed in
                       (("ti2ti", 4), ("interleave", 5), ("server", 6))}
@@ -495,6 +552,10 @@ def ring(tmp_path_factory):
         "ids": {k: torch.from_numpy(v) for k, v in ids.items()},
         **{f"{k}_params": _bridged(v) for k, v in sampler_params.items()},
         "deep_params": deep_params, "deep_ids": deep_ids,
+        "grad_params": {kv: _bridged(p) for kv, p in grad_params.items()},
+        "grad_ids": torch.from_numpy(grad_ids),
+        "step_params": {kv: _bridged(p) for kv, p in step_params.items()},
+        "step_batch": tuple(torch.from_numpy(x) for x in step_batch),
     }, work / "inputs.pt")
     join = start_ranks(_main_rank, G, work)
 
@@ -524,10 +585,46 @@ def ring(tmp_path_factory):
                              for k, v in deep_params.items()},
                             _deep_cfg(torch.float32), deep_ids)}
     ref["sampler_params"] = sampler_params
+    ref["ring_train"] = _jax_ring_train_refs(grad_params, grad_ids,
+                                             step_params, step_batch)
     ref["ranks"] = join()
     ref["ids"] = ids
     ref["inputs"] = inp_np
     return ref
+
+
+def _jax_ring_train_refs(grad_params, grad_ids, step_params, step_batch):
+    """JAX's unsharded references of the ring's training: ``jax.grad`` of
+    ``sum(llada_hidden ** 2)``, and two ``make_train_step`` steps (AdamW,
+    clip, ``accum_steps=2``) with the A loss, per kv."""
+    import jax
+    import jax.numpy as jnp
+    from mmada_parallel_tpu.models import llada_forward, llada_hidden
+    from mmada_parallel_tpu.training import trainer as JT
+    from mmada_parallel_tpu.training.losses import a_variant_losses
+    out = {}
+    for kv in RING_KV:
+        cfg = _jax_cfg(n_kv_heads=kv)
+        g = jax.jit(jax.grad(lambda p: jnp.sum(llada_hidden(
+            p, cfg, jnp.asarray(grad_ids)).astype(jnp.float32) ** 2)))(
+                grad_params[kv])
+
+        def loss_fn(p, batch, key, cfg=cfg):
+            ids, labels, lengths = batch
+            o = a_variant_losses(llada_forward(p, cfg, ids), ids, labels,
+                                 lengths)
+            return o["loss"], {"text_loss": o["text_loss"]}
+        opt = JT.make_optimizer(JT.OptimizerConfig(lr=1e-3), step_params[kv])
+        state = JT.TrainState.create(step_params[kv], opt)
+        step = jax.jit(JT.make_train_step(loss_fn, opt, accum_steps=2))
+        losses = []
+        for _ in range(2):
+            state, m = step(state, tuple(jnp.asarray(x)
+                                         for x in step_batch), None)
+            losses.append(float(m["loss"]))
+        out[kv] = {"grads": _bridged(g), "losses": losses,
+                   "params": _bridged(state.params)}
+    return out
 
 
 def _jax_errors(jparams, ids, mesh8):
@@ -898,6 +995,77 @@ def test_gloo_cannot_send_a_cuda_tensor_unstaged(tmp_path):
     print("gloo, an unstaged CUDA tensor: exit codes",
           [o.exitcode for o in outs], "received equal:", outs[1].result)
     assert outs[1].result is not True
+
+
+def _ring_slice(a, spec, mesh_shape, rank):
+    """``a``'s block on ``rank`` of a ``(data, 1, tensor)`` mesh."""
+    data, tensor = mesh_shape
+    coord = {"data": rank // tensor, "fsdp": 0, "tensor": rank % tensor}
+    size = {"data": data, "fsdp": 1, "tensor": tensor}
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        n, idx = 1, 0
+        for name in (entry if isinstance(entry, tuple) else (entry,)):
+            n, idx = n * size[name], idx * size[name] + coord[name]
+        step = a.shape[dim] // n
+        a = np.take(a, range(idx * step, (idx + 1) * step), axis=dim)
+    return a
+
+
+def _ring_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_ring_leaves(v, f"{prefix}.{k}" if prefix else k))
+        return out
+    return {prefix: tree}
+
+
+def _check_ring_leaves(got, want, kv, rtol, what):
+    from mmada_parallel_torch.models.llada import LLaDAConfig
+    from mmada_parallel_torch.parallel.tp_overlap import ring_param_shardings
+    specs = _ring_leaves(ring_param_shardings(LLaDAConfig.tiny(
+        **_cfg_kw(n_kv_heads=kv))))
+    want = {k: v.detach().numpy() for k, v in _ring_leaves(want).items()}
+    assert set(want) == set(got[0])
+    for r, rank_leaves in enumerate(got):
+        for name, a in want.items():
+            scale = max(float(np.max(np.abs(a))), 1.0)
+            np.testing.assert_allclose(
+                rank_leaves[name], _ring_slice(a, specs[name], RING_KV[kv],
+                                               r),
+                rtol=rtol, atol=rtol * scale,
+                err_msg=f"rank {r} {what} {name}")
+
+
+@pytest.mark.parametrize("kv", list(RING_KV))
+def test_ring_backbone_gradients_match_jax(ring, kv):
+    """JAX's ``test_ring_backbone_gradients_match_gspmd``: the gradient of
+    ``sum(hidden ** 2)`` through the ring, synced by the ring's rule
+    (``training/trainer.py:_ring_syncs``: tensor-split leaves over
+    ``data``, the chunk-local ``wte``, ``ln_f`` and norms over ``tensor``
+    and ``data``), equals each rank's slice of ``jax.grad`` of the
+    unsharded ``llada_hidden`` at JAX's tolerance, 5e-4 (kv 4: 8 q heads
+    over 4 kv, on 4-wide rings with data=2)."""
+    got = [res[f"ring_grads/{kv}"] for res in ring["ranks"]]
+    _check_ring_leaves(got, ring["ring_train"][kv]["grads"], kv, 5e-4,
+                       "grad")
+
+
+@pytest.mark.parametrize("kv", list(RING_KV))
+def test_ring_train_step_matches_jax(ring, kv):
+    """JAX's ``test_ring_train_step_matches_gspmd``: two steps of the
+    sharded step on the ring (AdamW, clip, ``accum_steps=2``, the A loss)
+    give JAX's whole-batch losses (rtol 1e-4) and each rank's slice of its
+    updated parameters (5e-4, scaled by the leaf's largest value)."""
+    want = ring["ring_train"][kv]
+    for r, res in enumerate(ring["ranks"]):
+        losses, _ = res[f"ring_step/{kv}"]
+        np.testing.assert_allclose(losses, want["losses"], rtol=1e-4,
+                                   err_msg=f"rank {r}")
+    _check_ring_leaves([res[f"ring_step/{kv}"][1] for res in ring["ranks"]],
+                       want["params"], kv, 5e-4, "param")
 
 
 def test_bf16_ring_at_depth_stays_within_bf16_noise(ring):

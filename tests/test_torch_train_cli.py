@@ -107,10 +107,64 @@ def test_cli_keeps_the_jax_flags_and_defaults():
 
 
 @pytest.mark.parametrize("extra", [["--mesh_tensor", "2"], ["--tp_ring"],
-                                   ["--shard_strategy", "zero2"],
+                                   ["--shard_strategy", "zero2",
+                                    "--mesh_fsdp", "2"],
                                    ["--mesh_fsdp", "2"]])
 def test_multi_device_flags_raise(tmp_path, extra):
-    with pytest.raises(SystemExit, match="multi-GPU"):
+    """Plain Megatron tensor parallelism is not ported; the ring needs a
+    tensor axis of 2 or more; a mesh needs the ranks of a torchrun world."""
+    match = {"--mesh_tensor": "Megatron .* item 16b.11",
+             "--tp_ring": "--tp_ring needs --mesh_tensor >= 2"}.get(
+                 extra[0], "torchrun world")
+    with pytest.raises(SystemExit, match=match):
         train_a.main(["--data_config", _data_config(tmp_path, 2),
                       "--output_dir", str(tmp_path / "o"), "--tiny_model",
                       "--device", "cpu", *extra])
+
+
+def _torchrun(args, timeout=300):
+    """``python -m torch.distributed.run --standalone --nproc_per_node 2``
+    of ``args``, on the CPU; returns its stdout."""
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", *args], cwd=repo, env=env,
+        capture_output=True, text=True, timeout=timeout)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return proc.stdout
+
+
+@pytest.mark.parametrize("flags", [
+    ["--mesh_fsdp", "2", "--shard_strategy", "full"],
+    ["--mesh_tensor", "2", "--tp_ring"]], ids=["fsdp", "ring"])
+def test_mesh_flags_train_under_torchrun(tmp_path, flags):
+    """Two torchrun ranks train the tiny model 2 steps over ``fsdp=2`` or
+    on a 2-rank ring: one ``[done]`` line (rank 0 logs), and a sharded
+    checkpoint that restores whole in one process."""
+    from mmada_parallel_torch.models.llada import (LLaDAConfig,
+                                                   init_llada_params)
+    from mmada_parallel_torch.training.checkpoint import CheckpointManager
+    from mmada_parallel_torch.training.trainer import (TrainState,
+                                                       make_optimizer)
+    out = tmp_path / "o"
+    printed = _torchrun(["-m", "mmada_parallel_torch.cli.train_a",
+                         "--data_config", _data_config(tmp_path, 8),
+                         "--output_dir", str(out), "--tiny_model",
+                         "--device", "cpu", "--precision", "fp32",
+                         "--batch_size", "1", "--accum_iter", "2",
+                         "--max_steps", "2", "--save_iteration_interval",
+                         "2", *flags])
+    assert printed.count("[done] 2 steps") == 1
+    shards = json.loads((out / "ckpt" / "2" / "shards.json").read_text())
+    assert shards["mesh"] == ({"data": 1, "fsdp": 2, "tensor": 1}
+                              if "--mesh_fsdp" in flags else
+                              {"data": 1, "fsdp": 1, "tensor": 2})
+    kw = dict(n_heads=4, n_kv_heads=2) if "--tp_ring" in flags else {}
+    cfg = LLaDAConfig.tiny(vocab_size=512, **kw)
+    params = init_llada_params(cfg, torch.Generator().manual_seed(0))
+    state, meta, step = CheckpointManager(str(out / "ckpt")).restore(
+        TrainState.create(params, make_optimizer(OptimizerConfig(), params)))
+    assert step == 2 and state.step == 2 and state.opt_state["count"] == 2

@@ -341,9 +341,15 @@ def test_interleave_validator_writes_its_sample(tmp_path):
 
 
 @pytest.mark.parametrize("override", ["mesh.fsdp=2", "mesh.tensor=2",
-                                      "training.shard_strategy=zero2"])
+                                      "training.shard_strategy=zero3"])
 def test_multi_device_settings_raise(tmp_path, override):
-    with pytest.raises(SystemExit, match="item 16"):
+    """``mesh.fsdp`` needs a torchrun world; ``mesh.tensor`` is plain
+    Megatron tensor parallelism, not ported; the strategy must be one of
+    JAX's."""
+    match = {"mesh.fsdp=2": "torchrun world",
+             "mesh.tensor=2": "item 16b.11"}.get(override,
+                                                 "unknown shard_strategy")
+    with pytest.raises(SystemExit, match=match):
         PTM.main(["tiny_debug=true", f"output_dir={tmp_path}", "device=cpu",
                   override])
 
@@ -473,3 +479,39 @@ def test_profiling_helpers(tmp_path):
     timer = P.StepTimer()
     timer.data_done()
     assert set(timer.step_done()) == {"data_time", "step_time"}
+
+
+def test_mesh_fsdp_trains_under_torchrun_as_one_rank(tmp_path):
+    """``mesh.fsdp=2`` under torchrun: every rank assembles the global
+    batch and keeps its rows, so the two ranks' logged losses are the
+    one-process run's on the same shard (rtol 1e-5); rank 0 alone logs."""
+    import json
+    import subprocess
+    import sys
+    path = tmp_path / "pairs-000.tar"
+    _pair_shard(path)
+    args = ["tiny_debug=true", f"shards={path}", "device=cpu",
+            "dataset.preprocessing.max_seq_length=8",
+            "dataset.preprocessing.resolution=8",
+            "model.mmada.num_vq_tokens=16", "training.batch_size=2",
+            "training.gradient_accumulation_steps=2", "training.save_every=2",
+            "training.log_every=1", "training.warmup_steps=1",
+            "training.max_train_steps=2"]
+    PTM.main(args + [f"output_dir={tmp_path / 'one'}"])
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", "-m", "mmada_parallel_torch.cli.train_m",
+         *args, f"output_dir={tmp_path / 'two'}", "mesh.fsdp=2"],
+        cwd=repo, env=dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS="1"),
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.count("[done] 2 steps") == 1
+
+    def losses(run):
+        lines = (tmp_path / run / "tb" / "log.txt").read_text().splitlines()
+        return [json.loads(x)["loss"] for x in lines]
+    one, two = losses("one"), losses("two")
+    assert len(one) == len(two) == 2
+    np.testing.assert_allclose(two, one, rtol=1e-5)
+    assert (tmp_path / "two" / "ckpt" / "2" / "shards.json").exists()
