@@ -1,6 +1,7 @@
 """On-card proof that the PyTorch/CUDA port builds, is right and runs its
-paths: the variant-A thinking-aware edit (exact, feature-cached, and served
-tensor-parallel over a ring of ranks), the
+paths: the variant-A thinking-aware edit (exact, feature-cached, served
+tensor-parallel over a ring of ranks, and over the mesh's ``tensor`` axis
+in Megatron's split, dense and W8A8), the
 variant-M interleave generation (exact and feature-cached), text-to-image
 (A exact and cached, M), understanding, the streaming demo, the four
 servers, the ParaBench evaluation sweeps, the W8A8 int8 edit, the A and M
@@ -47,7 +48,8 @@ Phases (each prints its own lines; any failure exits non-zero):
    at the ring block's per-chunk shapes (``ring/...``: a rank's 8 heads,
    Lq = 303 sigma-ordered queries against 2424 keys with sigma-gathered
    tables, B=1 and B=2 bf16, timed with its bound and split count, and a
-   small f32 case);
+   small f32 case); K1 and K2 at a ``tensor`` rank's 16 heads (``tp/H16``:
+   K1 B=1 L=2424, bound 0.0487 ms; K2 Lq=16 of 2424);
 3. small f32 models (head_dim 64): the kernel path gives the same tokens as
    the plain attention at temperature 0 on the exact edit, the cached edit,
    the exact and cached interleave, the exact edit with bf16-style
@@ -76,7 +78,11 @@ Phases (each prints its own lines; any failure exits non-zero):
    every rank's ids rank 0's, the int8 payload at JAX's bars, and exact
    K2 counts (2g x layers x forwards a rank) with no K1; ``[ring-nccl]``
    the same over NCCL, one card a rank, where the machine has two or
-   more cards (else it says it did not run);
+   more cards (else it says it did not run); ``[eval-edit-mesh]``:
+   ``run_parabench_sweep(mesh=)`` on 2 ranks at ``tensor=2`` (temperature
+   0) and at ``data=2`` (temperature 1: a row's noise does not depend on
+   the split) equal to the one-rank sweep; ``[pararl-mesh]``: ``cli/train_pararl``'s rollout and
+   update under JAX's ``MeshConfig()`` on 2 ranks equal to one rank's;
 4. at the full width of the 8B backbone (all 32 layers, one set of random
    bf16 weights from a seed) with the full-size tokenizers: the exact edit
    (K1), the exact edit with non-fp32 RoPE (K3), the cached edit (K2 and
@@ -96,14 +102,23 @@ Phases (each prints its own lines; any failure exits non-zero):
    freed, ``[serve-a-ring]``: the same 8B edit served by
    ``TI2TIServer(hidden_fn=ring_hidden_fn(mesh))`` on 4 ranks sharing this
    card over host-staged gloo (each rank draws the full tree from the
-   seed in turn and keeps its shards), two requests from two threads, 4
+   seed in turn and keeps its shards), two requests from two threads, 2
    text and 2 image steps (and the first alone with the int8 payload):
    every rank's
    ids rank 0's, codes in range, exact K2 counts and no K1, one ring
    forward's hidden state against the solo K1 forward within a bf16 bound
    that the int8 payload's hidden state must fail, the bytes each rank sends a forward against (g-1)/g of the activations
    at each of the 4 boundaries, the share of the wall in ``permute``, each
-   rank's peak memory; its times are one card's, not multi-GPU times.
+   rank's peak memory; its times are one card's, not multi-GPU times;
+   ``[tp-forward]``: the same 8B tree over Megatron's split at g=2 on 2
+   ranks sharing the card (``shard_params`` with ``param_shardings``): one
+   forward's hidden state against the solo K1 forward (the ring's bf16
+   gate), its all-reduced bytes and their share of the forward, the exact
+   and the cached edit through the samplers (every rank's ids rank 0's,
+   codes in range, exact K1/K2 counts at 16 heads); ``[int8-tp]``: the
+   tree quantized and placed by ``quantize_param_shardings`` against the
+   unsharded int8 forward (relative L2 ``INT8_TP_REL_L2``: the split sums
+   exact int32 products).
    Each run sets every launch count to
    0 just before it and checks them just after; codes, pixels, wall time
    and peak memory are checked and printed; the exact and the cached edit
@@ -128,7 +143,16 @@ Phases (each prints its own lines; any failure exits non-zero):
    ``cli/train_pararl.py`` loop on the same 4 layers (2 rollouts of the
    512x512 layout, 16 + 8 steps, 4 scored, 3 updates: rollout and update
    seconds apart, exact K1 launches) and, on its last trajectory, the loss
-   and gradient norm through K1 against the plain path;
+   and gradient norm through K1 against the plain path; before ParaRL, the
+   mesh training phases (``[train-a-fsdp]``: ``full``, ``zero2`` and
+   ``ddp`` on 2 ranks in f32, ``[train-a-ring]``
+   with the vocab-parallel ``wte`` and ``head``, ``[train-m-fsdp]``,
+   ``[fsdp-nccl]``) and Megatron's split in training: ``[train-a-tp]``
+   (``train_a --mesh_tensor 2``, no ring: f32 on ``(1, 1, 2)``, f32 and
+   bf16 on ``(1, 2, 2)``, against the solo step, with the bytes
+   all-reduced over ``tensor`` and their share of the step) and
+   ``[train-m-tp]`` (``train_loop`` at ``mesh.tensor=2`` against one
+   rank);
 6. the capability demos (``mmada_parallel_torch/examples``), each trained
    from scratch at the JAX capability tests' settings, seed 0, its train
    state round-tripped through a checkpoint into other weights, then
@@ -3102,9 +3126,9 @@ def _int8_ranges():
     from mmada_parallel_torch.ops import quant as Q
     real_q, real_mm = Q.quantize_activations, Q._int8_mm
 
-    def quantize(x):
+    def quantize(x, reduce=None):
         with record_function("int8 quantize"):
-            return real_q(x)
+            return real_q(x, reduce)
 
     def mm(x_q, w_q):
         with record_function("int8 GEMM"):
@@ -4041,6 +4065,7 @@ def phase_export() -> None:
 # ---------------------------------------------------------------------------
 
 RING_G = 4                # the ring's ranks in [ring-small], [serve-a-ring]
+RING_TEXT_STEPS = 2       # [serve-a-ring]'s text steps (2 image steps)
 RING_LABEL = ("4 ranks sharing one card over host-staged gloo: not a "
               "multi-GPU time")
 # the full-width ring forward's bf16 hidden state against the solo K1
@@ -4185,6 +4210,7 @@ def _ring_small_rank(rank, world, workdir):
     from mmada_parallel_torch.parallel import (MeshConfig, make_mesh,
                                                shard_params)
     from mmada_parallel_torch.parallel import tp_overlap as TP
+    from mmada_parallel_torch.models.llada import param_shardings
     from mmada_parallel_torch.samplers.interleave import interleave_generate
     from mmada_parallel_torch.samplers.parallel_ti2ti import generate_ti2ti
     s = _ring_small_setup()
@@ -4192,10 +4218,12 @@ def _ring_small_rank(rank, world, workdir):
     inp = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
     dev = torch.device("cuda", torch.cuda.current_device())
     mesh = make_mesh(MeshConfig(data=1, fsdp=1, tensor=world), "cuda")
-    params = shard_params(inp["params"], TP.ring_param_shardings(cfg), mesh)
-    params = {k: ({n: t.to(dev) for n, t in v.items()}
-                  if isinstance(v, dict) else v.to(dev))
-              for k, v in params.items()}
+    # on the card first: the tree shard_params returns carries the mesh
+    # the vocab-parallel head reads
+    params = shard_params({k: ({n: t.to(dev) for n, t in v.items()}
+                               if isinstance(v, dict) else v.to(dev))
+                           for k, v in inp["params"].items()},
+                          param_shardings(cfg), mesh)
     out = {"backend": torch.distributed.get_backend(mesh.get_group(
         "tensor")), "device": str(dev)}
     ids = inp["fwd_ids"].to(dev)
@@ -4454,6 +4482,7 @@ def _serve_a_ring_rank(rank, world, workdir):
     from mmada_parallel_torch.parallel import (MeshConfig, make_mesh,
                                                shard_params)
     from mmada_parallel_torch.parallel import tp_overlap as TP
+    from mmada_parallel_torch.models.llada import param_shardings
     from mmada_parallel_torch.samplers.parallel_ti2ti import TI2TIOptions
     dev = torch.device("cuda", torch.cuda.current_device())
     cfg = LLaDAConfig.llada_8b(param_dtype=torch.bfloat16,
@@ -4472,7 +4501,7 @@ def _serve_a_ring_rank(rank, world, workdir):
                 reset_launches()
                 out["solo_hidden"] = llada_hidden(full, cfg, ids).cpu()
                 out["solo_launches"] = read_launches()
-            params = shard_params(full, TP.ring_param_shardings(cfg), mesh)
+            params = shard_params(full, param_shardings(cfg), mesh)
             del full
             torch.cuda.synchronize()
             out["draw_peak"] = torch.cuda.max_memory_allocated()
@@ -4502,8 +4531,10 @@ def _serve_a_ring_rank(rank, world, workdir):
                               "launches": read_launches()}
         out[f"hidden_{name}"] = hidden.cpu() if rank == 0 else None
 
-    opts = TI2TIOptions(text_steps=4, timesteps=2, temperature=0.0,
-                        text_temperature=0.0, cfg_img=4.0)
+    # 2 text steps (once 4): the depth cut to keep the script inside its
+    # time limit
+    opts = TI2TIOptions(text_steps=RING_TEXT_STEPS, timesteps=2,
+                        temperature=0.0, text_temperature=0.0, cfg_img=4.0)
     out["n_img"] = int(S.image_step_mask(opts.text_steps,
                                          opts.timesteps).sum())
     real = serving.generate_ti2ti
@@ -4548,7 +4579,7 @@ def phase_serve_a_ring() -> int:
     """[serve-a-ring]: ``TI2TIServer(hidden_fn=ring_hidden_fn(mesh))`` at
     the full 8B width (all 32 layers, random bf16 weights from seed 0, as
     the other full-width phases) on 4 ranks sharing this card over gloo;
-    two requests from two threads on rank 0, 4 text and 2 image steps,
+    two requests from two threads on rank 0, 2 text and 2 image steps,
     ``cfg_img`` 4.0; then the first request alone with
     ``--tp_ring_int8``'s payload.  Returns
     rank 0's K2 launches in the exact serving run."""
@@ -4562,7 +4593,7 @@ def phase_serve_a_ring() -> int:
     wall = time.time() - t0
     r0 = ranks[0]
     n_img = r0["n_img"]
-    forwards = 4 + n_img
+    forwards = RING_TEXT_STEPS + n_img
     k2_fwd = 2 * g * cfg.n_layers
     if r0["solo_launches"]["flash_attention_rope"] != cfg.n_layers:
         raise AssertionError(f"[serve-a-ring] solo forward launches "
@@ -4649,7 +4680,8 @@ def phase_serve_a_ring() -> int:
         f"of the forward's wall), int8 {f8['permute_s']:.3f} s "
         f"({100 * f8['permute_s'] / f8['s']:.1f} %)")
     log(f"[serve-a-ring] TI2TIServer over the ring, 2 requests from 2 "
-        f"threads in 1 batch (B=2), 4 text + {n_img} image steps, cfg_img "
+        f"threads in 1 batch (B=2), {RING_TEXT_STEPS} text + {n_img} image "
+        f"steps, cfg_img "
         f"4.0: every rank's ids == rank 0's, codes in range; K2 "
         f"{k2_fwd * forwards} a rank (= 2g x 32 layers x {forwards} "
         f"forwards), K1 0; {se['s']:.2f} s for the two requests "
@@ -4668,15 +4700,16 @@ def _demo_ring_rank(rank, world, workdir):
     from mmada_parallel_torch.parallel import (MeshConfig, make_mesh,
                                                shard_params)
     from mmada_parallel_torch.parallel import tp_overlap as TP
+    from mmada_parallel_torch.models.llada import param_shardings
     inp = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
     dev = torch.device("cuda", torch.cuda.current_device())
     T = A.demo_tokens()
     cfg = A.demo_config(T)
     mesh = make_mesh(MeshConfig(data=1, fsdp=1, tensor=world), "cuda")
-    local = shard_params(inp, TP.ring_param_shardings(cfg), mesh)
-    local = {k: ({n: t.to(dev) for n, t in v.items()}
-                 if isinstance(v, dict) else v.to(dev))
-             for k, v in local.items()}
+    local = shard_params({k: ({n: t.to(dev) for n, t in v.items()}
+                              if isinstance(v, dict) else v.to(dev))
+                          for k, v in inp.items()},
+                         param_shardings(cfg), mesh)
     out = {}
     for name, int8 in (("exact", False), ("int8", True)):
         reset_launches()
@@ -4741,6 +4774,19 @@ MESH_LABEL = ("ranks sharing one card over host-staged gloo: not multi-GPU "
 # GEMM does not (PERF.md section 6), so its bf16 noise is not the solo's.
 MESH_LOSS_RTOL, MESH_NORM_RTOL, MESH_PARAM_REL_L2 = 1e-5, 1e-4, 1e-3
 MESH_BF16_FACTOR, MESH_BF16_FLOOR = 2.0, 1e-5
+# Megatron's split in bf16 ([train-a-tp], (1, 2, 2)): the row-parallel
+# partial products and the column-parallel inputs' gradient partials round
+# to bf16 before their all-reduces, so its bf16 step is a different sample
+# of bf16 noise from the solo one, as far from f32 (each leaf's gradient
+# within 2x the solo's distance from f32, on the CPU:
+# tests/test_torch_train_tensor.py::
+# test_bf16_gradients_sit_as_far_from_f32_as_solo).  On the H100 its two
+# steps' losses sat 3.2e-5 and 9.1e-5 (relative) from the solo bf16 step's,
+# its grad norms 2.1e-4 and 3.1e-5 (PERF.md section 6); the bound is 1e-3,
+# about 5x the largest.
+# The same mesh's f32 run holds the tight gates above leaf by leaf, which a
+# wrong sync fails.
+TP_BF16_RTOL = 1e-3
 
 
 def _mesh_cfg(dtype):
@@ -4771,10 +4817,10 @@ def _leaves(tree, prefix=""):
     return {prefix: tree}
 
 
-def _mesh_solo(batch, precisions) -> dict:
+def _mesh_solo(batch, precisions, steps: int = MESH_STEPS) -> dict:
     """The solo A step of this process in each of ``precisions`` (compute
-    dtypes, f32 among them), ``MESH_STEPS`` steps on the whole batch, and
-    the f32 run's final parameters (CPU)."""
+    dtypes, f32 among them), ``steps`` steps on the whole batch, and the
+    f32 run's final parameters (CPU)."""
     import gc
     import torch
     from mmada_parallel_torch.models.llada import init_llada_params
@@ -4787,7 +4833,7 @@ def _mesh_solo(batch, precisions) -> dict:
         state, step, _ = _mesh_build(cfg, params)
         del params
         ms, secs = [], []
-        for _ in range(MESH_STEPS):
+        for _ in range(steps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             state, m = step(state, batch)
@@ -4805,21 +4851,25 @@ def _mesh_solo(batch, precisions) -> dict:
 
 
 def _mesh_reckon(sizes: dict, mode: str, strategy: str, world: int,
-                 n_data: int) -> dict:
+                 n_data: int, g: int = 1) -> dict:
     """Bytes a rank holds (f32: parameter, gradient, mu, nu) and the most it
     gathers at once (``wte``, ``head`` and one layer, with their gradients
     in the backward), from the leaf sizes; the head stays split over fsdp
     under every strategy (JAX's ``drop_axis`` keeps its (fsdp, tensor)
-    entry)."""
+    entry).  ``g``: the ranks of the ``tensor`` axis; the ring and
+    Megatron's split hold ``1/g`` of every leaf but the norms, ``wte`` and
+    ``head`` vocab-parallel."""
     head, wte = sizes["head"], sizes["wte"]
     layer = sum(v for k, v in sizes.items()
                 if k.startswith("blocks.")) // MESH_LAYERS
     total = sum(sizes.values())
     n = world // n_data
     if mode == "ring":
-        blocks = total - head - wte - sizes["ln_f"]
-        state = 16 * (blocks // n + head + wte + sizes["ln_f"])
+        state = 16 * ((total - sizes["ln_f"]) // n + sizes["ln_f"])
         gathered = 0
+    elif mode == "tensor":
+        state = 16 * total // n
+        gathered = 4 * 2 * (wte + head + layer) // g if n > g else 0
     elif strategy == "full":
         state = 16 * total // n
         gathered = 4 * 2 * (wte + head + layer)
@@ -4864,7 +4914,8 @@ def _ring_counted():
 
 def _mesh_train_rank(rank, world, workdir):
     """One spawned rank of ``[train-a-fsdp]`` / ``[train-a-ring]`` /
-    ``[fsdp-nccl]``: for each strategy, f32 then bf16, the tree drawn from
+    ``[train-a-tp]`` / ``[fsdp-nccl]``: for each strategy, f32 then bf16,
+    the tree drawn from
     the seed in turn, the sharded A step of ``cli/train_a`` for
     ``MESH_STEPS`` steps on this rank's rows; launches, seconds, transfer
     tallies and the peak by step, and (f32) each leaf's largest difference
@@ -4908,7 +4959,7 @@ def _mesh_train_rank(rank, world, workdir):
                     if ref is not None and name == "f32" else None)
             torch.cuda.reset_peak_memory_stats()
             run = {"metrics": [], "secs": [], "launches": [], "moved": []}
-            for _ in range(MESH_STEPS):
+            for _ in range(inp["steps"]):
                 tally.clear()
                 if ring_tally is not None:
                     ring_tally.update(sent=0, seconds=0.0)
@@ -4933,6 +4984,11 @@ def _mesh_train_rank(rank, world, workdir):
                         float((want - init[k].to(dev)).norm()))
                     del want, diff
                 del init
+            run["held"] = sum(t.numel() * t.element_size() for t in
+                              _leaves(state.params).values()) + sum(
+                t.numel() * t.element_size() for t in
+                _leaves(state.opt_state).values()
+                if isinstance(t, torch.Tensor))
             out[(strategy, name)] = run
             del state, step
             gc.collect()
@@ -4941,15 +4997,19 @@ def _mesh_train_rank(rank, world, workdir):
 
 
 def _mesh_gate(phase: str, strategy: str, what: str, got: list,
-               solo: dict) -> None:
+               solo: dict, bf16_rtol=None) -> None:
     """Each step's loss and grad norm against the solo step's (f32: rtol;
-    bf16: the solo bf16 step's distance from the solo f32 step)."""
+    bf16: the solo bf16 step's distance from the solo f32 step, or
+    ``bf16_rtol`` of the solo bf16 step's value)."""
     for i, m in enumerate(got):
         for key, rtol in (("loss", MESH_LOSS_RTOL),
                           ("grad_norm", MESH_NORM_RTOL)):
             if what == "f32":
                 want = solo["f32"]["metrics"][i][key]
                 bound = rtol * abs(want)
+            elif bf16_rtol is not None:
+                want = solo["bf16"]["metrics"][i][key]
+                bound = bf16_rtol * abs(want)
             else:
                 want = solo["bf16"]["metrics"][i][key]
                 bound = max(MESH_BF16_FACTOR * abs(
@@ -4966,18 +5026,23 @@ def _mesh_gate(phase: str, strategy: str, what: str, got: list,
 
 
 def _mesh_phase(phase: str, mode: str, strategies, world: int,
-                backend: str = "gloo", precisions=("f32", "bf16")) -> dict:
+                backend: str = "gloo", precisions=("f32", "bf16"),
+                shape=None, steps: int = MESH_STEPS,
+                bf16_rtol=None) -> dict:
     """Spawn ``world`` ranks of ``_mesh_train_rank`` (``mode`` "fsdp" on
-    the mesh ``(1, world, 1)``, "ring" on ``(1, 1, world)``) for each
-    strategy in each of ``precisions`` (compute dtypes), gate them against
-    the solo step, print and return rank 0's runs."""
+    the mesh ``(1, world, 1)``, "ring" on ``(1, 1, world)``, "tensor"
+    (Megatron's split, no ring) on ``shape``) for each strategy in each of
+    ``precisions`` (compute dtypes), ``steps`` steps, gate them against
+    the solo step (f32 and the bf16 ones asked for; ``bf16_rtol``: see
+    :func:`_mesh_gate`), print and return rank 0's runs."""
     import tempfile
     import torch
-    shape = (1, world, 1) if mode == "fsdp" else (1, 1, world)
-    rows = world if mode == "fsdp" else 1
+    shape = shape or ((1, world, 1) if mode == "fsdp" else (1, 1, world))
+    rows = shape[0] * shape[1]
     batch = _a_train_batch(torch.Generator(device="cuda").manual_seed(22),
                            rows, EDIT_L)
-    solo = _mesh_solo(batch, precisions)
+    solo = _mesh_solo(batch, ("f32",) + tuple(p for p in precisions
+                                              if p != "f32"), steps)
     alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     # the ranks share the card: let their allocators return what they free
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
@@ -4990,6 +5055,7 @@ def _mesh_phase(phase: str, mode: str, strategies, world: int,
                                inputs={"shape": shape, "mode": mode,
                                        "strategies": list(strategies),
                                        "precisions": list(precisions),
+                                       "steps": steps,
                                        "batch": tuple(x.cpu()
                                                       for x in batch),
                                        "ref": ref}, timeout=900)
@@ -5002,20 +5068,30 @@ def _mesh_phase(phase: str, mode: str, strategies, world: int,
     sizes = solo["f32"]["sizes"]
     n_layers = MESH_LAYERS
     want = {n: 0 for n in KERNELS}
-    if mode == "fsdp":              # forward + remat recompute, one row
+    if mode != "ring":              # forward + remat recompute, one row
         want["flash_attention_rope"] = n_layers * 2
     else:                           # 2g sigma-chunks a layer, no remat
         want["flash_attention_rope_qonly"] = 2 * world * n_layers
     for strategy in strategies:
         for what in precisions:
             runs = [res[(strategy, what)] for res in ranks]
-            rk = _mesh_reckon(sizes, mode, strategy, world, 1)
+            rk = _mesh_reckon(sizes, mode, strategy, world, shape[0],
+                              shape[2])
             act = 3 * 4 * EDIT_L * sizes["head"] // 4096
             r0 = runs[0]
             step_s = r0["secs"][-1]
             moved = r0["moved"][-1]
             xfer = moved.get("seconds", 0.0)
-            if mode == "fsdp":
+            if mode == "tensor":
+                red = moved.get("reduced_seconds", 0.0)
+                vol = (f"all-reduces {moved.get('reduced', 0) / 1e9:.3f} GB "
+                       f"over tensor a step ({red:.3f} s, "
+                       f"{100 * red / step_s:.1f} % of the step), gathers "
+                       f"{moved.get('gathered', 0) / 1e9:.3f} GB (the FSDP "
+                       f"gathers and the logits over tensor) and "
+                       f"reduce-scatters {moved.get('scattered', 0) / 1e9:.3f}"
+                       f" GB")
+            elif mode == "fsdp":
                 vol = (f"gathers {moved.get('gathered', 0) / 1e9:.3f} GB and "
                        f"reduce-scatters {moved.get('scattered', 0) / 1e9:.3f}"
                        f" GB a step through the gather Function")
@@ -5050,13 +5126,16 @@ def _mesh_phase(phase: str, mode: str, strategies, world: int,
                 f" state + {rk['gathered'] / 2 ** 30:.2f} gathered + "
                 f"~{act / 2 ** 30:.2f} logits) = "
                 f"{world * (rk['state'] + rk['gathered'] + act) / 2 ** 30:.2f}"
-                f" GiB; launches a step a rank {want}")
+                f" GiB; state held a rank (parameters and optimizer) "
+                f"{[round(run['held'] / 1e9, 2) for run in runs]} GB; "
+                f"launches a step a rank {want}")
             for r, run in enumerate(runs):
                 if any(x != want for x in run["launches"]):
                     raise AssertionError(
                         f"[{phase}] {strategy} {what} rank {r} launches "
                         f"{run['launches']}, expected {want} a step")
-                _mesh_gate(phase, strategy, what, run["metrics"], solo)
+                _mesh_gate(phase, strategy, what, run["metrics"], solo,
+                           bf16_rtol)
             for (r, k), x in rel.items():
                 if not x <= MESH_PARAM_REL_L2:
                     raise AssertionError(
@@ -5071,24 +5150,25 @@ def _mesh_phase(phase: str, mode: str, strategies, world: int,
 def phase_train_a_fsdp() -> dict:
     """[train-a-fsdp]: ``cli/train_a``'s sharded A step at the 8B widths (2
     of 32 layers, f32 params, remat, one row of 2424 a data-parallel rank,
-    2 steps), ``full`` on 4 ranks (mesh (1, 4, 1)) in f32 for parity with
-    the solo step and in bf16 for time, then ``zero2`` and ``ddp`` on 2 in
-    f32 (their host-staged gradient syncs make a step 13-30 s on one card,
-    and the script keeps inside its time limit; PERF.md).  Returns rank
-    0's bf16 ``full`` run."""
-    out = _mesh_phase("train-a-fsdp", "fsdp", ("full",), 4)
-    run = out["ranks"][0][("full", "bf16")]
-    del out
-    _mesh_phase("train-a-fsdp", "fsdp", ("zero2", "ddp"), 2,
-                precisions=("f32",))
-    return run
+    2 steps): ``full``, ``zero2`` and ``ddp`` on 2 ranks (mesh (1, 2, 1))
+    in f32, against the solo step, in one spawn.  ``full`` once ran on 4
+    ranks in f32 and bf16; it is cut to 2 ranks and f32 to keep the script
+    inside its time limit with the tensor-parallel phases (a step of
+    ``full`` is as long on 2 ranks as on 4: each gathers the whole
+    parameters; one step instead of two fails the leaf gate, the norms'
+    updates being too small beside an f32 ulp of their 1.0 weights).
+    Returns rank 0's ``full`` run."""
+    out = _mesh_phase("train-a-fsdp", "fsdp", ("full", "zero2", "ddp"), 2,
+                      precisions=("f32",))
+    return out["ranks"][0][("full", "f32")]
 
 
 def phase_train_a_ring() -> dict:
     """[train-a-ring]: ``train_a --tp_ring`` at g=2 (mesh (1, 1, 2)) on the
     same model, one row of 2424 (each rank's K2 at Lq=606 a sigma-chunk
-    half, 16 heads), f32 and bf16, against the solo step.  Returns rank
-    0's bf16 run."""
+    half, 16 heads), f32 and bf16, against the solo step; ``wte`` and
+    ``head`` vocab-parallel (``param_shardings``), so a rank holds half of
+    each.  Returns rank 0's bf16 run."""
     out = _mesh_phase("train-a-ring", "ring", ("full",), 2)
     return out["ranks"][0][("full", "bf16")]
 
@@ -5106,9 +5186,10 @@ def phase_fsdp_nccl() -> None:
     _mesh_phase("fsdp-nccl", "fsdp", ("full",), 4 if n >= 4 else 2, "nccl")
 
 
-def _train_m_fsdp_rank(rank, world, workdir):
-    """[train-m-fsdp] on one rank: the small M models from their seeds,
-    ``train_m.build_train_step(..., mesh)`` at ``mesh.fsdp=2`` and
+def _train_m_mesh_rank(rank, world, workdir):
+    """[train-m-fsdp] and [train-m-tp] on one rank: for each mesh shape of
+    ``inputs["shapes"]`` (``mesh.fsdp=2``, ``mesh.tensor=2``), the small M
+    models from their seeds, ``train_m.build_train_step(..., mesh)`` and
     ``train_loop`` over the same samples and noising seed as the solo
     run."""
     import tempfile
@@ -5116,25 +5197,36 @@ def _train_m_fsdp_rank(rank, world, workdir):
     from mmada_parallel_torch.cli import train_m as TM
     from mmada_parallel_torch.parallel import MeshConfig, make_mesh
     inp = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
-    mesh = make_mesh(MeshConfig(1, world, 1), "cuda")
-    with tempfile.TemporaryDirectory() as tmp:
-        cfg = _m_cli_cfg(tmp, **inp["cfg"])
-        models = _small_m_models("auto")
-        state, step, sched = TM.build_train_step(models.mcfg, models.params,
-                                                 cfg, mesh)
-        counted, records = _counted_step(step)
-        state, hist = TM.train_loop(
-            cfg, state, counted, inp["samples"], models, sched,
-            torch.Generator(device="cuda").manual_seed(16))
-    return {"history": hist, "records": records}
+    out = {}
+    for shape in inp["shapes"]:
+        mesh = make_mesh(MeshConfig(*shape), "cuda")
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = _m_cli_cfg(tmp, **inp["cfg"])
+            models = _small_m_models("auto")
+            state, step, sched = TM.build_train_step(
+                models.mcfg, models.params, cfg, mesh)
+            counted, records = _counted_step(step)
+            state, hist = TM.train_loop(
+                cfg, state, counted, inp["samples"], models, sched,
+                torch.Generator(device="cuda").manual_seed(16))
+        out[shape] = {"history": hist, "records": records}
+    return out
 
 
-def phase_train_m_fsdp() -> None:
-    """[train-m-fsdp]: ``cli/train_m.train_loop`` with ``mesh.fsdp=2`` on 2
-    ranks, the small f32 M model (2 layers, head_dim 64, the full M vocab)
-    and 2 steps of 2 microbatches of a global batch of 2; every rank
-    assembles the global batch and keeps its rows.  Its losses equal the
-    one-rank run's on the same samples (rtol 1e-5, the grad norm 1e-4)."""
+TRAIN_M_MESHES = (("train-m-fsdp", (1, 2, 1), "mesh.fsdp=2"),
+                  ("train-m-tp", (1, 1, 2), "mesh.tensor=2"))
+
+
+def phase_train_m_mesh() -> None:
+    """[train-m-fsdp] and [train-m-tp]: ``cli/train_m.train_loop`` on 2
+    ranks at ``mesh.fsdp=2`` and at ``mesh.tensor=2`` (one spawn; the small
+    model's one kv head does not split over 2, so its attention gathers
+    over ``tensor`` and runs whole while the MLP, ``wte`` and ``head``
+    split), the small f32 M model (2 layers, head_dim 64, the full M
+    vocab), 2 steps of 2 microbatches of a global batch of 2; every rank
+    assembles the global batch and keeps its rows (the ranks of one
+    ``tensor`` group the same rows).  Each run's losses equal the one-rank
+    run's on the same samples (rtol 1e-5, the grad norm 1e-4)."""
     import tempfile
     res, msl = 16, 16
     kw = dict(steps=2, msl=msl, n_vq=(res // 2) ** 2, res=res, accum=2,
@@ -5148,34 +5240,487 @@ def phase_train_m_fsdp() -> None:
         n_layers = models.mcfg.n_layers
         del models
     t0 = time.time()
-    ranks = _run_ranks("train-m-fsdp", _train_m_fsdp_rank, 2, "gloo",
-                       inputs={"cfg": kw, "samples": samples}, timeout=300)
+    ranks = _run_ranks("train-m-mesh", _train_m_mesh_rank, 2, "gloo",
+                       inputs={"cfg": kw, "samples": samples,
+                               "shapes": [m[1] for m in TRAIN_M_MESHES]},
+                       timeout=300)
     wall = time.time() - t0
     want = {n: 0 for n in KERNELS}
-    want["flash_attention_rope"] = n_layers * 2 * 2   # 1 row x 2 mb, remat
-    for r, out in enumerate(ranks):
-        if [x for x, _ in out["records"]] != [want] * 2:
-            raise AssertionError(f"[train-m-fsdp] rank {r} launches "
-                                 f"{out['records']}, expected {want} a step")
-        for i, (a, b) in enumerate(zip(out["history"], solo)):
-            for key in M_KEYS:
-                rtol = MESH_NORM_RTOL if key == "grad_norm" else \
-                    MESH_LOSS_RTOL
-                if not abs(a[key] - b[key]) <= rtol * abs(b[key]):
-                    raise AssertionError(
-                        f"[train-m-fsdp] rank {r} step {i + 1} {key} "
-                        f"{a[key]} against the one-rank run's {b[key]} "
-                        f"(rtol {rtol})")
-    h0 = ranks[0]["history"]
-    log(f"[train-m-fsdp] {MESH_LABEL}. train_loop at mesh.fsdp=2, 2 "
-        f"ranks, small f32 M model ({n_layers} layers), global batch 2 x 2 "
-        f"microbatches: losses {[round(h['loss'], 6) for h in h0]} (one "
-        f"rank {[round(h['loss'], 6) for h in solo]}), grad norms "
-        f"{[round(h['grad_norm'], 6) for h in h0]} (one rank "
-        f"{[round(h['grad_norm'], 6) for h in solo]}); K1 {want['flash_attention_rope']} a step a rank; s/step "
-        f"{[round(s, 3) for _, s in ranks[0]['records']]} (one rank "
-        f"{[round(s, 3) for _, s in solo_rec]}); {wall:.1f} s with the "
+    want["flash_attention_rope"] = n_layers * 2 * 2   # 2 mb, remat
+    for phase, shape, setting in TRAIN_M_MESHES:
+        rows = 2 // (shape[0] * shape[1])       # a rank's rows a microbatch
+        for r, res_r in enumerate(ranks):
+            out = res_r[shape]
+            if [x for x, _ in out["records"]] != [want] * 2:
+                raise AssertionError(f"[{phase}] rank {r} launches "
+                                     f"{out['records']}, expected {want} a "
+                                     f"step")
+            for i, (a, b) in enumerate(zip(out["history"], solo)):
+                for key in M_KEYS:
+                    rtol = MESH_NORM_RTOL if key == "grad_norm" else \
+                        MESH_LOSS_RTOL
+                    if not abs(a[key] - b[key]) <= rtol * abs(b[key]):
+                        raise AssertionError(
+                            f"[{phase}] rank {r} step {i + 1} {key} "
+                            f"{a[key]} against the one-rank run's {b[key]} "
+                            f"(rtol {rtol})")
+        h0 = ranks[0][shape]["history"]
+        log(f"[{phase}] {MESH_LABEL}. train_loop at {setting}, 2 ranks, "
+            f"small f32 M model ({n_layers} layers), global batch 2 x 2 "
+            f"microbatches ({rows} row{'s' if rows > 1 else ''} a rank): "
+            f"losses {[round(h['loss'], 6) for h in h0]} (one rank "
+            f"{[round(h['loss'], 6) for h in solo]}), grad norms "
+            f"{[round(h['grad_norm'], 6) for h in h0]} (one rank "
+            f"{[round(h['grad_norm'], 6) for h in solo]}); K1 "
+            f"{want['flash_attention_rope']} a step a rank; s/step "
+            f"{[round(s, 3) for _, s in ranks[0][shape]['records']]} (one "
+            f"rank {[round(s, 3) for _, s in solo_rec]})")
+    log(f"[train-m-fsdp] [train-m-tp] {wall:.1f} s with the spawn")
+
+
+# ---------------------------------------------------------------------------
+# Megatron tensor parallelism over the mesh's tensor axis: ranks on the card
+# ---------------------------------------------------------------------------
+
+TP_G = 2                  # the tensor ranks of [tp-forward], [int8-tp]
+# [int8-tp]: the row-parallel leaves all-reduce their amax (max) and their
+# int32 accumulators (sum), both exact, so the split forward is the
+# unsharded one; a rank quantizing against its own amax moves each GEMM by
+# int8 noise (~1/127), which the ring's bf16 gate (0.015) would not see.
+INT8_TP_REL_L2 = 1e-6
+TP_H = EDIT_H // TP_G     # a rank's heads at 8B
+TP_LABEL = ("2 ranks sharing one card over host-staged gloo: not a "
+            "multi-GPU time")
+
+
+def phase_kernel_tp() -> tuple:
+    """K1 and K2 at a ``tensor`` rank's heads at 8B and g=2 (16 of 32):
+    K1 at the exact edit's and the train step's B=1 L=2424 (bound 4 B H L^2
+    D / 989 TFLOP/s = 0.0487 ms), K2 at the cached edit's partial step
+    (Lq=16 of Lk=2424).  Returns their records."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    k1 = _kernel_case("tp/H16", 1, EDIT_L, EDIT_L, TP_H, TP_H, EDIT_D,
+                      torch.bfloat16, BF16_TOL, gen, timed=True)
+    k2 = _qonly_case("tp/H16", 1, 16, EDIT_L, TP_H, TP_H, EDIT_D,
+                     torch.bfloat16, BF16_TOL, gen, timed=True)
+    log(f"[kernel] at a tensor rank's heads, g={TP_G} (H={TP_H}): K1 B=1 "
+        f"L={EDIT_L} {k1['ms']:.3f} ms, bound {k1['bound_ms']:.4f} ms "
+        f"({k1['bound_by']}), {100 * k1['bound_ms'] / k1['ms']:.1f} % of "
+        f"bound; K2 B=1 Lq=16 Lk={EDIT_L} (split {k2['splits']}) "
+        f"{k2['ms']:.3f} ms, bound {k2['bound_ms']:.4f} ms, "
+        f"{100 * k2['bound_ms'] / k2['ms']:.1f} % of bound")
+    return dict(k1, library_ms=None), dict(k2, library_ms=None)
+
+
+def _tp_forward_rank(rank, world, workdir):
+    """[tp-forward] and [int8-tp] on one rank of the ``(1, 1, g)`` mesh:
+    the 8B tree drawn from seed 0 in turn (rank 0 also runs the solo
+    forward), this rank's ``param_shardings`` slices kept; one forward
+    over the mesh (its all-reduce bytes and seconds counted), the exact
+    edit and the cached edit through the samplers; then the same tree
+    quantized, placed by ``quantize_param_shardings``, one forward."""
+    import torch
+    import torch.distributed as dist
+    from mmada_parallel_torch import tokens as tk
+    from mmada_parallel_torch.models.llada import (LLaDAConfig,
+                                                   init_llada_params,
+                                                   llada_head, llada_hidden,
+                                                   param_shardings)
+    from mmada_parallel_torch.ops import sampling as S
+    from mmada_parallel_torch.ops.quant import (quantize_llada_params,
+                                                quantize_param_shardings)
+    from mmada_parallel_torch.parallel import (MeshConfig, make_mesh,
+                                               shard_params)
+    from mmada_parallel_torch.parallel.tensor import MeshGather
+    from mmada_parallel_torch.samplers.parallel_ti2ti import (
+        TI2TIOptions, cached_refresh_schedule, generate_ti2ti,
+        generate_ti2ti_cached)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = LLaDAConfig.llada_8b(param_dtype=torch.bfloat16,
+                               compute_dtype=torch.bfloat16)
+    T = tk.TOKENS_A
+    mesh = make_mesh(MeshConfig(data=1, fsdp=1, tensor=world), "cuda")
+    prompts, row, prefix = _ring_requests()
+    ids = torch.as_tensor(row, device=dev)[None]
+    _, layout = tk.assemble_ti2ti_sequence(prompts[0], 256, 32, 32,
+                                           [T.answer_end], tokens=T)
+    image = (T.text_vocab_size, T.codebook_size)
+    out = {}
+
+    def draw(name, quantized):
+        t0 = time.time()
+        for turn in range(world):      # one full tree on the card at a time
+            if rank == turn:
+                torch.cuda.reset_peak_memory_stats()
+                full = init_llada_params(
+                    cfg, torch.Generator(device=dev).manual_seed(0))
+                specs = param_shardings(cfg)
+                if quantized:
+                    full = quantize_llada_params(full)
+                    specs = quantize_param_shardings(specs)
+                if rank == 0:
+                    with torch.inference_mode():
+                        reset_launches()
+                        h = llada_hidden(full, cfg, ids)
+                        out[f"{name}_solo"] = (
+                            h.cpu(), llada_head(full, cfg, h[:, :64],
+                                                vocab_slice=image).cpu(),
+                            read_launches())
+                mine = shard_params(full, specs, mesh)
+                del full
+                torch.cuda.synchronize()
+                out[f"{name}_draw_peak"] = torch.cuda.max_memory_allocated()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        out[f"{name}_draw_s"] = time.time() - t0
+        out[f"{name}_held"] = sum(
+            t.numel() * t.element_size() for t in _leaves(dict(mine))
+            .values())
+        return mine
+
+    def forward(name, params):
+        tally = {}
+        with torch.inference_mode():
+            llada_hidden(params, cfg, ids)                  # warm
+            tally.clear()
+            torch.cuda.synchronize()
+            reset_launches()
+            t1 = time.perf_counter()
+            h = llada_hidden(params, cfg, ids,
+                             gather=MeshGather(mesh, params.specs, cfg,
+                                               tally))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t1
+            logits = llada_head(params, cfg, h[:, :64], vocab_slice=image)
+        out[f"{name}_fwd"] = {"s": dt, "launches": read_launches(),
+                              "reduced": tally.get("reduced", 0),
+                              "reduced_s": tally.get("reduced_seconds", 0.0)}
+        if rank == 0:
+            out[f"{name}_tp"] = (h.cpu(), logits.cpu())
+
+    params = draw("bf16", False)
+    torch.cuda.reset_peak_memory_stats()
+    forward("bf16", params)
+    runs = {"exact": (TI2TIOptions(text_steps=4, timesteps=2,
+                                   temperature=0.0, text_temperature=0.0,
+                                   cfg_img=4.0), generate_ti2ti),
+            "cached": (TI2TIOptions(text_steps=8, timesteps=2,
+                                    temperature=0.0, text_temperature=0.0,
+                                    cfg_img=4.0), generate_ti2ti_cached)}
+    for name, (opts, sampler) in runs.items():
+        n_img = int(S.image_step_mask(opts.text_steps, opts.timesteps).sum())
+        n_partial = int((~cached_refresh_schedule(
+            opts.text_steps, opts.timesteps)).sum())
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            reset_launches()
+            t1 = time.perf_counter()
+            fin, codes = sampler(params, cfg, ids, layout, opts,
+                                 uncond_image_prefix=prefix)
+            torch.cuda.synchronize()
+        out[f"edit_{name}"] = {"s": time.perf_counter() - t1,
+                               "launches": read_launches(),
+                               "fin": fin.cpu(), "codes": codes.cpu(),
+                               "n_img": n_img, "n_partial": n_partial,
+                               "text_steps": opts.text_steps}
+    out["bf16_peak"] = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+    dist.barrier()
+    params = draw("int8", True)
+    forward("int8", params)
+    return out
+
+
+def _rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def phase_tp_forward() -> dict:
+    """[tp-forward] and [int8-tp]: ``llada_8b()``, all 32 layers, bf16 from
+    seed 0, Megatron tensor parallelism at g=2 on 2 ranks sharing the
+    card: one forward's hidden state against the solo K1 forward (relative
+    L2 within the ring's bf16 gate, 0.015: the row-parallel all-reduce sums
+    in bf16), the exact edit (4 text + 2 image steps, ``cfg_img`` 4.0) and
+    the cached edit (8 + 2) through the samplers over the mesh (codes in
+    range, every rank rank 0's ids, exact K1/K2 counts at 16 heads); then
+    the tree quantized and placed by ``quantize_param_shardings`` against
+    the unsharded int8 forward (``INT8_TP_REL_L2``).  Returns rank 0's launches of the exact
+    edit (K1) and of the cached edit (K2)."""
+    import torch
+    from mmada_parallel_torch.models.llada import LLaDAConfig
+    n_layers = LLaDAConfig.llada_8b().n_layers
+    t0 = time.time()
+    ranks = _run_ranks("tp-forward", _tp_forward_rank, TP_G, "gloo",
+                       timeout=600)
+    wall = time.time() - t0
+    r0 = ranks[0]
+    for name in ("bf16", "int8"):
+        h_solo, l_solo, solo_launches = r0[f"{name}_solo"]
+        h_tp, l_tp = r0[f"{name}_tp"]
+        rel, mx = _rel_l2(h_tp, h_solo), float(
+            (h_tp.float() - h_solo.float()).abs().max())
+        rel_l = _rel_l2(l_tp, l_solo)
+        phase = "tp-forward" if name == "bf16" else "int8-tp"
+        if solo_launches["flash_attention_rope"] != n_layers:
+            raise AssertionError(f"[{phase}] solo launches {solo_launches}")
+        if name == "bf16":
+            bounds = f"{RING_BF16_REL_L2}, {RING_BF16_MAX}"
+            ok = (rel <= RING_BF16_REL_L2 and mx <= RING_BF16_MAX
+                  and rel_l <= RING_BF16_REL_L2)
+        else:
+            bounds = f"{INT8_TP_REL_L2}"
+            ok = rel <= INT8_TP_REL_L2 and rel_l <= INT8_TP_REL_L2
+        if not ok:
+            raise AssertionError(
+                f"[{phase}] hidden over the mesh vs the solo forward: "
+                f"relative L2 {rel:.4e}, max {mx:.4e}, image logits "
+                f"relative L2 {rel_l:.4e} (bounds {bounds})")
+        for r, res in enumerate(ranks):
+            got = res[f"{name}_fwd"]["launches"]
+            if got != {**{k: 0 for k in got},
+                       "flash_attention_rope": n_layers}:
+                raise AssertionError(f"[{phase}] rank {r} forward launches "
+                                     f"{got}")
+        f = r0[f"{name}_fwd"]
+        log(f"[{phase}] {TP_LABEL}. llada_8b, {n_layers} layers, "
+            f"{'bf16' if name == 'bf16' else 'W8A8 (quantize_param_shardings)'}"
+            f", g={TP_G}: hidden B=1 L={EDIT_L} vs the solo "
+            f"{'K1' if name == 'bf16' else 'int8'} forward: relative L2 "
+            f"{rel:.4e}, max |diff| {mx:.4e}, image-slice logits relative "
+            f"L2 {rel_l:.4e} (bounds {bounds}); "
+            f"each rank holds {r0[f'{name}_held'] / 1e9:.3f} GB of weights; "
+            f"forward {f['s']:.3f} s, all-reduces {f['reduced'] / 1e9:.3f} "
+            f"GB a rank in {f['reduced_s']:.3f} s "
+            f"({100 * f['reduced_s'] / f['s']:.1f} % of the forward); K1 "
+            f"{n_layers} a rank at {TP_H} heads; draw peaks by rank "
+            f"{[round(x[f'{name}_draw_peak'] / 2 ** 30, 2) for x in ranks]} "
+            f"GiB, the draws {r0[f'{name}_draw_s']:.1f} s")
+    launches = {}
+    for name in ("exact", "cached"):
+        e = r0[f"edit_{name}"]
+        forwards = e["text_steps"] + e["n_img"]
+        want = {"flash_attention_rope": n_layers * forwards,
+                "flash_attention_rope_qonly": 0}
+        if name == "cached":
+            want = {"flash_attention_rope": n_layers * e["n_img"],
+                    "flash_attention_rope_qonly": n_layers * e["text_steps"]}
+            if e["n_partial"] < 1:
+                raise AssertionError("[tp-forward] the cached schedule has "
+                                     "no partial step")
+        for r, res in enumerate(ranks):
+            mine = res[f"edit_{name}"]
+            got = mine["launches"]
+            if got != {**{k: 0 for k in got}, **want}:
+                raise AssertionError(f"[tp-forward] rank {r} {name} edit "
+                                     f"launches {got}, expected {want}")
+            if not (torch.equal(mine["fin"], e["fin"])
+                    and torch.equal(mine["codes"], e["codes"])):
+                raise AssertionError(f"[tp-forward] rank {r}'s {name} ids "
+                                     f"differ from rank 0's")
+        c = e["codes"]
+        if c.shape != (1, 1024) or c.min() < 0 or c.max() >= 8192:
+            raise AssertionError(f"[tp-forward] {name} edit: codes out of "
+                                 f"range or shape {tuple(c.shape)}")
+        launches[name] = want
+        log(f"[tp-forward] {name} edit over the mesh, {e['text_steps']} "
+            f"text + {e['n_img']} image steps"
+            + (f" ({e['n_partial']} partial)" if name == "cached" else "")
+            + f", cfg_img 4.0: {e['s']:.2f} s, every rank's ids == rank "
+            f"0's, codes in range; launches a rank {want}")
+    log(f"[tp-forward] peaks by rank while serving "
+        f"{[round(x['bf16_peak'] / 2 ** 30, 2) for x in ranks]} GiB; the "
+        f"phase {wall:.1f} s with the spawn")
+    return {"flash_attention_rope":
+            launches["exact"]["flash_attention_rope"],
+            "flash_attention_rope_qonly":
+            launches["cached"]["flash_attention_rope_qonly"]}
+
+
+def phase_train_a_tp() -> dict:
+    """[train-a-tp]: ``train_a --mesh_tensor 2`` with no ring (Megatron's
+    split, ``parallel/tensor.py``) at the 8B widths, 2 of 32 layers, f32
+    params, remat, one row of 2424, 2 steps in f32 on the mesh (1, 1, 2);
+    then (1, 2, 2) on 4 ranks in f32 and bf16, one row a data-parallel
+    rank, 2 steps each.  The f32 gates of ``[train-a-fsdp]`` against the
+    solo step, each leaf's included; bf16 within ``TP_BF16_RTOL`` of the
+    solo bf16 step.  Each
+    line prints the bytes a rank all-reduces over ``tensor`` a step and
+    their share of the step.  Returns rank 0's f32 run on (1, 1, 2)."""
+    out = _mesh_phase("train-a-tp", "tensor", ("full",), 2,
+                      precisions=("f32",), shape=(1, 1, 2))
+    run = out["ranks"][0][("full", "f32")]
+    del out
+    _mesh_phase("train-a-tp", "tensor", ("full",), 4, shape=(1, 2, 2),
+                bf16_rtol=TP_BF16_RTOL)
+    return run
+
+
+def _tp_small_model():
+    """A small f32 A model whose heads split over 2 (2 heads of 64, 2 kv),
+    from seed 23."""
+    import torch
+    from mmada_parallel_torch import tokens as tk
+    from mmada_parallel_torch.models.llada import (LLaDAConfig,
+                                                   init_llada_params)
+    cfg = LLaDAConfig.tiny(d_model=128, n_heads=2, n_kv_heads=2,
+                           vocab_size=tk.TOKENS_A.full_vocab_size)
+    return cfg, init_llada_params(
+        cfg, torch.Generator(device="cuda").manual_seed(23))
+
+
+def _eval_mesh_sweep(mesh=None, temperature=0.0):
+    """``run_parabench_sweep`` of 3 prompts (buckets 64 and 128,
+    ``batch_size`` 2) on the small model at ``temperature`` (text and
+    image), over ``mesh`` with its slices or whole; returns ``({text/codes
+    by request}, K1 launches)``."""
+    import numpy as np
+    from mmada_parallel_torch import evaluation as EV
+    from mmada_parallel_torch import tokens as tk
+    from mmada_parallel_torch.models.llada import param_shardings
+    from mmada_parallel_torch.parallel import shard_params
+    from mmada_parallel_torch.samplers import parallel_ti2ti as PT
+    cfg, params = _tp_small_model()
+    if mesh is not None:
+        params = shard_params(params, param_shardings(cfg), mesh)
+    ids = StandInTokenizer()(T2I_PROMPT)["input_ids"]
+    prompts = [ids, ids[:30], ids + ids[1:40]]
+    opts = PT.TI2TIOptions(text_steps=8, timesteps=4,
+                           temperature=temperature,
+                           text_temperature=temperature, cfg_img=2.0)
+    reset_launches()
+    out = EV.run_parabench_sweep(
+        params, cfg, [EV.EvalRequest(p) for p in prompts], (4, 4), 16,
+        [tk.TOKENS_A.answer_end], opts, batch_size=2,
+        uncond_image_prefix=np.asarray(ids[:10], np.int64), seed=5,
+        mesh=mesh)
+    return ({f"{k}{r['index']}": np.asarray(r[k]) for r in out["results"]
+             for k in ("text", "codes")},
+            read_launches()["flash_attention_rope"])
+
+
+def _check_eval_mesh(ranks, want, launches, how: str) -> None:
+    """[eval-edit-mesh]: ``run_parabench_sweep(mesh=)`` on 2 ranks with
+    the small f32 model (``how``: the ``(1, 1, 2)`` mesh, its 2 heads split
+    over ``tensor``, at temperature 0; the ``(2, 1, 1)`` mesh, a row a rank
+    of each chunk, at temperature 1): every rank's texts and codes equal
+    the one-rank sweep's, with its K1 count."""
+    import numpy as np
+    for r, (got, n) in enumerate(ranks):
+        if n != launches or set(got) != set(want) or not all(
+                np.array_equal(got[k], want[k]) for k in want):
+            raise AssertionError(f"[eval-edit-mesh] {how}, rank {r}: K1 {n} "
+                                 f"(one rank {launches}) or results differ")
+    log(f"[eval-edit-mesh] {TP_LABEL}. run_parabench_sweep(mesh=) {how}, "
+        f"3 requests in 2 buckets, small f32 model: every rank's texts and "
+        f"codes == the one-rank sweep's; K1 {launches} a rank")
+
+
+def _pararl_mesh_update(mesh=None) -> dict:
+    """One rollout of 2 and one update of ``cli/train_pararl``'s builders
+    on the small model (placed by ``param_shardings`` over ``mesh``, JAX's
+    ``MeshConfig()``), the update with rewards 0 and 1; metrics, K1 counts
+    and the parameters before and after."""
+    import torch
+    from mmada_parallel_torch import tokens as tk
+    from mmada_parallel_torch.cli import train_pararl as RL
+    from mmada_parallel_torch.models.llada import param_shardings
+    from mmada_parallel_torch.parallel import shard_params
+    from mmada_parallel_torch.samplers.parallel_ti2ti import TI2TIOptions
+    from mmada_parallel_torch.training.pararl import RewardSpec
+    cfg, params = _tp_small_model()
+    init = {k: v.detach().cpu().clone() for k, v in _leaves(params).items()}
+    if mesh is not None:
+        params = shard_params(params, param_shardings(cfg), mesh)
+    A = tk.TOKENS_A
+    ids = StandInTokenizer()("make the sky purple")["input_ids"]
+    seqs, layout = RL.rollout_sequences([ids, ids[:30]], A, 4, 16)
+    opts = TI2TIOptions(text_steps=8, timesteps=4, temperature=1.0,
+                        text_temperature=0.7, cfg_scale=0.0, cfg_img=0.0)
+    sub = RL.subsample_steps(opts.text_steps, 4)
+    state, step = RL.build_update(cfg, params, opts, 1e-3, sub)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    reset_launches()
+    batch = RL.rollout_and_score(state.params, cfg,
+                                 torch.as_tensor(seqs, device="cuda"),
+                                 layout, opts, RewardSpec(
+                                     fns=[RL.default_reward],
+                                     weights=[1.0]), gen)
+    rollout = read_launches()["flash_attention_rope"]
+    reset_launches()
+    # fixed rewards (advantages +-0.5): the update is never zero
+    state, m = step(state, (batch[0], torch.tensor([0.0, 1.0],
+                                                   device="cuda")), gen)
+    return {"metrics": {k: float(v) for k, v in m.items()}, "init": init,
+            "launches": (rollout, read_launches()["flash_attention_rope"],
+                         cfg.n_layers * opts.text_steps,
+                         cfg.n_layers * len(sub)),
+            "params": {k: v.detach().cpu()
+                       for k, v in _leaves(dict(state.params)).items()}}
+
+
+def _small_mesh_rank(rank, world, workdir):
+    """[eval-edit-mesh] and [pararl-mesh] on one rank."""
+    from mmada_parallel_torch.parallel import MeshConfig, make_mesh
+    return (_eval_mesh_sweep(make_mesh(MeshConfig(1, 1, world), "cuda")),
+            _pararl_mesh_update(make_mesh(MeshConfig(), "cuda")),
+            _eval_mesh_sweep(make_mesh(MeshConfig(world, 1, 1), "cuda"),
+                             temperature=1.0))
+
+
+def phase_small_mesh() -> None:
+    """[eval-edit-mesh] and [pararl-mesh] in one spawn of 2 ranks, each
+    against its one-rank run (:func:`_check_eval_mesh`,
+    :func:`_check_pararl_mesh`)."""
+    want_eval, launches = _eval_mesh_sweep()
+    want_rl = _pararl_mesh_update()
+    want_hot, launches_hot = _eval_mesh_sweep(temperature=1.0)
+    t0 = time.time()
+    ranks = _run_ranks("small-mesh", _small_mesh_rank, 2, "gloo",
+                       timeout=300)
+    _check_eval_mesh([r[0] for r in ranks], want_eval, launches,
+                     "at tensor=2, temperature 0")
+    _check_pararl_mesh([r[1] for r in ranks], want_rl)
+    _check_eval_mesh([r[2] for r in ranks], want_hot, launches_hot,
+                     "at data=2, temperature 1")
+    log(f"[eval-edit-mesh] [pararl-mesh] {time.time() - t0:.1f} s with the "
         f"spawn")
+
+
+def _check_pararl_mesh(ranks, want) -> None:
+    """[pararl-mesh]: ``cli/train_pararl``'s rollout and update under JAX's
+    ``MeshConfig()`` (``data`` = 2 ranks, the parameters placed by
+    ``param_shardings``: whole on that mesh) equal the one-rank update:
+    loss rtol 1e-5, grad norm 1e-4, each leaf within 1e-3 of the update in
+    relative L2; exact K1 counts."""
+    worst = 0.0
+    for r, got in enumerate(ranks):
+        ro, up, want_ro, want_up = got["launches"]
+        if (ro, up) != (want_ro, want_up):
+            raise AssertionError(f"[pararl-mesh] rank {r} launches "
+                                 f"{got['launches']}")
+        for key, rtol in (("loss", MESH_LOSS_RTOL),
+                          ("grad_norm", MESH_NORM_RTOL)):
+            a, b = got["metrics"][key], want["metrics"][key]
+            if not abs(a - b) <= rtol * abs(b):
+                raise AssertionError(f"[pararl-mesh] rank {r} {key} {a} "
+                                     f"against one rank's {b}")
+        for k, v in want["params"].items():
+            moved = float((v - want["init"][k]).norm())
+            rel = float((got["params"][k] - v).norm()) / max(moved, 1e-30)
+            worst = max(worst, rel)
+            if not rel <= MESH_PARAM_REL_L2:
+                raise AssertionError(f"[pararl-mesh] rank {r} {k}: relative "
+                                     f"L2 {rel:.3e} of the update")
+    log(f"[pararl-mesh] {TP_LABEL}. train_pararl's rollout + update under "
+        f"MeshConfig() (data=2): loss {ranks[0]['metrics']['loss']:.6f} "
+        f"(one rank {want['metrics']['loss']:.6f}), grad norm "
+        f"{ranks[0]['metrics']['grad_norm']:.6f} (one rank "
+        f"{want['metrics']['grad_norm']:.6f}), largest relative L2 of a "
+        f"leaf's difference to its update {worst:.3e} (bound "
+        f"{MESH_PARAM_REL_L2}); K1 {want['launches'][2]} a rollout, "
+        f"{want['launches'][3]} an update")
 
 
 def main() -> int:
@@ -5196,6 +5741,7 @@ def main() -> int:
                "flash_attention": phase_kernel_blhd(),
                "flash_attention_rope_prefix": phase_kernel_prefix()}
     ring_record, ring_train_record = phase_kernel_ring()
+    tp_record, tp_cached_record = phase_kernel_tp()
     prefix_launches = phase_prefix_crossover()
     phase_kernel_grads()
     mark("phase 2 (kernels)")
@@ -5208,6 +5754,7 @@ def main() -> int:
     phase_small_eval()
     phase_ring_small()
     phase_ring_nccl()
+    phase_small_mesh()
     mark("phase 3 (small models)")
     full = make_full_width(torch.Generator(device="cuda").manual_seed(0))
     launches = {"flash_attention_rope": phase_edit(full),
@@ -5235,6 +5782,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     ring_launches = phase_serve_a_ring()
     mark("phase 4 (the ring at full width)")
+    tp_launches = phase_tp_forward()
+    mark("phase 4 (tensor parallelism at full width)")
     a_run = phase_train_a()
     phase_train_m(a_run)
     del a_run
@@ -5247,8 +5796,10 @@ def main() -> int:
     mark("phase 5 (training) up to the mesh")
     fsdp_run = phase_train_a_fsdp()
     ring_train_run = phase_train_a_ring()
-    phase_train_m_fsdp()
+    phase_train_m_mesh()
     phase_fsdp_nccl()
+    mark("phase 5 (training) up to tensor parallelism")
+    tp_train_run = phase_train_a_tp()
     gc.collect()
     torch.cuda.empty_cache()
     mark("phase 5 (training) up to ParaRL")
@@ -5281,11 +5832,20 @@ def main() -> int:
             ("flash_attention_rope", "train-a-fsdp", fsdp_run,
              records["flash_attention_rope"]),
             ("flash_attention_rope_qonly", "train-a-ring", ring_train_run,
-             ring_train_record)):
+             ring_train_record),
+            ("flash_attention_rope", "train-a-tp", tp_train_run, tp_record)):
         src, replaces = KERNELS[name]
         kernels.append({"name": f"{name}/{path}", "route": "cuda",
                         "source": src, "replaces": replaces,
                         "launches": sum(x[name] for x in run["launches"]),
+                        **{f: record[f] for f in fields}})
+    for name, path, record in (
+            ("flash_attention_rope", "tp-forward", tp_record),
+            ("flash_attention_rope_qonly", "tp-cached", tp_cached_record)):
+        src, replaces = KERNELS[name]
+        kernels.append({"name": f"{name}/{path}", "route": "cuda",
+                        "source": src, "replaces": replaces,
+                        "launches": tp_launches[name],
                         **{f: record[f] for f in fields}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

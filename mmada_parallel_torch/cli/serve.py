@@ -247,10 +247,10 @@ def main(argv=None):
             params, quantize_head="bf16head" not in args.quant)
     hidden_fn = None
     if mesh is not None:
+        from mmada_parallel_torch.models.llada import param_shardings
         from mmada_parallel_torch.parallel import shard_params
-        from mmada_parallel_torch.parallel.tp_overlap import (
-            ring_hidden_fn, ring_param_shardings)
-        params = shard_params(params, ring_param_shardings(cfg), mesh)
+        from mmada_parallel_torch.parallel.tp_overlap import ring_hidden_fn
+        params = shard_params(params, param_shardings(cfg), mesh)
         hidden_fn = ring_hidden_fn(mesh, int8_payload=args.tp_ring_int8)
 
     a_encode = None

@@ -13,8 +13,9 @@ the port's copies of the JAX package's host modules, imported inside
 
 Under ``torchrun`` the ranks form the ``(data, fsdp, tensor)`` mesh:
 ``--mesh_fsdp`` with ``--shard_strategy`` (``full``, ``zero2``, ``ddp``)
-shards over ``fsdp``, and ``--tp_ring --mesh_tensor g`` runs the backbone on
-the ring (``parallel/tp_overlap.py``).  Each data-parallel rank draws its
+shards over ``fsdp``, ``--mesh_tensor g`` splits heads, MLP hidden and vocab
+over ``tensor`` (Megatron, ``parallel/tensor.py``), and ``--tp_ring
+--mesh_tensor g`` runs the backbone on the ring (``parallel/tp_overlap.py``).  Each data-parallel rank draws its
 own rows, the ranks of one ring the same rows; only rank 0 logs, and the
 checkpoint is sharded (``training/checkpoint.py``).
 
@@ -66,7 +67,8 @@ def build_parser():
                    help="fsdp-axis policy: full=FULL_SHARD/ZeRO-3, "
                         "zero2=SHARD_GRAD_OP, ddp=NO_SHARD")
     p.add_argument("--mesh_tensor", type=int, default=1,
-                   help="ranks of the tensor axis; > 1 needs --tp_ring")
+                   help="ranks of the tensor axis: Megatron tensor "
+                        "parallelism, or the ring with --tp_ring")
     p.add_argument("--tp_ring", action="store_true",
                    help="run the backbone on the ring tensor-parallel path "
                         "(parallel/tp_overlap.py); needs --mesh_tensor >= "
@@ -96,8 +98,11 @@ def build_train_step(cfg, params, *, lr: float, min_lr: float, wd: float,
     With a ``mesh``, ``state`` holds this rank's slices and ``step`` (with
     its spec tree as ``step.state_specs``) runs the sharded step:
     ``shard_strategy`` over ``fsdp`` on this rank's rows, or, with
-    ``tp_ring``, the ring backbone on the whole batch.  ``tally`` counts
-    the bytes and seconds of the FSDP gathers (``parallel/fsdp.py``)."""
+    ``tp_ring``, the ring backbone on the whole batch; a ``tensor`` axis
+    without the ring runs Megatron's split (``parallel/tensor.py``) under
+    any ``shard_strategy``.  ``tally`` counts the bytes and seconds of the
+    FSDP gathers and the ``tensor`` collectives (``gathered``,
+    ``scattered``, ``reduced``)."""
     from mmada_parallel_torch.models.llada import (llada_forward,
                                                    param_shardings)
     from mmada_parallel_torch.training.losses import a_variant_losses
@@ -114,20 +119,19 @@ def build_train_step(cfg, params, *, lr: float, min_lr: float, wd: float,
                                          shard_strategy=shard_strategy),
                          params)
     if mesh is not None:
-        from mmada_parallel_torch.parallel.fsdp import FsdpGather
         from mmada_parallel_torch.parallel.mesh import \
             dp_groups as data_parallel_groups
-        from mmada_parallel_torch.parallel.tp_overlap import (
-            llada_forward_tp_overlap, ring_param_shardings)
-        specs = (ring_param_shardings(cfg) if tp_ring
-                 else param_shardings(cfg))
+        from mmada_parallel_torch.parallel.tensor import MeshGather
+        from mmada_parallel_torch.parallel.tp_overlap import \
+            llada_forward_tp_overlap
         state, p_specs, o_specs = create_sharded_state(
-            params, opt, specs, mesh, "full" if tp_ring else shard_strategy)
+            params, opt, param_shardings(cfg), mesh,
+            "full" if tp_ring else shard_strategy)
         if tp_ring:
             forward = (lambda p, ids: llada_forward_tp_overlap(p, cfg, ids,
                                                                mesh))
         else:
-            gather = FsdpGather(mesh, p_specs, tally)
+            gather = MeshGather(mesh, p_specs, cfg, tally)
             forward = (lambda p, ids: llada_forward(p, cfg, ids,
                                                     gather=gather))
             dp_groups = data_parallel_groups(mesh)
@@ -152,11 +156,6 @@ def build_train_step(cfg, params, *, lr: float, min_lr: float, wd: float,
 def check_mesh_flags(mesh_fsdp: int, mesh_tensor: int, tp_ring: bool,
                      world: int) -> None:
     """Raise ``SystemExit`` on mesh flags the port cannot run."""
-    if mesh_tensor > 1 and not tp_ring:
-        raise SystemExit(
-            "--mesh_tensor > 1 without --tp_ring is plain Megatron tensor "
-            "parallelism, which is not ported (ROADMAP Queue 1, item "
-            "16b.11): add --tp_ring")
     if tp_ring and (mesh_tensor < 2 or mesh_fsdp != 1):
         raise SystemExit("--tp_ring needs --mesh_tensor >= 2 and "
                          "--mesh_fsdp 1 (ring TP shards the sequence "

@@ -12,13 +12,14 @@ Counterpart of :mod:`mmada_parallel_tpu.cli.train_m`: the same ``DEFAULTS``,
 command line (``config=`` plus dotted overrides), loop, logging,
 checkpoints and validators, plus a ``device`` key (default ``cuda``; a
 missing card raises).  Under ``torchrun`` the ranks form the ``(data,
-fsdp, 1)`` mesh: ``mesh.fsdp`` with ``training.shard_strategy`` (``full``,
-``zero2``, ``ddp``) shards over ``fsdp``, the rest of the world is
-``data``.  As in JAX, ``training.batch_size`` is global: every rank
-assembles the same batch from the same stream and generator and keeps its
-rows of each microbatch; only rank 0 logs and validates, and the checkpoint
-is sharded.  ``mesh.tensor > 1`` (tensor parallelism; the JAX M trainer has
-no ring) raises.
+fsdp, tensor)`` mesh: ``mesh.fsdp`` with ``training.shard_strategy``
+(``full``, ``zero2``, ``ddp``) shards over ``fsdp``, ``mesh.tensor`` splits
+heads, MLP hidden and vocab over ``tensor`` (Megatron,
+``parallel/tensor.py``), the rest of the world is ``data``.  As in JAX,
+``training.batch_size`` is global: every rank assembles the same batch from
+the same stream and generator and keeps its rows of each microbatch (the
+ranks of one ``tensor`` group the same rows); only rank 0 logs and
+validates, and the checkpoint is sharded.
 
     torchrun --nproc_per_node 2 -m mmada_parallel_torch.cli.train_m \
         config=configs/train_m.yaml mesh.fsdp=2
@@ -289,14 +290,9 @@ def _check_mesh(cfg, world: int) -> None:
     if strategy not in ("full", "zero2", "ddp"):
         raise SystemExit(f"unknown shard_strategy: {strategy} (full, zero2 "
                          f"or ddp)")
-    if cfg.mesh.tensor != 1:
-        raise SystemExit(
-            "mesh.tensor > 1 is plain Megatron tensor parallelism in "
-            "training, which is not ported (ROADMAP Queue 1, item 16b.11); "
-            "the JAX M trainer has no ring")
-    if world == 1 and cfg.mesh.fsdp != 1:
-        raise SystemExit("mesh.fsdp > 1 needs the ranks of a torchrun "
-                         "world (one process has one device)")
+    if world == 1 and (cfg.mesh.fsdp != 1 or cfg.mesh.tensor != 1):
+        raise SystemExit("mesh.fsdp and mesh.tensor > 1 need the ranks of "
+                         "a torchrun world (one process has one device)")
 
 
 def _device(name: str):
@@ -386,7 +382,8 @@ def build_train_step(mcfg, params, cfg, mesh=None, tally=None):
     With a ``mesh`` the state holds this rank's slices under
     ``training.shard_strategy`` and ``step`` takes the *global* batch and
     keeps this rank's rows of each microbatch (``local_rows``); its spec
-    tree is ``step.state_specs``, and ``tally`` counts the FSDP gathers."""
+    tree is ``step.state_specs``, and ``tally`` counts the FSDP gathers and
+    the ``tensor`` collectives."""
     from mmada_parallel_torch.training.lr_schedules import get_scheduler
     from mmada_parallel_torch.training.trainer import (OptimizerConfig,
                                                        TrainState,
@@ -407,15 +404,15 @@ def build_train_step(mcfg, params, cfg, mesh=None, tally=None):
         return TrainState.create(params, opt), step, sched
 
     from mmada_parallel_torch.models.llada import param_shardings
-    from mmada_parallel_torch.parallel.fsdp import FsdpGather
     from mmada_parallel_torch.parallel.mesh import dp_groups, local_rows
+    from mmada_parallel_torch.parallel.tensor import MeshGather
     from mmada_parallel_torch.training.trainer import (
         create_sharded_state, make_sharded_train_step, state_shardings)
     state, p_specs, o_specs = create_sharded_state(
         params, opt, param_shardings(mcfg), mesh, strategy)
     inner = make_sharded_train_step(
         make_loss_fn(mcfg, cfg, dp_groups(mesh),
-                     FsdpGather(mesh, p_specs, tally)),
+                     MeshGather(mesh, p_specs, mcfg, tally)),
         opt, mesh, p_specs, o_specs, accum_steps=accum)
 
     def step(state, batch, generator=None):
@@ -603,7 +600,8 @@ def main(argv=None):
                                                              0)))
         if device.type == "cuda":
             torch.cuda.set_device(device)
-        mesh = make_mesh(MeshConfig(data=-1, fsdp=cfg.mesh.fsdp, tensor=1),
+        mesh = make_mesh(MeshConfig(data=-1, fsdp=cfg.mesh.fsdp,
+                                    tensor=cfg.mesh.tensor),
                          device.type)
     is_main = mesh is None or dist.get_rank() == 0
     tr = cfg.training

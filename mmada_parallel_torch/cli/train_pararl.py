@@ -6,9 +6,14 @@ does not move to the CPU): sample trajectories from the current policy with
 the TI2TI sampler's step, score the final (text, image) pairs with reward
 callables, and apply REINFORCE updates through the per-step commit
 log-probabilities (:mod:`mmada_parallel_torch.training.pararl`), with the
-port's AdamW, train step and checkpoints.  One device: the JAX loop's mesh
-is its one-device default here (ParaRL over a mesh is ROADMAP Queue 1,
-item 16b).
+port's AdamW, train step and checkpoints.  Under ``torchrun`` the ranks
+form JAX's ``MeshConfig()`` (``data`` = the world) and place the parameters
+with ``param_shardings`` as JAX does (``shard_params``; every leaf is whole
+on that mesh): each rank runs the same rollouts from the same seed and the
+same update, and rank 0 logs and saves.
+
+    torchrun --nproc_per_node 2 -m mmada_parallel_torch.cli.train_pararl \
+        --output_dir /tmp/rl --steps 100
 
 ``--reward module:fn`` plugs in a reward ``(final_ids, codes, meta) -> [B]``
 (tensors); the default is the code-diversity proxy.
@@ -136,9 +141,25 @@ def main(argv=None):
     from mmada_parallel_torch.training.checkpoint import CheckpointManager
     from mmada_parallel_torch.training.pararl import RewardSpec
 
+    import torch.distributed as dist
+
+    from mmada_parallel_torch.models.llada import param_shardings
+    from mmada_parallel_torch.parallel.mesh import (MeshConfig,
+                                                    init_distributed,
+                                                    make_mesh, shard_params)
+
     args = build_parser().parse_args(argv)
     os.makedirs(args.output_dir, exist_ok=True)
     device = torch.device(args.device)
+    init_distributed(backend="gloo" if device.type == "cpu" else None)
+    mesh = None
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        if (device.type == "cuda" and device.index is None
+                and dist.get_backend() == "nccl"):
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
+                                                             0)))
+        mesh = make_mesh(MeshConfig(), device.type)
+    is_main = mesh is None or dist.get_rank() == 0
 
     if args.init_from:
         from mmada_parallel_torch.models import convert as CV
@@ -149,6 +170,8 @@ def main(argv=None):
         T = tk.TOKENS_A
     else:
         cfg, params, T = tiny_setup(args.seed, device)
+    if mesh is not None:
+        params = shard_params(params, param_shardings(cfg), mesh)
 
     if args.reward:
         mod, fn = args.reward.split(":")
@@ -183,13 +206,14 @@ def main(argv=None):
         batch = rollout_and_score(state.params, cfg, batch_ids, layout, opts,
                                   rewards, generator)
         state, metrics = step(state, batch, generator)
-        if it % 10 == 0:
+        if it % 10 == 0 and is_main:
             print(f"iter {it}: reward={float(metrics['reward_mean']):.4f} "
                   f"loss={float(metrics['loss']):.4f} "
                   f"grad_norm={float(metrics['grad_norm']):.3f}")
-    mngr.save(args.steps, state, {"iters": args.steps})
-    mngr.wait()
-    print(f"[done] {args.steps} ParaRL iterations")
+    if is_main:             # every rank holds the same whole state
+        mngr.save(args.steps, state, {"iters": args.steps})
+        mngr.wait()
+        print(f"[done] {args.steps} ParaRL iterations")
 
 
 if __name__ == "__main__":

@@ -9,8 +9,11 @@ text-to-image, understanding) drive the continuous-batching servers of
 :mod:`mmada_parallel_torch.serving` with concurrent submissions.
 
 Scoring is pluggable: any ``scorer(request, text, codes) -> dict`` works
-(:mod:`mmada_parallel_torch.eval_scorers` has local proxies).  The rates
-count one device; a ``mesh`` (multi-GPU sweeps) is not ported yet.
+(:mod:`mmada_parallel_torch.eval_scorers` has local proxies).  Over a
+``mesh`` the edit sweep is SPMD: every rank of the mesh calls it with the
+same requests and its parameters (``shard_params``, which the forwards
+read), each chunk's rows split over ``data`` x ``fsdp`` as JAX's
+``batch_sharding`` splits them, and every rank gets the gathered results.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 
 from mmada_parallel_torch import tokens as tk
 from mmada_parallel_torch.models.llada import LLaDAConfig
+from mmada_parallel_torch.ops import sampling as S
 from mmada_parallel_torch.samplers.parallel_ti2ti import (TI2TIOptions,
                                                           decode_text,
                                                           generate_ti2ti)
@@ -66,13 +70,6 @@ class InterleaveEvalRequest:
     meta: Optional[Dict] = None
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: multi-GPU sweeps are not ported yet (ROADMAP Queue 1, "
-            "item 16b)")
-
-
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -103,10 +100,25 @@ def run_parabench_sweep(
     unpadded single-row run at temperature 0.  One generator, drawn from
     ``seed`` on the params' device, samples every chunk in turn.  Each
     chunk's time runs from its launch to its results on the host (the copy
-    synchronizes), after a synchronize before it."""
-    _no_mesh(mesh)
+    synchronizes), after a synchronize before it.
+
+    ``mesh``: every rank of it calls the sweep (SPMD) with its parameters.
+    A chunk is padded to a multiple of the ``data`` x ``fsdp`` ranks (the
+    last row repeats, as JAX pads to ``batch_size``), each rank samples its
+    rows with the noise those rows get in one draw over the whole chunk
+    (:class:`~mmada_parallel_torch.ops.sampling.RowSplitGenerator`), and
+    the rows are gathered on every rank; where the ranks divide
+    ``batch_size`` (as JAX's sharding needs) the results are the meshless
+    sweep's at any temperature.  The per-chip rate divides by the mesh's
+    ranks."""
     gh, gw = grid_hw
     device = params["wte"].device
+    dp_idx, n_dp = 0, 1
+    if mesh is not None:
+        from mmada_parallel_torch.parallel.mesh import dp_coordinate
+        dp_idx, n_dp = dp_coordinate(mesh)
+    rows = -(-batch_size // n_dp) * n_dp
+    mine = slice(dp_idx * rows // n_dp, (dp_idx + 1) * rows // n_dp)
     results: List[Dict] = []
     total_time = 0.0
 
@@ -116,6 +128,8 @@ def run_parabench_sweep(
         buckets.setdefault(key, []).append(i)
 
     generator = torch.Generator(device=device).manual_seed(seed)
+    if mesh is not None:
+        generator = S.RowSplitGenerator(generator, rows, mine)
     for plen, idxs in sorted(buckets.items()):
         for s in range(0, len(idxs), batch_size):
             chunk = idxs[s:s + batch_size]
@@ -133,20 +147,22 @@ def run_parabench_sweep(
                 mask_list.append(mask)
             batch = np.stack(ids_list)
             masks = np.stack(mask_list)
-            # every chunk of a bucket has batch_size rows: the last repeats
-            if batch.shape[0] < batch_size:
-                reps = batch_size - batch.shape[0]
+            # every chunk of a bucket has the same rows: the last repeats
+            if batch.shape[0] < rows:
+                reps = rows - batch.shape[0]
                 batch = np.concatenate([batch, batch[-1:].repeat(reps, 0)])
                 masks = np.concatenate([masks, masks[-1:].repeat(reps, 0)])
 
             _sync(device)
             t0 = time.time()
             fin, codes = generate_ti2ti(
-                params, cfg, torch.as_tensor(batch, device=device), layout,
-                opts, uncond_image_prefix=uncond_image_prefix,
+                params, cfg, torch.as_tensor(batch[mine], device=device),
+                layout, opts, uncond_image_prefix=uncond_image_prefix,
                 generator=generator,
-                attn_mask=torch.as_tensor(masks, device=device))
+                attn_mask=torch.as_tensor(masks[mine], device=device))
             fin, codes = fin.cpu().numpy(), codes.cpu().numpy()
+            if mesh is not None:
+                fin, codes = _gather_rows(dp_idx, n_dp, fin, codes)
             total_time += time.time() - t0
 
             for bi, i in enumerate(chunk):
@@ -164,8 +180,20 @@ def run_parabench_sweep(
         "num_requests": n,
         "total_time_s": total_time,
         "edits_per_min": rate,
-        "edits_per_min_per_chip": rate,
+        "edits_per_min_per_chip": rate / (1 if mesh is None
+                                          else mesh.size()),
     }
+
+
+def _gather_rows(dp_idx: int, n_dp: int, *parts: np.ndarray):
+    """Each array's rows of every data-parallel rank, in rank order, on
+    every rank (the ranks of one ``tensor`` group hold the same rows)."""
+    import torch.distributed as dist
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (dp_idx, parts))
+    by_rank = dict(every)
+    return tuple(np.concatenate([by_rank[i][k] for i in range(n_dp)])
+                 for k in range(len(parts)))
 
 
 def _drive_server(server, submit_calls, warmup_lens=None):

@@ -299,14 +299,24 @@ def _layer(blocks: Dict[str, Any], i: int) -> Dict[str, Any]:
 
 def _block(x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: LLaDAConfig,
            sin: torch.Tensor, cos: torch.Tensor,
-           attn_bias: Optional[torch.Tensor]) -> torch.Tensor:
+           attn_bias: Optional[torch.Tensor], tp=None) -> torch.Tensor:
     """One transformer block: ``llama`` (separate q/k/v, gated MLP) or
-    ``sequential`` (fused ``att_proj``, plain or SwiGLU MLP)."""
+    ``sequential`` (fused ``att_proj``, plain or SwiGLU MLP).  ``tp``: the
+    hook's :class:`~mmada_parallel_torch.parallel.tensor.TensorPlan`; a
+    half it runs split computes this rank's heads (``tp.n_heads``,
+    ``tp.n_kv_heads``) or MLP hidden, its input through ``tp.copy`` and
+    its output projection row-parallel (``tp.row``)."""
     B, L, D = x.shape
+    attn_tp = tp is not None and tp.attn_local
+    mlp_tp = tp is not None and tp.mlp_local
     nh, nkv, hd = cfg.n_heads, cfg.effective_n_kv_heads, cfg.head_dim
+    if attn_tp:
+        nh, nkv = tp.n_heads, tp.n_kv_heads
     cdt = x.dtype
 
     h = _norm(x, lp["attn_norm"], cfg)
+    if attn_tp:
+        h = tp.copy(h)
     if cfg.block_type == "sequential":
         qkv = _pmm(h, lp["att_proj"])
         if "att_proj_bias" in lp:
@@ -327,15 +337,51 @@ def _block(x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: LLaDAConfig,
                          n_heads=nh, n_kv_heads=nkv,
                          full_precision=cfg.rope_full_precision,
                          impl=cfg.attention_impl)
-    x = x + _pmm(att, lp["attn_out"])
+    x = x + (tp.row(att, lp["attn_out"]) if attn_tp
+             else _pmm(att, lp["attn_out"]))
 
     h = _norm(x, lp["ff_norm"], cfg)
+    if mlp_tp:
+        h = tp.copy(h)
+    out = tp.row if mlp_tp else _pmm
     if cfg.block_type == "sequential":
         act = _activation(_pmm(h, lp["ff_proj"]), cfg.activation_type)
-        return x + _pmm(act, lp["ff_out"])
+        return x + out(act, lp["ff_out"])
     gate = F.silu(_pmm(h, lp["ff_proj"]))
     up = _pmm(h, lp["up_proj"])
-    return x + _pmm(gate * up, lp["ff_out"])
+    return x + out(gate * up, lp["ff_out"])
+
+
+def _hook(params: Dict[str, Any], cfg: LLaDAConfig,
+          gather: Optional[Callable[[str, Any], Any]]):
+    """``gather``, or the mesh hook of parameters that carry their mesh
+    (:func:`~mmada_parallel_torch.parallel.mesh.shard_params`).  Without
+    either the tree must be whole: a rank's vocab-parallel ``wte`` that
+    lost its mesh (a ``dict(...)`` copy) raises here."""
+    if gather is not None:
+        return gather
+    if getattr(params, "mesh", None) is None:
+        rows = params["wte"].shape[0]
+        if rows != cfg.emb_size:
+            raise ValueError(
+                f"wte has {rows} rows, the config {cfg.emb_size}: a rank's "
+                f"shards passed without their mesh or gather=?")
+        return None
+    from mmada_parallel_torch.parallel.tensor import MeshGather
+    return MeshGather(params.mesh, params.specs, cfg)
+
+
+def _embed(params: Dict[str, Any], cfg: LLaDAConfig, ids: torch.Tensor,
+           gather) -> torch.Tensor:
+    """The embedding of ``ids`` in the compute dtype, out-of-range ids
+    clamped into the (global) vocab as JAX's ``mode="clip"`` gather does;
+    vocab-parallel over ``tensor`` where the hook has a ``tp``."""
+    wte = params["wte"] if gather is None else gather("wte", params["wte"])
+    tp = getattr(gather, "tp", None)
+    if tp is not None:
+        return tp.embed(ids, wte).to(cfg.compute_dtype)
+    ids = ids.long().clamp(0, wte.shape[0] - 1)
+    return F.embedding(ids, wte).to(cfg.compute_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -363,10 +409,11 @@ def llada_hidden(params: Dict[str, Any], cfg: LLaDAConfig,
     divisible by k.
 
     ``gather(name, x)``, where given, turns this rank's shards into the
-    whole parameters (:class:`~mmada_parallel_torch.parallel.fsdp.
-    FsdpGather`): ``wte`` and ``ln_f`` once a forward, each layer's dict
-    (``name="blocks"``) where the layer runs, so a remat recompute gathers
-    again."""
+    parameters it computes with (:class:`~mmada_parallel_torch.parallel.
+    tensor.MeshGather`): ``wte`` and ``ln_f`` once a forward, each layer's
+    dict (``name="blocks"``) where the layer runs, so a remat recompute
+    gathers again; its ``tp`` runs the Megatron split over ``tensor``.
+    Without it, parameters from ``shard_params`` bring their own."""
     group = _REMAT_GROUPS.get(cfg.remat)
     if group is None:
         raise ValueError(f"unknown remat strategy: {cfg.remat}")
@@ -376,9 +423,9 @@ def llada_hidden(params: Dict[str, Any], cfg: LLaDAConfig,
             f"(got {cfg.n_layers}); use 'whole_layer' instead")
     cdt = cfg.compute_dtype
     B, L = input_ids.shape
-    wte = params["wte"] if gather is None else gather("wte", params["wte"])
-    ids = input_ids.long().clamp(0, wte.shape[0] - 1)
-    x = F.embedding(ids, wte).to(cdt)
+    gather = _hook(params, cfg, gather)
+    tp = getattr(gather, "tp", None)
+    x = _embed(params, cfg, input_ids, gather)
     if cfg.input_emb_norm:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cdt)
 
@@ -398,7 +445,7 @@ def llada_hidden(params: Dict[str, Any], cfg: LLaDAConfig,
             lp = _layer(blocks, i)
             if gather is not None:
                 lp = gather("blocks", lp)
-            x = _block(x, lp, cfg, sin, cos, attn_bias)
+            x = _block(x, lp, cfg, sin, cos, attn_bias, tp)
         return x
 
     step = max(group, 1)
@@ -408,9 +455,7 @@ def llada_hidden(params: Dict[str, Any], cfg: LLaDAConfig,
             x = layers(x, start, stop)
         else:
             x = checkpoint(layers, x, start, stop, use_reentrant=False)
-    ln_f = params["ln_f"] if gather is None else gather("ln_f",
-                                                         params["ln_f"])
-    return _norm(x, ln_f, cfg)
+    return _final_norm(params, cfg, x, gather)
 
 
 # layers per checkpointed group (0: no checkpointing), as in the JAX package
@@ -422,24 +467,26 @@ class _Bf16Head(torch.autograd.Function):
     """``hidden @ head`` on the tensor cores: bf16 operands, f32 result
     (``aten::mm.dtype``, the JAX einsum's ``preferred_element_type``).
     That overload has no derivative, so the backward forms both products
-    the same way, from the f32 output gradient rounded to bf16; the head's
-    gradient comes back in the head's own dtype."""
+    the same way, from the f32 output gradient rounded to bf16; each
+    gradient comes back in its input's own dtype (an f32 ``hidden`` holding
+    bf16 values, as the tensor-parallel head passes it, gets its gradient
+    unrounded, to be summed over ``tensor`` before it rounds)."""
 
     @staticmethod
     def forward(ctx, hidden, head):
         ctx.save_for_backward(hidden, head)
-        h2 = hidden.reshape(-1, hidden.shape[-1])
-        out = torch.mm(h2, head.to(hidden.dtype), out_dtype=torch.float32)
+        h2 = hidden.reshape(-1, hidden.shape[-1]).to(torch.bfloat16)
+        out = torch.mm(h2, head.to(torch.bfloat16), out_dtype=torch.float32)
         return out.reshape(*hidden.shape[:-1], head.shape[1])
 
     @staticmethod
     def backward(ctx, g):
         hidden, head = ctx.saved_tensors
-        h2 = hidden.reshape(-1, hidden.shape[-1])
-        g2 = g.reshape(-1, g.shape[-1]).to(hidden.dtype)
+        h2 = hidden.reshape(-1, hidden.shape[-1]).to(torch.bfloat16)
+        g2 = g.reshape(-1, g.shape[-1]).to(torch.bfloat16)
         dh = dw = None
         if ctx.needs_input_grad[0]:
-            dh = torch.mm(g2, head.to(hidden.dtype).T,
+            dh = torch.mm(g2, head.to(torch.bfloat16).T,
                           out_dtype=torch.float32).to(hidden.dtype)
             dh = dh.reshape(hidden.shape)
         if ctx.needs_input_grad[1]:
@@ -462,26 +509,37 @@ def llada_head(params: Dict[str, Any], cfg: LLaDAConfig,
     values) in f32.  A W8A8 head (a quantized-weight dict) takes the int8
     product, with ``vocab_slice`` slicing its ``w_q`` and ``scale`` columns
     alike, rescaled straight into ``logits_dtype``.  ``gather``: as in
-    :func:`llada_hidden`, applied to the head once."""
+    :func:`llada_hidden`, applied to the head once; over ``tensor`` each
+    rank projects its vocab blocks (met with ``vocab_slice``) and every
+    rank gets the whole logits (:meth:`~mmada_parallel_torch.parallel.
+    tensor.TensorPlan.head`)."""
     name = "wte" if cfg.weight_tying else "head"
+    gather = _hook(params, cfg, gather)
     head = params[name] if gather is None else gather(name, params[name])
-    head = head.T if cfg.weight_tying else head
+    if cfg.weight_tying:
+        head = head.T
 
-    def cols(w):
-        if vocab_slice is None:
-            return w
-        start, size = vocab_slice
-        return w[:, start:start + size]
+    def project(h, w, lo, hi):
+        """Logits of head columns ``[lo, hi)`` for ``h``: ``hidden``, or
+        its f32 copy (the tensor-parallel head), computed as for
+        ``hidden``."""
+        if isinstance(w, dict):
+            return int8_matmul(h, w["w_q"][:, lo:hi], w["scale"][..., lo:hi],
+                               out_dtype=logits_dtype)
+        w = w[:, lo:hi]
+        if (hidden.is_cuda and hidden.dtype == torch.bfloat16
+                and logits_dtype == torch.float32):
+            return _Bf16Head.apply(h, w)
+        return h.to(logits_dtype) @ w.to(hidden.dtype).to(logits_dtype)
 
-    if isinstance(head, dict):
-        logits = int8_matmul(hidden, cols(head["w_q"]), cols(head["scale"]),
-                             out_dtype=logits_dtype)
-    elif (hidden.is_cuda and hidden.dtype == torch.bfloat16
-          and logits_dtype == torch.float32):
-        logits = _Bf16Head.apply(hidden, cols(head))
+    tp = getattr(gather, "tp", None)
+    if tp is not None:
+        logits = tp.head(hidden, head, gather.head_blocks(name), vocab_slice,
+                         project)
     else:
-        logits = (hidden.to(logits_dtype)
-                  @ cols(head).to(hidden.dtype).to(logits_dtype))
+        width = (head["w_q"] if isinstance(head, dict) else head).shape[-1]
+        start, size = vocab_slice if vocab_slice is not None else (0, width)
+        logits = project(hidden, head, start, start + size)
     if cfg.scale_logits:
         logits = logits * (1.0 / math.sqrt(cfg.d_model))
     return logits.to(logits_dtype)
@@ -494,7 +552,8 @@ def llada_forward(params: Dict[str, Any], cfg: LLaDAConfig,
                   gather: Optional[Callable[[str, Any], Any]] = None
                   ) -> torch.Tensor:
     """Full-sequence forward: ``[B, L]`` ids -> ``[B, L, emb_size]`` logits.
-    ``gather``: the FSDP parameter hook of :func:`llada_hidden`."""
+    ``gather``: the parameter hook of :func:`llada_hidden`."""
+    gather = _hook(params, cfg, gather)
     hidden = llada_hidden(params, cfg, input_ids, attn_mask, gather=gather)
     return llada_head(params, cfg, hidden, logits_dtype=logits_dtype,
                       gather=gather)
@@ -515,39 +574,70 @@ def _rope_packed(t: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor,
 
 
 def _cached_block(x: torch.Tensor, lp: Dict[str, torch.Tensor],
-                  cfg: LLaDAConfig, attend) -> torch.Tensor:
+                  cfg: LLaDAConfig, attend, tp=None) -> torch.Tensor:
     """A llama block whose attention is ``attend(q, k, v) -> att``: the
-    caller rotates k, updates its cache and runs the q-only attention."""
+    caller rotates k, updates its cache and runs the q-only attention.
+    ``tp`` as in :func:`_block`."""
+    attn_tp = tp is not None and tp.attn_local
+    mlp_tp = tp is not None and tp.mlp_local
     h = _norm(x, lp["attn_norm"], cfg)
+    if attn_tp:
+        h = tp.copy(h)
     att = attend(_pmm(h, lp["q_proj"]), _pmm(h, lp["k_proj"]),
                  _pmm(h, lp["v_proj"]))
-    x = x + _pmm(att, lp["attn_out"])
+    x = x + (tp.row if attn_tp else _pmm)(att, lp["attn_out"])
     h = _norm(x, lp["ff_norm"], cfg)
+    if mlp_tp:
+        h = tp.copy(h)
     gate = F.silu(_pmm(h, lp["ff_proj"]))
-    return x + _pmm(gate * _pmm(h, lp["up_proj"]), lp["ff_out"])
+    return x + (tp.row if mlp_tp else _pmm)(gate * _pmm(h, lp["up_proj"]),
+                                            lp["ff_out"])
+
+
+def _cached_layers(params: Dict[str, Any], cfg: LLaDAConfig, gather):
+    """``(layer(i), tp, n_heads, n_kv_heads)`` of the cached forwards: the
+    layers' weights through the hook, and the head counts this rank
+    computes."""
+    tp = getattr(gather, "tp", None)
+    nh, nkv = cfg.n_heads, cfg.effective_n_kv_heads
+    if tp is not None and tp.attn_local:
+        nh, nkv = tp.n_heads, tp.n_kv_heads
+    blocks = params["blocks"]
+
+    def layer(i):
+        lp = _layer(blocks, i)
+        return lp if gather is None else gather("blocks", lp)
+    return layer, tp, nh, nkv
+
+
+def _final_norm(params, cfg, x, gather) -> torch.Tensor:
+    ln_f = params["ln_f"] if gather is None else gather("ln_f",
+                                                         params["ln_f"])
+    return _norm(x, ln_f, cfg)
 
 
 def llada_hidden_with_cache(params: Dict[str, Any], cfg: LLaDAConfig,
-                            input_ids: torch.Tensor
+                            input_ids: torch.Tensor,
+                            gather: Optional[Callable[[str, Any], Any]] = None
                             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full forward that also returns the per-layer k/v feature cache
     ``{"k": [n_layers, B, L, KV*hd], "v": ...}`` in the packed layout, k
     stored POST-RoPE (rounded to the compute dtype), so partial steps rotate
     only the recomputed positions.  Attention is the q-only path against the
-    layer's own rotated k."""
+    layer's own rotated k.  ``gather`` as in :func:`llada_hidden`; over
+    ``tensor`` the cache holds this rank's ``KV/g`` heads."""
     if cfg.block_type != "llama":
         raise NotImplementedError("feature cache supports llama blocks only")
     cdt = cfg.compute_dtype
     B, L = input_ids.shape
-    nh, nkv = cfg.n_heads, cfg.effective_n_kv_heads
-    wte = params["wte"]
-    x = F.embedding(input_ids.long().clamp(0, wte.shape[0] - 1), wte).to(cdt)
+    gather = _hook(params, cfg, gather)
+    layer, tp, nh, nkv = _cached_layers(params, cfg, gather)
+    x = _embed(params, cfg, input_ids, gather)
     sin, cos = _rope_sin_cos(L, cfg.head_dim, cfg.rope_theta, x.device)
     shape = (cfg.n_layers, B, L, nkv * cfg.head_dim)
     cache = {"k": torch.empty(shape, dtype=cdt, device=x.device),
              "v": torch.empty(shape, dtype=cdt, device=x.device)}
 
-    blocks = params["blocks"]
     for i in range(cfg.n_layers):
         def attend(q, k, v, i=i):
             cache["k"][i] = _rope_packed(k, sin, cos, nkv,
@@ -557,13 +647,14 @@ def llada_hidden_with_cache(params: Dict[str, Any], cfg: LLaDAConfig,
                 q, cache["k"][i], cache["v"][i], sin, cos, n_heads=nh,
                 n_kv_heads=nkv, full_precision=cfg.rope_full_precision,
                 impl=cfg.attention_impl)
-        x = _cached_block(x, _layer(blocks, i), cfg, attend)
-    return _norm(x, params["ln_f"], cfg), cache
+        x = _cached_block(x, layer(i), cfg, attend, tp)
+    return _final_norm(params, cfg, x, gather), cache
 
 
 def llada_hidden_partial(params: Dict[str, Any], cfg: LLaDAConfig,
                          sel_ids: torch.Tensor, sel_pos: torch.Tensor,
-                         cache: Dict[str, torch.Tensor]
+                         cache: Dict[str, torch.Tensor],
+                         gather: Optional[Callable[[str, Any], Any]] = None
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Partial recompute: run only the ``n`` selected tokens (``sel_ids``
     ``[B, n]`` at absolute positions ``sel_pos`` ``[B, n]``) through the
@@ -572,20 +663,19 @@ def llada_hidden_partial(params: Dict[str, Any], cfg: LLaDAConfig,
     Returns ``(hidden_sel [B, n, d], cache)``.  The cache is updated IN
     PLACE (the JAX function returns a new one; the values are the same):
     each layer scatters the selected rows' rotated k and v into its slice
-    before attending.  RoPE uses the true absolute positions."""
-    cdt = cfg.compute_dtype
+    before attending.  RoPE uses the true absolute positions.  ``gather``
+    as in :func:`llada_hidden_with_cache`."""
     B, n = sel_ids.shape
     L = cache["k"].shape[2]
-    nh, nkv = cfg.n_heads, cfg.effective_n_kv_heads
-    wte = params["wte"]
-    x = F.embedding(sel_ids.long().clamp(0, wte.shape[0] - 1), wte).to(cdt)
+    gather = _hook(params, cfg, gather)
+    layer, tp, nh, nkv = _cached_layers(params, cfg, gather)
+    x = _embed(params, cfg, sel_ids, gather)
     sin_full, cos_full = _rope_sin_cos(L, cfg.head_dim, cfg.rope_theta,
                                        x.device)
     pos = sel_pos.long()
     sin_sel, cos_sel = sin_full[pos], cos_full[pos]        # [B, n, hd]
     idx = pos[:, :, None].expand(B, n, cache["k"].shape[-1])
 
-    blocks = params["blocks"]
     for i in range(cfg.n_layers):
         def attend(q, k, v, i=i):
             k_full, v_full = cache["k"][i], cache["v"][i]
@@ -596,8 +686,8 @@ def llada_hidden_partial(params: Dict[str, Any], cfg: LLaDAConfig,
                 q, k_full, v_full, sin_sel, cos_sel, n_heads=nh,
                 n_kv_heads=nkv, full_precision=cfg.rope_full_precision,
                 impl=cfg.attention_impl)
-        x = _cached_block(x, _layer(blocks, i), cfg, attend)
-    return _norm(x, params["ln_f"], cfg), cache
+        x = _cached_block(x, layer(i), cfg, attend, tp)
+    return _final_norm(params, cfg, x, gather), cache
 
 
 # ---------------------------------------------------------------------------

@@ -18,8 +18,15 @@ elsewhere an int32 matmul of the same int8 operands, which is exact, so
 both give the same accumulators.  The activation quantization and the
 rescale are plain tensor ops in f32, in the JAX order (``(acc * s) *
 w_scale``, rounding half to even), so the result matches the JAX function
-to the last bit of the rescale.  Sharded specs (``quantize_param_shardings``)
-wait for multi-GPU.
+to the last bit of the rescale.
+
+Over a mesh (:func:`quantize_param_shardings`, JAX's placement of the
+quantized tree), a row-parallel product (``attn_out``, ``ff_out``: K split
+over ``tensor``) passes ``reduce``, its all-reduce over the ranks that hold
+the other K blocks: the per-token amax is all-reduced (max) before
+quantizing, as GSPMD takes ``max|x|`` over the logical K, and the int32
+accumulators are summed before the rescale, so the result is the unsharded
+product's.
 """
 
 from __future__ import annotations
@@ -30,7 +37,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["quantize_weight", "quantize_activations", "int8_matmul",
-           "quantize_llada_params", "is_quantized"]
+           "quantize_llada_params", "quantize_param_shardings",
+           "is_quantized"]
 
 _GEMM_KEYS = frozenset({"q_proj", "k_proj", "v_proj", "attn_out",
                         "ff_proj", "up_proj", "ff_out", "att_proj"})
@@ -88,22 +96,32 @@ def _int8_mm(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(x_q, _column_major(w_q))[:M, :N]
 
 
-def quantize_activations(x: torch.Tensor):
+def quantize_activations(x: torch.Tensor, reduce=None):
     """Per-token (last-axis) dynamic symmetric int8: ``(x_q int8, s f32
-    [..., 1])`` with ``x ~ x_q * s``."""
+    [..., 1])`` with ``x ~ x_q * s``.  ``reduce(t, op)``: ``x`` is this
+    rank's K block, and the amax is all-reduced (``op="max"``) over the
+    whole K."""
     xf = x.float()
-    s = _div127(xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8))
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    if reduce is not None:
+        amax = reduce(amax, "max")
+    s = _div127(amax.clamp_min(1e-8))
     return torch.round(xf / s).clamp(-127, 127).to(torch.int8), s
 
 
 def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
-                out_dtype=None) -> torch.Tensor:
+                out_dtype=None, reduce=None) -> torch.Tensor:
     """``[..., M, K] x int8 [K, N] -> [..., M, N]``: the activations
     quantized per token, the int32 accumulator rescaled by ``act_scale *
-    w_scale`` in f32, then cast to ``out_dtype`` (default: x's dtype)."""
+    w_scale`` in f32, then cast to ``out_dtype`` (default: x's dtype).
+    ``reduce(t, op)``: a row-parallel product, ``x`` and ``w_q`` this
+    rank's K block; the amax (``"max"``) and the accumulators (``"sum"``)
+    are all-reduced over the ranks of the other blocks."""
     out_dtype = out_dtype or x.dtype
-    x_q, s = quantize_activations(x)
+    x_q, s = quantize_activations(x, reduce)
     acc = _int8_mm(x_q.reshape(-1, x_q.shape[-1]), w_q)
+    if reduce is not None:
+        acc = reduce(acc, "sum")
     acc = acc.reshape(*x.shape[:-1], w_q.shape[-1])
     return (acc.float() * s * w_scale.reshape(-1)).to(out_dtype)
 
@@ -121,4 +139,29 @@ def quantize_llada_params(params: Dict[str, Any],
         out = dict(params, blocks=blocks)
         if "head" in params and quantize_head:
             out["head"] = quantize_weight(params["head"])
+    return out
+
+
+def quantize_param_shardings(specs: Dict[str, Any],
+                             quantize_head: bool = True) -> Dict[str, Any]:
+    """The spec tree of :func:`quantize_llada_params`' tree, from the dense
+    one (JAX's function): ``w_q`` keeps the dense spec, and ``scale [..., 1,
+    N]`` drops the K axis, so a column-parallel leaf's scale splits with N
+    and a row-parallel leaf's is whole over ``tensor``."""
+    from mmada_parallel_torch.parallel.mesh import PartitionSpec as P
+
+    def scale_spec(s):
+        parts = tuple(s)
+        if len(parts) < 2:
+            return s
+        return P(*(parts[:-2] + (None,) + parts[-1:]))
+
+    def conv(s):
+        return {"w_q": s, "scale": scale_spec(s)}
+
+    blocks = {k: (conv(v) if k in _GEMM_KEYS else v)
+              for k, v in specs["blocks"].items()}
+    out = dict(specs, blocks=blocks)
+    if "head" in specs and quantize_head:
+        out["head"] = conv(specs["head"])
     return out

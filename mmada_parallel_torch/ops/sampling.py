@@ -22,7 +22,8 @@ import torch
 
 __all__ = [
     "cosine_schedule", "linear_schedule", "pow_schedule", "sigmoid_schedule",
-    "get_mask_schedule", "uniform_noise", "normal_noise", "gumbel_noise",
+    "get_mask_schedule", "RowSplitGenerator", "uniform_noise",
+    "normal_noise", "randint_noise", "gumbel_noise",
     "add_gumbel_noise", "gumbel_argmax", "token_confidence",
     "get_num_transfer_tokens", "get_num_transfer_tokens_frontloaded",
     "topk_transfer_mask", "remask_lowest_exact", "remask_below_cutoff",
@@ -76,18 +77,44 @@ def get_mask_schedule(method: str, **kwargs) -> Callable[[torch.Tensor],
 # ---------------------------------------------------------------------------
 
 
+class RowSplitGenerator:
+    """A generator for a rank that holds rows ``mine`` (a slice) of a
+    ``rows``-row batch: each draw is made for all the rows and cut to this
+    rank's, so the noise a row gets does not depend on how the batch is
+    split over ranks (JAX draws one key over the global batch).  The
+    ``*_noise`` helpers take it where they take a generator."""
+
+    def __init__(self, generator: torch.Generator, rows: int, mine: slice):
+        self.generator, self.rows, self.mine = generator, rows, mine
+
+
+def _draw(fn, like: torch.Tensor, generator, **kw) -> torch.Tensor:
+    """``fn(shape, generator=...)`` of ``like``'s shape on its device; a
+    :class:`RowSplitGenerator` draws every row and keeps this rank's."""
+    if isinstance(generator, RowSplitGenerator):
+        shape = (generator.rows,) + tuple(like.shape[1:])
+        return fn(shape, generator=generator.generator, device=like.device,
+                  **kw)[generator.mine]
+    return fn(like.shape, generator=generator, device=like.device, **kw)
+
+
 def uniform_noise(like: torch.Tensor, generator: torch.Generator,
                   dtype=None) -> torch.Tensor:
     """``U[0, 1)`` of ``like``'s shape on its device."""
-    return torch.rand(like.shape, generator=generator, device=like.device,
-                      dtype=dtype or like.dtype)
+    return _draw(torch.rand, like, generator, dtype=dtype or like.dtype)
 
 
 def normal_noise(like: torch.Tensor, generator: torch.Generator
                  ) -> torch.Tensor:
     """``N(0, 1)`` of ``like``'s shape on its device."""
-    return torch.randn(like.shape, generator=generator, device=like.device,
-                       dtype=like.dtype)
+    return _draw(torch.randn, like, generator, dtype=like.dtype)
+
+
+def randint_noise(like: torch.Tensor, high: int,
+                  generator: torch.Generator) -> torch.Tensor:
+    """Integers uniform in ``[0, high)`` of ``like``'s shape on its
+    device."""
+    return _draw(partial(torch.randint, 0, high), like, generator)
 
 
 def gumbel_noise(like: torch.Tensor, generator: torch.Generator

@@ -44,10 +44,12 @@ def _staged(t: torch.Tensor, group) -> torch.Tensor:
             if _host_staged(group, t) else t.contiguous())
 
 
-def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
-    """Sum ``t`` over ``group`` in place (and return it)."""
+def all_reduce_(t: torch.Tensor, group,
+                op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Reduce ``t`` over ``group`` in place (and return it): a sum, or
+    ``op``."""
     src = _staged(t, group)
-    dist.all_reduce(src, group=group)
+    dist.all_reduce(src, op=op, group=group)
     if src is not t:
         t.copy_(src)
     return t
@@ -73,18 +75,20 @@ def reduce_scatter_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     return out.to(t.device).movedim(0, dim).contiguous()
 
 
-def fsdp_dim(spec, mesh) -> Optional[int]:
+def fsdp_dim(spec) -> Optional[int]:
     """The dimension ``spec`` splits over ``fsdp``, or None.  An entry that
-    names ``fsdp`` with other axes is taken only where those axes have one
-    rank (their product would interleave the blocks otherwise)."""
-    shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    names ``fsdp`` before other axes (the untied head's ``(fsdp, tensor)``)
+    is taken too: gathering it over ``fsdp`` gives this rank the blocks of
+    its coordinates on the other axes, one per ``fsdp`` rank, in ``fsdp``
+    order (:func:`~mmada_parallel_torch.parallel.tensor.vocab_pieces` reads
+    the head so)."""
     for dim, entry in enumerate(spec):
         names = entry if isinstance(entry, tuple) else (entry,)
         if AXIS not in names:
             continue
-        if any(shape[a] != 1 for a in names if a != AXIS):
-            raise ValueError(f"{spec}: fsdp with {names} of more than one "
-                             f"rank is not supported")
+        if names[0] != AXIS:
+            raise ValueError(f"{spec}: fsdp must be the major axis of "
+                             f"{names}")
         return dim
     return None
 
@@ -109,8 +113,9 @@ class _AllGather(torch.autograd.Function):
 
 def _timed(tally, key: str, t: torch.Tensor, fn):
     """Run one collective; with a ``tally`` dict add the bytes it moved
-    (``gathered``: this rank's result; ``scattered``: its input) and its
-    seconds, synchronizing the card around it."""
+    (``gathered``: this rank's result; ``scattered`` and ``reduced``: its
+    input) under ``key`` and its seconds under ``seconds`` and
+    ``{key}_seconds``, synchronizing the card around it."""
     if tally is None:
         return fn()
     if t.is_cuda:
@@ -119,7 +124,9 @@ def _timed(tally, key: str, t: torch.Tensor, fn):
     out = fn()
     if t.is_cuda:
         torch.cuda.synchronize(t.device)
-    tally["seconds"] = tally.get("seconds", 0.0) + time.perf_counter() - t0
+    dt = time.perf_counter() - t0
+    tally["seconds"] = tally.get("seconds", 0.0) + dt
+    tally[f"{key}_seconds"] = tally.get(f"{key}_seconds", 0.0) + dt
     moved = out if key == "gathered" else t
     tally[key] = tally.get(key, 0) + moved.numel() * moved.element_size()
     return out
@@ -127,46 +134,52 @@ def _timed(tally, key: str, t: torch.Tensor, fn):
 
 class FsdpGather:
     """The parameter hook of ``llada_hidden`` / ``llada_forward`` (their
-    ``gather=``): ``gather(name, x)`` gives the whole ``wte``, ``ln_f`` or
-    ``head`` leaf for ``x`` its ``fsdp`` shard, or, with ``name ==
-    "blocks"``, one layer's dict (``_layer(blocks, i)``) gathered leaf by
-    leaf.  ``specs`` is the parameters' spec tree
+    ``gather=``): ``gather(name, x)`` gives the ``wte``, ``ln_f`` or
+    ``head`` leaf for ``x`` its ``fsdp`` shard gathered over ``fsdp``, or,
+    with ``name == "blocks"``, one layer's dict (``_layer(blocks, i)``)
+    gathered leaf by leaf (a W8A8 leaf's ``w_q`` and ``scale`` each by its
+    own spec).  ``specs`` is the parameters' spec tree
     (``param_shardings(cfg)``, or ``drop_axis`` of it for ZeRO-2);
-    ``tally``, where given, counts bytes and seconds (:func:`_timed`)."""
+    ``tally``, where given, counts bytes and seconds (:func:`_timed`).
+    Over a ``tensor`` axis of more than one rank use its subclass
+    :class:`~mmada_parallel_torch.parallel.tensor.MeshGather`."""
 
     def __init__(self, mesh, specs: Dict[str, Any],
                  tally: Optional[dict] = None):
+        self.mesh, self.specs, self.tally = mesh, specs, tally
         self.group = mesh.get_group(AXIS)
         self.n = dict(zip(mesh.mesh_dim_names, mesh.shape))[AXIS]
-        self.tally = tally
-        dims = {k: (fsdp_dim(s, mesh) if not isinstance(s, dict) else
-                    {n: fsdp_dim(ls, mesh) for n, ls in s.items()})
-                for k, s in specs.items()}
-        # a layer's leaf lost the stacked layer dimension
-        self.dims = dict(dims, blocks={n: (None if d is None else d - 1)
-                                       for n, d in dims["blocks"].items()})
 
-    def _leaf(self, x: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+    def _gather(self, x: Any, spec: Any, stacked: bool) -> Any:
+        """``x`` gathered over ``fsdp`` by ``spec``; ``stacked``: ``x`` is
+        one layer's leaf, whose spec still names the layer dimension."""
+        if isinstance(x, dict):
+            return {k: self._gather(v, spec[k], stacked)
+                    for k, v in x.items()}
+        dim = fsdp_dim(spec)
         if dim is None or self.n == 1:
             return x
-        return _AllGather.apply(x, dim, self.group, self.tally)
+        return _AllGather.apply(x, dim - stacked, self.group, self.tally)
 
     def __call__(self, name: str, x: Any) -> Any:
         if name == "blocks":
-            return {k: self._leaf(t, self.dims["blocks"][k])
+            return {k: self._gather(t, self.specs["blocks"][k], True)
                     for k, t in x.items()}
-        return self._leaf(x, self.dims[name])
+        return self._gather(x, self.specs[name], False)
 
 
 @torch.no_grad()
 def whole_params(params: Any, specs: Any, mesh) -> Any:
-    """Every leaf of this rank's ``fsdp`` slices gathered whole, with no
-    gradient (for work outside the train step, such as validation); every
-    rank of the mesh calls it."""
-    group = mesh.get_group(AXIS)
+    """Every leaf of this rank's slices gathered whole over every axis its
+    spec names, with no gradient (for work outside the train step, such as
+    validation); every rank of the mesh calls it.  An entry naming several
+    axes is gathered minor axis first, so the blocks land in order."""
     if isinstance(params, dict):
         return {k: whole_params(v, specs[k], mesh) for k, v in params.items()}
-    dim = fsdp_dim(specs, mesh)
-    n = dict(zip(mesh.mesh_dim_names, mesh.shape))[AXIS]
-    return params if dim is None or n == 1 else all_gather_dim(params, dim,
-                                                               group)
+    shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    for dim, entry in enumerate(specs):
+        names = entry if isinstance(entry, tuple) else (entry,)
+        for name in reversed([a for a in names if a is not None]):
+            if shape[name] > 1:
+                params = all_gather_dim(params, dim, mesh.get_group(name))
+    return params

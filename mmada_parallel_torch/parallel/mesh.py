@@ -6,7 +6,10 @@ One :class:`~torch.distributed.device_mesh.DeviceMesh` with the JAX axes
 ``(data, fsdp, tensor)`` stands for the JAX ``Mesh``.  SPMD PyTorch has no
 GSPMD, so a parameter's placement is not an annotation the compiler reads:
 :func:`shard_params` gives each rank its own slice of every leaf, by its
-coordinates on the mesh, and the ring tensor parallelism of
+coordinates on the mesh, and keeps the mesh on the tree: the model's
+forwards then compute over it (Megatron tensor parallelism over ``tensor``,
+:mod:`mmada_parallel_torch.parallel.tensor`, and FSDP's gathers).  The ring
+tensor parallelism of
 :mod:`mmada_parallel_torch.parallel.tp_overlap` computes on those slices
 with explicit point-to-point rounds on the ``tensor`` axis's process group
 (``mesh.get_group("tensor")``).
@@ -28,7 +31,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["AXES", "MeshConfig", "PartitionSpec", "make_mesh",
-           "shard_params", "init_distributed", "replicated",
+           "shard_params", "ShardedParams", "init_distributed", "replicated",
            "batch_sharding", "drop_axis", "opt_state_specs",
            "shard_opt_state", "local_rows", "dp_coordinate", "dp_groups"]
 
@@ -96,8 +99,12 @@ def _local_view(t: torch.Tensor, spec, mesh) -> torch.Tensor:
 
 
 def _local_slice(t: torch.Tensor, spec, mesh) -> torch.Tensor:
-    return _local_view(t, spec, mesh).clone(
-        memory_format=torch.contiguous_format)
+    v = _local_view(t, spec, mesh)
+    if t.dim() >= 2 and t.stride(-2) == 1 and t.stride(-1) != 1:
+        # a column-major leaf (a W8A8 ``w_q``) stays column-major
+        return v.transpose(-1, -2).clone(
+            memory_format=torch.contiguous_format).transpose(-1, -2)
+    return v.clone(memory_format=torch.contiguous_format)
 
 
 def _is_spec(x) -> bool:
@@ -110,12 +117,35 @@ def _map_specs(fn, specs):
     return fn(specs)
 
 
+class ShardedParams(dict):
+    """A parameter tree of this rank's slices that carries its ``mesh`` and
+    ``specs``: the forwards of :mod:`mmada_parallel_torch.models.llada`
+    read them when no ``gather=`` is given and compute over the mesh
+    (:class:`~mmada_parallel_torch.parallel.tensor.MeshGather`), so
+    samplers and servers take sharded parameters unchanged, as JAX's take
+    sharded arrays.  It pickles as a plain dict."""
+
+    def __init__(self, tree: Dict[str, Any], mesh, specs: Any):
+        super().__init__(tree)
+        self.mesh, self.specs = mesh, specs
+
+    def __reduce__(self):
+        return dict, (dict(self),)
+
+
+def _shard(params: Any, specs: Any, mesh) -> Any:
+    if isinstance(params, dict):
+        return {k: _shard(v, specs[k], mesh) for k, v in params.items()}
+    return _local_slice(params, specs, mesh)
+
+
 def shard_params(params: Any, specs: Any, mesh) -> Any:
     """This rank's slice of every leaf of ``params`` along the axes its
-    :class:`PartitionSpec` in ``specs`` names; each slice is a contiguous
-    copy, so the full tree can be freed."""
+    :class:`PartitionSpec` in ``specs`` names, as a :class:`ShardedParams`
+    carrying ``mesh`` and ``specs``; each slice is a contiguous copy (a
+    column-major leaf stays so), so the full tree can be freed."""
     if isinstance(params, dict):
-        return {k: shard_params(v, specs[k], mesh) for k, v in params.items()}
+        return ShardedParams(_shard(params, specs, mesh), mesh, specs)
     return _local_slice(params, specs, mesh)
 
 
@@ -141,7 +171,8 @@ def dp_coordinate(mesh) -> tuple:
 
 def dp_groups(mesh) -> list:
     """The process groups of the data-parallel axes with more than one
-    rank, data first: what a loss's global denominators sum over."""
+    rank, data first: what a loss's global denominators sum over (never
+    ``tensor``, whose ranks hold the same rows)."""
     shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
     return [mesh.get_group(a) for a in ("data", "fsdp") if shape[a] > 1]
 

@@ -34,12 +34,18 @@ Transport: NCCL sends CUDA tensors directly; on a gloo group a CUDA tensor
 goes through host memory (copied to the host, sent, received into a host
 buffer, copied back).  ``dist.get_backend(group)`` decides.
 
-What differs from the JAX package: SPMD PyTorch has no GSPMD to gather the
+The parameters are placed by ``param_shardings`` as in JAX: ``wte`` and
+``head`` split their vocab over ``tensor``.  Each rank embeds the whole
+sequence in its vocab range and keeps its chunk of the reduce-scattered sum
+(:func:`~mmada_parallel_torch.parallel.tensor.reduce_scatter_rows`).  What
+differs from the JAX package: SPMD PyTorch has no GSPMD to gather the
 sequence-sharded result for the vocab head, so
 :func:`llada_hidden_tp_overlap` returns the full ``[B, L, d]`` hidden state
 on every rank (an all-gather over the ``tensor`` group, and over the
-``data`` group where ``data > 1``); every rank then runs the same sampler.
-``wte``, ``ln_f`` and ``head`` are whole on every rank.  JAX's block
+``data`` group where ``data > 1``); every rank then runs the same sampler,
+and the head projects each rank's vocab blocks of it and gathers the
+logits (:class:`~mmada_parallel_torch.parallel.tensor.MeshGather`, read
+from the parameters' mesh).  ``ln_f`` is whole on every rank.  JAX's block
 calls ``rope_attention_qonly(..., bare=True)`` to skip the GSPMD
 partitioning wrapper inside its manual partitioning; the port has no such
 wrapper, so its block calls the kernel's entry point as it is.  JAX's
@@ -70,8 +76,7 @@ import torch.nn.functional as F
 
 __all__ = ["ring_permute", "ring_ag_matmul", "ring_matmul_rs",
            "sigma_positions", "llada_hidden_tp_overlap",
-           "llada_forward_tp_overlap", "ring_hidden_fn", "check_ring_input",
-           "ring_param_shardings"]
+           "llada_forward_tp_overlap", "ring_hidden_fn", "check_ring_input"]
 
 AXIS = "tensor"
 
@@ -439,7 +444,9 @@ def llada_hidden_tp_overlap(
 
     SPMD: every rank of ``mesh`` calls it with the same ``input_ids`` and
     its own shards of ``params`` (``shard_params(params,
-    param_shardings(cfg), mesh)``).  The batch splits over the ``data``
+    param_shardings(cfg), mesh)``; the vocab-parallel ``wte`` embeds the
+    data group's whole rows, and the reduce-scatter of the sum leaves each
+    rank its chunk).  The batch splits over the ``data``
     axis and each data group runs its own ring over ``tensor``; the rows
     come back in natural order on every rank.  Requires the llama block,
     ``n_heads % g == 0`` and ``n_kv_heads % g == 0``, ``L % g == 0``,
@@ -447,19 +454,20 @@ def llada_hidden_tp_overlap(
     ``llada_hidden``'s, so samplers take it as their ``hidden_fn``
     (:func:`ring_hidden_fn`)."""
     from mmada_parallel_torch.models.llada import _norm, _rope_sin_cos
+    from mmada_parallel_torch.parallel.tensor import (local_embedding,
+                                                      reduce_scatter_rows)
 
     check_ring_input(cfg, mesh, *input_ids.shape, attn_mask, position_ids)
     shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
     g, n_data = shape[AXIS], shape["data"]
     B, L = input_ids.shape
     group = mesh.get_group(AXIS)
-    Bl, C = B // n_data, L // g
+    Bl = B // n_data
     b0 = mesh.get_local_rank("data") * Bl
-    c0 = mesh.get_local_rank(AXIS) * C
     cdt = cfg.compute_dtype
-    wte = params["wte"]
-    ids = input_ids[b0:b0 + Bl, c0:c0 + C].long().clamp(0, wte.shape[0] - 1)
-    x = F.embedding(ids, wte).to(cdt)
+    x = reduce_scatter_rows(local_embedding(
+        input_ids[b0:b0 + Bl], params["wte"], g, mesh.get_local_rank(AXIS)),
+        1, group).to(cdt)
     if cfg.input_emb_norm:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cdt)
     sin, cos = _rope_sin_cos(L, cfg.head_dim, cfg.rope_theta, x.device)
@@ -472,21 +480,6 @@ def llada_hidden_tp_overlap(
     if n_data > 1:
         x = _gather_rows(x, mesh.get_group("data")).reshape(B, L, -1)
     return x
-
-
-def ring_param_shardings(cfg) -> Dict[str, Any]:
-    """The ring's placement: :func:`~mmada_parallel_torch.models.llada.
-    param_shardings` for the blocks (heads and MLP hidden split over
-    ``tensor``), with ``wte``, ``ln_f`` and ``head`` whole on every rank.
-    JAX's vocab-sharded ``wte`` and ``head`` only place memory; they change
-    no number."""
-    from mmada_parallel_torch.models.llada import param_shardings
-    from mmada_parallel_torch.parallel.mesh import PartitionSpec
-    specs = param_shardings(cfg)
-    for name in ("wte", "head"):
-        if name in specs:
-            specs[name] = PartitionSpec()
-    return specs
 
 
 def ring_hidden_fn(mesh, int8_payload: bool = False, permute=None):
@@ -519,10 +512,16 @@ def llada_forward_tp_overlap(
     logits_dtype: Any = torch.float32,
     int8_payload: bool = False,
 ) -> torch.Tensor:
-    """Full forward: the ring backbone, then the vocab head (whole on every
-    rank) on the gathered hidden states."""
-    from mmada_parallel_torch.models.llada import llada_head
+    """Full forward: the ring backbone, then the vocab-parallel head on the
+    gathered hidden states, as JAX's head runs on the vocab-sharded
+    ``head``: each rank projects its vocab blocks and the logits are
+    gathered over ``tensor`` (the gather's backward keeps this rank's
+    block, the hidden state's sums the blocks' gradients)."""
+    from mmada_parallel_torch.models.llada import (llada_head,
+                                                   param_shardings)
+    from mmada_parallel_torch.parallel.tensor import MeshGather
 
     hidden = llada_hidden_tp_overlap(params, cfg, input_ids, mesh,
                                      int8_payload=int8_payload)
-    return llada_head(params, cfg, hidden, vocab_slice, logits_dtype)
+    return llada_head(params, cfg, hidden, vocab_slice, logits_dtype,
+                      gather=MeshGather(mesh, param_shardings(cfg), cfg))

@@ -288,8 +288,7 @@ def _final_codes(ids: torch.Tensor, layout: SequenceLayout,
         0, opts.codebook_size - 1)
     still_masked = img_tokens == opts.mask_token
     if generator is not None:
-        fill = torch.randint(0, opts.codebook_size, codes.shape,
-                             generator=generator, device=ids.device)
+        fill = S.randint_noise(codes, opts.codebook_size, generator)
     else:
         fill = torch.zeros_like(codes)
     return torch.where(still_masked, fill, codes)

@@ -22,10 +22,12 @@ which builds the attention kernels and warms cuBLAS and cuDNN, and records
 the bucket.  Producer threads only enqueue and wait.
 
 ``TI2TIServer(hidden_fn=ring_hidden_fn(mesh))`` serves over the ring
-tensor parallelism of :mod:`mmada_parallel_torch.parallel.tp_overlap`, the
-SPMD form of the JAX package's single-controller server: every rank of the
-mesh (which spans the default process group) makes the same sampler calls
-in the same order.  Rank 0 owns the queue and the batching and, before each
+tensor parallelism of :mod:`mmada_parallel_torch.parallel.tp_overlap`, and
+any server given parameters that carry their mesh (``shard_params``) over
+that mesh (:mod:`mmada_parallel_torch.parallel.tensor`): the SPMD form of
+the JAX package's single-controller server, where every rank of the mesh
+(which spans the default process group) makes the same sampler calls in
+the same order.  Rank 0 owns the queue and the batching and, before each
 batch (warmups included), broadcasts the batch's prompt length and rows;
 every other rank's worker receives them and runs the same batch, until
 ``close()`` on rank 0 ends it.
@@ -91,10 +93,18 @@ class _BatchServerBase:
     and ``event``), and ``_warm_bucket(bucket)`` for :meth:`warmup`."""
 
     def __init__(self, params: Any, batch_size: int, max_wait_ms: float,
-                 deterministic: bool, seed: int,
-                 worker: Optional[Callable] = None):
+                 deterministic: bool, seed: int, mesh=None):
         self.params = params
         self.device = params["wte"].device
+        # SPMD over a mesh: ring tensor parallelism (a hidden_fn's mesh) or
+        # parameters that carry their mesh (shard_params)
+        mesh = mesh if mesh is not None else getattr(params, "mesh", None)
+        self._spmd = mesh is not None
+        self._leader = not self._spmd or dist.get_rank() == 0
+        self._failure: Optional[BaseException] = None
+        # one batch at a time: a leader's broadcast and its collectives
+        # must not interleave with another thread's (warmup vs worker)
+        self._batch_lock = threading.Lock()
         self._batch_size = batch_size
         self._max_wait_ms = max_wait_ms
         # nothing samples: fully deterministic (no generator), the parity
@@ -105,12 +115,14 @@ class _BatchServerBase:
         self._q: "queue.Queue[_Pending]" = queue.Queue()
         self._stats = {"requests": 0, "batches": 0, "batched_rows": 0}
         self._stop = threading.Event()
-        self._worker = threading.Thread(target=self._on_device,
-                                        args=(worker or self._run,),
-                                        daemon=True)
+        self._worker = threading.Thread(
+            target=self._on_device,
+            args=(self._run if self._leader else self._follow,), daemon=True)
         self._worker.start()
 
     def _submit(self, payload, timeout: Optional[float]) -> Any:
+        if not self._leader:
+            raise RuntimeError("an SPMD server takes submissions on rank 0")
         p = _Pending(payload)
         self._q.put(p)
         if not p.event.wait(timeout):
@@ -126,8 +138,61 @@ class _BatchServerBase:
         return dict(self._stats)
 
     def close(self) -> None:
-        self._stop.set()
-        self._worker.join(timeout=5)
+        """Stop the worker.  On an SPMD server rank 0 ends the followers'
+        loops, and a follower waits for that; a failed batch then raises
+        on every rank that saw it."""
+        if not self._spmd:
+            self._stop.set()
+            self._worker.join(timeout=5)
+            return
+        if self._leader:
+            self._stop.set()
+            self._worker.join()          # the batch in flight ends first
+            with self._batch_lock:
+                if self._failure is None:
+                    dist.broadcast_object_list([None], src=0)
+        else:
+            self._worker.join()          # until rank 0's close
+        if self._failure is not None:
+            # the ranks' collectives no longer match: the job must end
+            raise RuntimeError("a batch of the SPMD server failed on rank "
+                               f"{dist.get_rank()}") from self._failure
+
+    def _follow(self) -> None:
+        """A follower rank's worker: run each batch rank 0 broadcasts; a
+        failure ends it, and ``close()`` raises it."""
+        try:
+            while True:
+                msg = [None]
+                dist.broadcast_object_list(msg, src=0)
+                if msg[0] is None:
+                    return
+                self._sample(*msg[0])
+        except BaseException as e:
+            self._failure = e
+
+    def _generate(self, bucket: int, rows: list):
+        """One batch -> the host results of :meth:`_sample`; an SPMD leader
+        first sends ``(bucket, rows)`` to the followers, which run the same
+        call.  A batch that fails once sent ends the server."""
+        if not self._spmd:
+            return self._sample(bucket, rows)
+        with self._batch_lock:
+            if self._failure is not None:
+                raise RuntimeError("the SPMD server failed on an earlier "
+                                   "batch") from self._failure
+            self._check(bucket)     # refused here, it never reaches them
+            dist.broadcast_object_list([(bucket, rows)], src=0)
+            try:
+                return self._sample(bucket, rows)
+            except BaseException as e:
+                # the followers may be mid-collective: no later batch runs
+                self._failure = e
+                raise
+
+    def _check(self, bucket: int) -> None:
+        """Raise where the batches of ``bucket`` cannot run (before an SPMD
+        leader sends one)."""
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
@@ -173,6 +238,8 @@ class _BatchServerBase:
                         p.error, _ = e, p.event.set()
 
     def _warm(self, buckets) -> None:
+        if not self._leader:        # rank 0's warmups run on every rank
+            return
         for b in buckets:
             if b not in self.warm_buckets:
                 self._warm_bucket(b)
@@ -180,6 +247,9 @@ class _BatchServerBase:
 
     # -- subclass hooks
     def _bucket_of(self, payload) -> int:
+        raise NotImplementedError
+
+    def _sample(self, bucket: int, rows: list):
         raise NotImplementedError
 
     def _serve_group(self, bucket: int, group: List[_Pending]) -> None:
@@ -209,8 +279,10 @@ class TI2TIServer(_BatchServerBase):
     ``hidden_fn`` swaps the backbone (``llada_hidden``'s signature).  It
     takes no padding mask, so requests then group by exact prompt length.
     A ring backbone (:func:`~mmada_parallel_torch.parallel.tp_overlap.
-    ring_hidden_fn`, whose ``mesh`` attribute says so) makes the server
-    SPMD: construct it on every rank with the same arguments; rank 0 takes
+    ring_hidden_fn`, whose ``mesh`` attribute says so), or parameters that
+    carry their mesh (``shard_params``, as every server takes them), makes
+    the server SPMD: construct it on every rank with the same arguments;
+    rank 0 takes
     the submissions, the other ranks follow its batches until rank 0's
     ``close()``, and their ``close()`` waits for that.  Rank 0 refuses a
     batch the ring cannot run (its ``check``) before sending it.  A batch
@@ -233,22 +305,14 @@ class TI2TIServer(_BatchServerBase):
         self.uncond_image_prefix = uncond_image_prefix
         self.hidden_fn = hidden_fn
         self._layouts: Dict[int, tk.SequenceLayout] = {}
-        self._spmd = getattr(hidden_fn, "mesh", None) is not None
-        self._leader = not self._spmd or dist.get_rank() == 0
-        self._failure: Optional[BaseException] = None
-        # one batch at a time: a leader's broadcast and its ring collectives
-        # must not interleave with another thread's (warmup vs worker)
-        self._batch_lock = threading.Lock()
         super().__init__(params, serve.batch_size, serve.max_wait_ms,
                          opts.temperature == 0.0
                          and opts.text_temperature == 0.0
                          and opts.remasking != "random", seed,
-                         worker=None if self._leader else self._follow)
+                         mesh=getattr(hidden_fn, "mesh", None))
 
     def submit(self, prompt_ids: Sequence[int],
                timeout: Optional[float] = None) -> Dict[str, Any]:
-        if not self._leader:
-            raise RuntimeError("an SPMD server takes submissions on rank 0")
         if len(prompt_ids) > self.serve.max_prompt_len:
             raise ValueError(
                 f"prompt length {len(prompt_ids)} exceeds max_prompt_len "
@@ -258,37 +322,12 @@ class TI2TIServer(_BatchServerBase):
     def warmup(self, prompt_lens: Sequence[int]) -> None:
         """Run the buckets of these prompt lengths once on pad rows (on an
         SPMD server, rank 0's warmups run on every rank)."""
-        if self._leader:
-            self._warm(self._bucket_of([0] * n) for n in prompt_lens)
+        self._warm(self._bucket_of([0] * n) for n in prompt_lens)
 
-    def close(self) -> None:
-        if not self._spmd:
-            return super().close()
-        if self._leader:
-            self._stop.set()
-            self._worker.join()          # the batch in flight ends first
-            with self._batch_lock:
-                if self._failure is None:
-                    dist.broadcast_object_list([None], src=0)
-        else:
-            self._worker.join()          # until rank 0's close
-        if self._failure is not None:
-            # the ranks' collectives no longer match: the job must end
-            raise RuntimeError("a batch of the SPMD server failed on rank "
-                               f"{dist.get_rank()}") from self._failure
-
-    def _follow(self) -> None:
-        """A follower rank's worker: run each batch rank 0 broadcasts; a
-        failure ends it, and ``close()`` raises it."""
-        try:
-            while True:
-                msg = [None]
-                dist.broadcast_object_list(msg, src=0)
-                if msg[0] is None:
-                    return
-                self._sample(*msg[0])
-        except BaseException as e:
-            self._failure = e
+    def _check(self, plen: int) -> None:
+        if getattr(self.hidden_fn, "check", None) is not None:
+            self.hidden_fn.check(self.cfg, self._batch_size,
+                                 self._layout(plen).total_len)
 
     def _bucket_of(self, payload) -> int:
         if self.hidden_fn is not None:
@@ -307,28 +346,9 @@ class TI2TIServer(_BatchServerBase):
             self._layouts[plen] = self._row([self.tokens.pad] * plen)[1]
         return self._layouts[plen]
 
-    def _generate(self, plen: int, prompts: List[List[int]]):
-        """One ragged batch of ``batch_size`` rows (the last prompt repeats
-        to fill it) -> host ``(final ids, codes)``; an SPMD leader first
-        sends the batch to the followers."""
-        if not self._spmd:
-            return self._sample(plen, prompts)
-        with self._batch_lock:
-            if self._failure is not None:
-                raise RuntimeError("the SPMD server failed on an earlier "
-                                   "batch") from self._failure
-            # refused here, the batch never reaches the followers
-            self.hidden_fn.check(self.cfg, self._batch_size,
-                                 self._layout(plen).total_len)
-            dist.broadcast_object_list([(plen, prompts)], src=0)
-            try:
-                return self._sample(plen, prompts)
-            except BaseException as e:
-                # the followers may be mid-ring: no later batch can run
-                self._failure = e
-                raise
-
     def _sample(self, plen: int, prompts: List[List[int]]):
+        """One ragged batch of ``batch_size`` rows (the last prompt repeats
+        to fill it) -> host ``(final ids, codes)``."""
         layout = self._layout(plen)
         B = self._batch_size
         ids = np.zeros((B, layout.total_len), np.int64)
@@ -473,7 +493,7 @@ class InterleaveServer(_BatchServerBase):
                 self.max_seq_length, tokens=T)[1]
         return self._layouts[ilen]
 
-    def _generate(self, ilen: int, rows: List[Tuple[List[int], List[int]]]):
+    def _sample(self, ilen: int, rows: List[Tuple[List[int], List[int]]]):
         """One batch of ``(instruction, codes)`` rows -> host ``(final ids,
         codes)``."""
         T = self.tokens
@@ -616,7 +636,7 @@ class T2IServer(_BatchServerBase):
         return _round_bucket(len(payload["temp"]), self.bucket_quantum,
                              self.max_text_len)
 
-    def _generate(self, plen: int, temps: List[List[int]]) -> np.ndarray:
+    def _sample(self, plen: int, temps: List[List[int]]) -> np.ndarray:
         T = self.tokens
         B = self._batch_size
         tail = [T.soi] + [self.opts.mask_token] * self.num_vq_tokens + [T.eoi]
@@ -695,7 +715,7 @@ class MMUServer(_BatchServerBase):
         return _round_bucket(len(payload["prompt"]), self.bucket_quantum,
                              self.max_prompt_len)
 
-    def _generate(self, plen: int, prompts: List[List[int]]) -> np.ndarray:
+    def _sample(self, plen: int, prompts: List[List[int]]) -> np.ndarray:
         B = self._batch_size
         ids = np.full((B, plen), self.tokens.eos, np.int64)
         mask = np.zeros((B, plen), bool)

@@ -70,6 +70,14 @@ def _flat(tree: Any, prefix: str = "") -> Dict[str, Any]:
     return {prefix: tree}
 
 
+def _plain(tree: Any) -> Any:
+    """``tree`` with every dict a plain ``dict`` (``shard_params``' tree
+    carries its mesh), which ``weights_only`` loads take."""
+    if isinstance(tree, dict):
+        return {k: _plain(v) for k, v in tree.items()}
+    return tree
+
+
 def _state_tree(state: TrainState) -> Dict[str, Any]:
     return {"params": state.params, "opt_state": state.opt_state}
 
@@ -154,8 +162,8 @@ class CheckpointManager:
         else:
             tmp = tempfile.mkdtemp(prefix=f".{step}.", dir=self.directory)
             try:
-                torch.save({"params": state.params,
-                            "opt_state": state.opt_state,
+                torch.save({"params": _plain(state.params),
+                            "opt_state": _plain(state.opt_state),
                             "step": int(state.step)},
                            os.path.join(tmp, "state.pt"))
                 with open(os.path.join(tmp, "metadata.json"), "w") as f:

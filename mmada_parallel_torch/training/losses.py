@@ -19,7 +19,10 @@ groups its batch is split over, data major) divides its rank's numerator by
 the *global* denominator (token or row counts summed over the groups, with
 no gradient): the ranks' losses, and their gradients, then sum to the
 whole-batch loss and gradient, whatever each rank's token count.  With no
-groups every loss is the one-device loss.
+groups every loss is the one-device loss.  The ``tensor`` axis is never
+among the groups (``parallel/mesh.dp_groups``): its ranks hold the same rows
+and compute the same loss from the same gathered logits, so a row counts
+once, not once a ``tensor`` rank.
 """
 
 from __future__ import annotations

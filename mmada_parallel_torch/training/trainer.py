@@ -308,34 +308,40 @@ def _fsdp_syncs(p_specs, o_specs, params, mesh) -> List[_LeafSync]:
     """``full`` / ``zero2`` / ``ddp``: a parameter sharded over ``fsdp`` got
     its gradient reduce-scattered by the gather's backward; one whole over
     ``fsdp`` whose state is sharded is reduce-scattered here; any other is
-    all-reduced over ``fsdp``.  All sum over ``data``."""
+    all-reduced over ``fsdp``.  All sum over ``data``, and none over
+    ``tensor``: a leaf split over ``tensor`` got its whole gradient on its
+    rank (Megatron's split, ``parallel/tensor.py``), and a whole one (the
+    norms) the same whole gradient on every rank, so a sum would count it
+    ``g`` times.  The norm sums over the axes a leaf is split on."""
     from mmada_parallel_torch.parallel.fsdp import fsdp_dim
     out = []
     for ps, os_ in zip(_spec_leaves(p_specs, params),
                        _spec_leaves(o_specs, params)):
-        if fsdp_dim(ps, mesh) is not None:
-            out.append(_LeafSync(("data",), norm=("fsdp",)))
-        elif fsdp_dim(os_, mesh) is not None:
-            out.append(_LeafSync(("data",), fsdp_dim(os_, mesh), ("fsdp",)))
+        tp = ("tensor",) if any("tensor" in _names(e) for e in ps) else ()
+        if fsdp_dim(ps) is not None:
+            out.append(_LeafSync(("data",), norm=("fsdp",) + tp))
+        elif fsdp_dim(os_) is not None:
+            out.append(_LeafSync(("data",), fsdp_dim(os_), ("fsdp",) + tp))
         else:
-            out.append(_LeafSync(("data", "fsdp")))
+            out.append(_LeafSync(("data", "fsdp"), norm=tp))
     return out
 
 
 def _ring_syncs(p_specs, params) -> List[_LeafSync]:
     """The ring (``parallel/tp_overlap.py``): a leaf split over ``tensor``
-    (the blocks' projections) saw every chunk of its data group through the
-    ring, so it sums over ``data`` only; ``head`` ran on the same whole
-    hidden state of the whole batch on every rank, so its gradient is
-    already whole and sums over nothing; every other leaf (``wte``,
-    ``ln_f``, the blocks' norms) ran on this rank's chunk and rows only and
-    sums over ``tensor`` and ``data``."""
+    (the blocks' projections, the vocab-parallel ``wte``) saw every chunk
+    of its data group, so it sums over ``data`` only; ``head`` ran on the
+    same whole hidden state of the whole batch on every rank, so its
+    gradient is already whole and sums over nothing; every other leaf
+    (``ln_f``, the blocks' norms) ran on this rank's chunk and rows only
+    and sums over ``tensor`` and ``data``."""
     out = []
     for ps, name in zip(_spec_leaves(p_specs, params), _tree_names(params)):
-        if any("tensor" in _names(e) for e in ps):
+        split = any("tensor" in _names(e) for e in ps)
+        if name == "head":
+            out.append(_LeafSync((), norm=("tensor",) if split else ()))
+        elif split:
             out.append(_LeafSync(("data",), norm=("tensor",)))
-        elif name == "head":
-            out.append(_LeafSync(()))
         else:
             out.append(_LeafSync(("data", "tensor")))
     return out
@@ -397,6 +403,14 @@ def sharded_value_and_grad(loss_fn: Callable, params: Any, batch: Any, mesh,
     return loss, metrics, grads, grad_norm, syncs
 
 
+def _fsdp_only(spec):
+    """``spec`` with only its ``fsdp`` entry: the view of a leaf whose
+    ``tensor`` slice this rank already holds."""
+    from mmada_parallel_torch.parallel.mesh import PartitionSpec
+    return PartitionSpec(*("fsdp" if "fsdp" in _names(e) else None
+                           for e in spec))
+
+
 def make_sharded_train_step(loss_fn: Callable, optimizer: Optimizer, mesh,
                             p_specs: Any, o_specs: Any,
                             accum_steps: int = 1,
@@ -406,10 +420,12 @@ def make_sharded_train_step(loss_fn: Callable, optimizer: Optimizer, mesh,
     tensor-sharded state, ``fsdp == 1``).
 
     ``loss_fn`` runs on this rank's rows with its parameter slices: over
-    ``fsdp`` it gathers them (``llada_forward(..., gather=FsdpGather(mesh,
-    p_specs))``) and its loss is this rank's share of the global loss
-    (``dp_groups``, ``training/losses.py``), so the gradients and losses
-    are *summed* over ``data`` x ``fsdp``.  On the ring every rank computes
+    ``fsdp`` it gathers them and over ``tensor`` it runs Megatron's split
+    (``llada_forward(..., gather=MeshGather(mesh, p_specs, cfg))``); its
+    loss is this rank's share of the global loss (``dp_groups``,
+    ``training/losses.py``), so the gradients and losses are *summed* over
+    ``data`` x ``fsdp``; the ranks of one ``tensor`` group hold the same
+    rows and compute the same loss.  On the ring every rank computes
     the same loss of the whole batch, which is not summed.
 
     The global gradient norm sums each rank's squared gradient over the
@@ -418,11 +434,6 @@ def make_sharded_train_step(loss_fn: Callable, optimizer: Optimizer, mesh,
     branch."""
     from mmada_parallel_torch.parallel.fsdp import all_gather_dim
     from mmada_parallel_torch.parallel.mesh import _local_view
-    if not ring and dict(zip(mesh.mesh_dim_names, mesh.shape))["tensor"] != 1:
-        raise ValueError("tensor parallelism in training runs only on the "
-                         "ring (ring=True); plain Megatron tensor "
-                         "parallelism is not ported (ROADMAP Queue 1, "
-                         "item 16b.11)")
     groups = _axis_groups(mesh)
 
     def step(state: TrainState, batch: Any,
@@ -434,7 +445,7 @@ def make_sharded_train_step(loss_fn: Callable, optimizer: Optimizer, mesh,
 
         def apply():
             targets = [p if sync.scatter_dim is None or "fsdp" not in groups
-                       else _local_view(p, o_spec, mesh)
+                       else _local_view(p, _fsdp_only(o_spec), mesh)
                        for p, sync, o_spec in zip(
                            leaves, syncs, _spec_leaves(o_specs,
                                                        state.params))]

@@ -109,11 +109,73 @@ def test_parabench_sweep_matches_jax_and_solo(model):
         assert 0.0 < g["scores"]["code_diversity"] <= 1.0
 
 
-def test_parabench_sweep_refuses_a_mesh(model):
+def test_parabench_sweep_over_a_mesh(model, tmp_path):
+    """JAX's ``test_parabench_sweep_with_mesh``, held to the meshless
+    sweep: 4 spawned gloo ranks on the ``(1, 2, 2)`` mesh, each with its
+    sharded parameters and its rows of every chunk (3 prompts padded to 4
+    rows), give every rank the meshless sweep's texts and codes (the codes
+    through the solo run's still-masked rule: each rank draws the random
+    fills of its own rows), and a per-chip rate a quarter of the rate."""
+    from test_torch_tensor_parallel import sweep_rank
+    from mmada_parallel_torch.parallel.launch import rank_results, spawn_ranks
     _, tcfg, _, tp = model
-    with pytest.raises(NotImplementedError, match="item 16"):
-        TE.run_parabench_sweep(tp, tcfg, [TE.EvalRequest([5, 6])], (2, 3), 8,
-                               [9], mesh=object())
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, 200, n).tolist() for n in (5, 9, 12)]
+    kw = dict(grid_hw=(2, 3), text_gen_length=8, end_token_ids=[9],
+              batch_size=3, uncond_image_prefix=UI, seed=3)
+    torch.save({"mesh": (1, 2, 2), "params": tp, "prompts": prompts,
+                "opts": A_OPTS, "tokens": TOK.__dict__, "kw": kw,
+                "cfg": dict(d_model=32, n_heads=2, n_kv_heads=2,
+                            n_layers=1, mlp_hidden_size=64,
+                            vocab_size=TVS + CB, mask_token_id=MASK)},
+               tmp_path / "inputs.pt")
+    join = spawn_ranks(sweep_rank, 4, tmp_path, timeout=240)
+    want = TE.run_parabench_sweep(
+        tp, tcfg, [TE.EvalRequest(p) for p in prompts],
+        opts=TT.TI2TIOptions(**A_OPTS),
+        tokens=ptk.VariantATokens(**TOK.__dict__), **kw)
+    for r, got in enumerate(rank_results(join(), "sweep ranks")):
+        assert got["num_requests"] == 3, r
+        assert np.isclose(got["edits_per_min_per_chip"] * 4,
+                          got["edits_per_min"])
+        for i, p in enumerate(prompts):
+            g, w = got["results"][i], want["results"][i]
+            _, _, still = _a_solo(tcfg, tp, p)
+            assert g["index"] == i and g["text"] == w["text"], (r, i)
+            assert np.array_equal(g["codes"][~still], w["codes"][~still])
+
+
+def test_parabench_sweep_over_a_mesh_samples_as_one_rank(model, tmp_path):
+    """At temperature 1 on the ``(2, 1, 2)`` mesh (``batch_size`` 4, two
+    rows a data rank, 5 prompts in two chunks) every rank gets the meshless
+    sweep's texts and codes, the random fills included: a row's noise is
+    its own in one draw over the chunk, not the noise of the same row
+    index on data rank 0."""
+    from test_torch_tensor_parallel import sweep_rank
+    from mmada_parallel_torch.parallel.launch import rank_results, spawn_ranks
+    _, tcfg, _, tp = model
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, 200, n).tolist() for n in (5, 9, 12, 7, 3)]
+    opts = dict(A_OPTS, temperature=1.0, text_temperature=1.0)
+    kw = dict(grid_hw=(2, 3), text_gen_length=8, end_token_ids=[9],
+              batch_size=4, uncond_image_prefix=UI, seed=5)
+    torch.save({"mesh": (2, 1, 2), "params": tp, "prompts": prompts,
+                "opts": opts, "tokens": TOK.__dict__, "kw": kw,
+                "cfg": dict(d_model=32, n_heads=2, n_kv_heads=2,
+                            n_layers=1, mlp_hidden_size=64,
+                            vocab_size=TVS + CB, mask_token_id=MASK)},
+               tmp_path / "inputs.pt")
+    join = spawn_ranks(sweep_rank, 4, tmp_path, timeout=240)
+    want = TE.run_parabench_sweep(
+        tp, tcfg, [TE.EvalRequest(p) for p in prompts],
+        opts=TT.TI2TIOptions(**opts),
+        tokens=ptk.VariantATokens(**TOK.__dict__), **kw)
+    for r, got in enumerate(rank_results(join(), "sweep ranks")):
+        for i in range(len(prompts)):
+            g, w = got["results"][i], want["results"][i]
+            assert g["index"] == i and g["text"] == w["text"], (r, i)
+            np.testing.assert_array_equal(g["codes"], w["codes"],
+                                          err_msg=f"rank {r} row {i}")
 
 
 def _m_requests(rng):

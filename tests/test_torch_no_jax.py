@@ -578,12 +578,11 @@ torch.set_num_threads(1)
 from mmada_parallel_torch.cli import serve  # noqa: F401
 from mmada_parallel_torch.models.llada import (LLaDAConfig,
                                                init_llada_params,
-                                               llada_hidden)
+                                               llada_hidden, param_shardings)
 from mmada_parallel_torch.parallel import (MeshConfig, init_distributed,
                                            make_mesh, shard_params)
 from mmada_parallel_torch.parallel import launch  # noqa: F401
-from mmada_parallel_torch.parallel.tp_overlap import (
-    llada_hidden_tp_overlap, ring_param_shardings)
+from mmada_parallel_torch.parallel.tp_overlap import llada_hidden_tp_overlap
 
 rank, workdir = int(sys.argv[1]), sys.argv[2]
 init_distributed(f"file://{workdir}/rdv", 2, rank, "gloo")
@@ -593,7 +592,7 @@ ids = torch.randint(0, cfg.vocab_size, (2, 12),
                     generator=torch.Generator().manual_seed(1))
 mesh = make_mesh(MeshConfig(data=1, fsdp=1, tensor=2), "cpu")
 ring = llada_hidden_tp_overlap(
-    shard_params(params, ring_param_shardings(cfg), mesh), cfg, ids, mesh)
+    shard_params(params, param_shardings(cfg), mesh), cfg, ids, mesh)
 err = float((ring - llada_hidden(params, cfg, ids)).abs().max())
 print(json.dumps({
     "jax": sorted(m for m in sys.modules if m.split(".")[0] in
@@ -722,3 +721,114 @@ def test_sharded_trainers_import_no_jax(tmp_path):
          [1, 1, 1, 1, 1]],
         [4, 5, 3, 4]]
     assert (tmp_path / "fsdp" / "1" / "shards.json").exists()
+
+
+TENSOR_SCRIPT = r"""
+import importlib.abc, json, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "mmada_parallel_tpu"):
+            raise ImportError(f"{name} is blocked here")
+        return None
+
+sys.meta_path.insert(0, Block())
+
+import torch
+torch.set_num_threads(1)
+from mmada_parallel_torch import evaluation as E
+from mmada_parallel_torch import tokens as tk
+from mmada_parallel_torch.cli import train_a, train_m, train_pararl
+from mmada_parallel_torch.config import load_config
+from mmada_parallel_torch.models.llada import (LLaDAConfig, init_llada_params,
+                                               llada_forward, param_shardings)
+from mmada_parallel_torch.ops.quant import (quantize_llada_params,
+                                            quantize_param_shardings)
+from mmada_parallel_torch.parallel import (MeshConfig, init_distributed,
+                                           make_mesh, shard_params)
+from mmada_parallel_torch.parallel import tensor  # noqa: F401
+from mmada_parallel_torch.samplers.parallel_ti2ti import TI2TIOptions
+
+rank, workdir = int(sys.argv[1]), sys.argv[2]
+init_distributed(f"file://{workdir}/rdv", 2, rank, "gloo")
+mesh = make_mesh(MeshConfig(1, 1, 2), "cpu")
+g = torch.Generator().manual_seed(0)
+ids = torch.randint(0, 512, (4, 16), generator=g)
+batch = (ids, torch.where(torch.rand(4, 16, generator=g) < 0.5, ids, -100),
+         torch.full((4,), 16))
+out = {}
+cfg = LLaDAConfig.tiny(vocab_size=512)
+params = init_llada_params(cfg, torch.Generator().manual_seed(1))
+whole = llada_forward(params, cfg, ids)
+out["fwd"] = float((llada_forward(shard_params(
+    params, param_shardings(cfg), mesh), cfg, ids) - whole).abs().max())
+q = quantize_llada_params(params)
+out["int8"] = float((llada_forward(shard_params(
+    q, quantize_param_shardings(param_shardings(cfg)), mesh), cfg, ids)
+    - llada_forward(q, cfg, ids)).abs().max())
+state, step, _ = train_a.build_train_step(
+    cfg, params, lr=1e-3, min_lr=0.0, wd=0.1, clip_grad=4.0, warmup_steps=1,
+    total_steps=4, accum_steps=2, mesh=mesh, shard_strategy="zero2")
+out["a_loss"] = float(step(state, batch)[1]["loss"])
+mcfg_run = load_config(None, ["tiny_debug=true", "mesh.tensor=2",
+                              "training.gradient_accumulation_steps=1"],
+                       train_m.DEFAULTS)
+mcfg = LLaDAConfig.tiny(vocab_size=512)
+state, step, _ = train_m.build_train_step(
+    mcfg, init_llada_params(mcfg, torch.Generator().manual_seed(2)),
+    mcfg_run, mesh)
+out["m_specs"] = sorted(step.state_specs.params)
+T = tk.VariantATokens(mask=250, newline=251, answer_start=252, answer_end=253,
+                      boi=254, eoi=255, uncondition=249, pad=248,
+                      text_vocab_size=256, codebook_size=32)
+scfg = LLaDAConfig.tiny(vocab_size=288, mask_token_id=250)
+sweep = E.run_parabench_sweep(
+    shard_params(init_llada_params(scfg, torch.Generator().manual_seed(3)),
+                 param_shardings(scfg), mesh), scfg,
+    [E.EvalRequest([5, 6, 7])], (2, 2), 4, [9],
+    opts=TI2TIOptions(text_steps=2, timesteps=2, temperature=0.0,
+                      text_temperature=0.0, text_vocab_size=256,
+                      codebook_size=32, mask_token=250),
+    batch_size=2, mesh=mesh, tokens=T)
+out["sweep_codes"] = sweep["results"][0]["codes"].tolist()
+train_pararl.main(["--output_dir", f"{workdir}/rl", "--steps", "1",
+                   "--text_steps", "2", "--timesteps", "2", "--grid", "2",
+                   "--text_gen_length", "4", "--traj_subsample", "2",
+                   "--device", "cpu"])
+print(json.dumps({
+    "jax": sorted(m for m in sys.modules if m.split(".")[0] in
+                  ("jax", "jaxlib", "mmada_parallel_tpu")), **out}))
+"""
+
+
+def test_tensor_parallel_entry_points_import_no_jax(tmp_path):
+    """``parallel/tensor.py`` and the entry points that run over a
+    ``tensor`` axis (the sharded dense and int8 forwards,
+    ``train_a.build_train_step`` with ``mesh_tensor`` 2 and no ring,
+    ``train_m.build_train_step`` with ``mesh.tensor=2``,
+    ``run_parabench_sweep(mesh=)``, ``train_pararl`` over a 2-rank mesh)
+    run with the JAX imports blocked, in two processes (gloo, a ``file://``
+    rendezvous); both ranks report the same results, and the sharded
+    forwards equal the whole ones."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    procs = [subprocess.Popen([sys.executable, "-c", TENSOR_SCRIPT, str(r),
+                               str(tmp_path)], cwd=REPO, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            p.kill()
+    res = []
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+        res.append(json.loads(out.strip().splitlines()[-1]))
+    assert res[0] == res[1] and res[0]["jax"] == []
+    assert res[0]["fwd"] < 1e-5 and res[0]["int8"] < 1e-5
+    assert 0 < res[0]["a_loss"] < 20
+    assert res[0]["m_specs"] == ["blocks", "head", "ln_f", "wte"]
+    assert len(res[0]["sweep_codes"]) == 4
+    assert (tmp_path / "rl" / "ckpt" / "1").exists()

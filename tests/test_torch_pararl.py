@@ -197,3 +197,46 @@ def test_train_pararl_cli_writes_a_checkpoint(tmp_path):
     state, meta, step = mngr.restore(template)
     assert step == 2 and meta == {"iters": 2} and state.step == 2
     assert state.opt_state["count"] == 2
+
+
+def test_train_pararl_cli_over_a_mesh_equals_one_rank(tmp_path):
+    """JAX's ``cli/train_pararl.py`` over ``MeshConfig()``: two spawned
+    gloo ranks (``data=2``, the parameters placed by ``param_shardings``)
+    take the one-rank run's update: rank 0's checkpoint holds its
+    parameters and AdamW state."""
+    from test_torch_tensor_parallel import pararl_rank
+    from mmada_parallel_torch.cli import train_pararl
+    from mmada_parallel_torch.parallel.launch import rank_results, spawn_ranks
+    from mmada_parallel_torch.training.checkpoint import CheckpointManager
+    from mmada_parallel_torch.training.trainer import (OptimizerConfig,
+                                                       TrainState,
+                                                       make_optimizer,
+                                                       tree_leaves)
+    argv = ["--steps", "1", "--rollouts_per_step", "2", "--text_steps", "4",
+            "--timesteps", "2", "--grid", "2", "--text_gen_length", "4",
+            "--traj_subsample", "2", "--lr", "1e-3", "--device", "cpu"]
+    work = tmp_path / "ranks"
+    work.mkdir()
+    torch.save(argv + ["--output_dir", str(tmp_path / "two")],
+               work / "argv.pt")
+    join = spawn_ranks(pararl_rank, 2, work, timeout=240)
+    train_pararl.main(argv + ["--output_dir", str(tmp_path / "one")])
+    rank_results(join(), "pararl ranks")
+    cfg, params, _ = train_pararl.tiny_setup(0, "cpu")
+    template = TrainState.create(params, make_optimizer(OptimizerConfig(),
+                                                        params))
+    one, _, _ = CheckpointManager(str(tmp_path / "one" / "ckpt")).restore(
+        template)
+    two, meta, step = CheckpointManager(
+        str(tmp_path / "two" / "ckpt")).restore(template)
+    assert step == 1 and meta == {"iters": 1}
+    for tree in ("params", "opt_state"):
+        a = tree_leaves(getattr(one, tree))
+        b = tree_leaves(getattr(two, tree))
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            if isinstance(x, torch.Tensor):
+                torch.testing.assert_close(y, x, rtol=1e-5, atol=1e-7)
+            else:
+                assert x == y
+

@@ -212,3 +212,34 @@ def test_int8_gemm_on_cuda_equals_cpu(cuda_device, rows, K, N, sliced):
     got = TQ.int8_matmul(x.to(cuda_device), w_q.to(cuda_device),
                          scale.to(cuda_device))
     assert torch.equal(got.cpu(), TQ.int8_matmul(x, w_q, scale))
+
+
+@pytest.mark.parametrize("kw", [{}, {"block_type": "sequential",
+                                     "include_qkv_bias": True},
+                                {"weight_tying": True}],
+                         ids=["llama", "sequential", "tied"])
+@pytest.mark.parametrize("quantize_head", [True, False])
+def test_quantize_param_shardings_matches_jax(kw, quantize_head):
+    """JAX's ``test_quantized_param_shardings_structure``: the spec tree of
+    the quantized params has their structure, ``w_q`` keeps the dense spec
+    and ``scale [L, 1, N]`` drops the K axis, entry for entry JAX's; a
+    row-parallel leaf's scale is whole over ``tensor``."""
+    base = dict(vocab_size=TVS + CB, mask_token_id=MASK, **kw)
+    jcfg, tcfg = JL.LLaDAConfig.tiny(**base), TL.LLaDAConfig.tiny(**base)
+    want = JQ.quantize_param_shardings(JL.param_shardings(jcfg),
+                                       quantize_head=quantize_head)
+    got = TQ.quantize_param_shardings(TL.param_shardings(tcfg),
+                                      quantize_head=quantize_head)
+    tq = TQ.quantize_llada_params(
+        TL.init_llada_params(tcfg, torch.Generator().manual_seed(0)),
+        quantize_head=quantize_head)
+
+    def same(g, w, p):
+        if isinstance(p, dict):
+            assert isinstance(g, dict) and set(g) == set(p) == set(w)
+            for k in p:
+                same(g[k], w[k], p[k])
+        else:
+            assert tuple(g) == tuple(w) and len(tuple(g)) == p.dim()
+    same(got, want, tq)
+    assert tuple(got["blocks"]["attn_out"]["scale"]) == (None, None, "fsdp")

@@ -153,7 +153,7 @@ def _counting(tally):
 def _main_rank(rank, world, workdir):
     """Every ring case on this rank; returns ``{case: result}``."""
     from mmada_parallel_torch import tokens as tk
-    from mmada_parallel_torch.models.llada import LLaDAConfig
+    from mmada_parallel_torch.models.llada import LLaDAConfig, param_shardings
     from mmada_parallel_torch.parallel import (MeshConfig, make_mesh,
                                                shard_params)
     from mmada_parallel_torch.parallel import tp_overlap as TP
@@ -187,7 +187,7 @@ def _main_rank(rank, world, workdir):
     for name, (over, mesh_shape, _) in FORWARDS.items():
         cfg = cfg_of(**over)
         mesh = meshes[mesh_shape]
-        sp = shard_params(inp["params"][name], TP.ring_param_shardings(cfg),
+        sp = shard_params(inp["params"][name], param_shardings(cfg),
                           mesh)
         ids = inp["ids"][name]
         vs = VOCAB_SLICE if name == "vocab_slice" else None
@@ -201,7 +201,7 @@ def _main_rank(rank, world, workdir):
     # bf16 at depth: rings of 4, the batch split over data=2
     dcfg = _deep_cfg()
     out["deep"] = TP.llada_hidden_tp_overlap(
-        shard_params(inp["deep_params"], TP.ring_param_shardings(dcfg),
+        shard_params(inp["deep_params"], param_shardings(dcfg),
                      meshes[(2, 4)]), dcfg, inp["deep_ids"],
         meshes[(2, 4)]).float().numpy()
 
@@ -239,7 +239,7 @@ def _main_rank(rank, world, workdir):
     for kv, mesh_shape in RING_KV.items():
         mesh = meshes[mesh_shape]
         cfg = cfg_of(n_kv_heads=kv)
-        specs = TP.ring_param_shardings(cfg)
+        specs = param_shardings(cfg)
 
         def hidden_sq(p, ids, generator, cfg=cfg, mesh=mesh):
             h = TP.llada_hidden_tp_overlap(p, cfg, ids, mesh)
@@ -273,7 +273,7 @@ def _main_rank(rank, world, workdir):
     # the samplers over the ring
     tok = _torch_tokens()
     scfg = cfg_of(vocab_size=TVS + CB, mask_token_id=MASK)
-    sp = shard_params(inp["ti2ti_params"], TP.ring_param_shardings(scfg), m8)
+    sp = shard_params(inp["ti2ti_params"], param_shardings(scfg), m8)
     prompt = _ti2ti_prompt(tk, tok)
     ids, lay = tk.assemble_ti2ti_sequence(prompt, 8, 2, 3, [9], tokens=tok)
     fin, codes = TT.generate_ti2ti(
@@ -283,7 +283,7 @@ def _main_rank(rank, world, workdir):
     out["ti2ti"] = (fin.numpy(), codes.numpy())
 
     tok_m = _torch_tokens_m()
-    sp = shard_params(inp["interleave_params"], TP.ring_param_shardings(scfg),
+    sp = shard_params(inp["interleave_params"], param_shardings(scfg),
                       m8)
     ids, lay = tk.assemble_interleave_sequence(
         [10, 11, 12, 13, 14], num_vq_tokens=8, max_seq_length=9,
@@ -297,7 +297,7 @@ def _main_rank(rank, world, workdir):
     out["interleave"] = (fin.numpy(), codes.numpy())
 
     # the SPMD server: rank 0 takes three requests from three threads
-    sp = shard_params(inp["server_params"], TP.ring_param_shardings(scfg), m8)
+    sp = shard_params(inp["server_params"], param_shardings(scfg), m8)
     srv = TI2TIServer(sp, scfg, _ti2ti_opts(TT),
                       ServeConfig(batch_size=2, max_wait_ms=500.0,
                                   grid_hw=(2, 3), text_gen_length=8,
@@ -349,13 +349,13 @@ def _demo_ring_rank(rank, world, workdir):
     from mmada_parallel_torch.examples import train_edit_demo_a as TA
     from mmada_parallel_torch.parallel import (MeshConfig, make_mesh,
                                                shard_params)
-    from mmada_parallel_torch.parallel.tp_overlap import (
-        ring_hidden_fn, ring_param_shardings)
+    from mmada_parallel_torch.models.llada import param_shardings
+    from mmada_parallel_torch.parallel.tp_overlap import ring_hidden_fn
     params = torch.load(os.path.join(workdir, "params.pt"))
     tokens = TA.demo_tokens()
     cfg = TA.demo_config(tokens)
     mesh = make_mesh(MeshConfig(data=1, fsdp=1, tensor=world), "cpu")
-    local = shard_params(params, ring_param_shardings(cfg), mesh)
+    local = shard_params(params, param_shardings(cfg), mesh)
     out = {}
     for name, int8 in (("exact", False), ("int8", True)):
         accs, _, texts, _ = TA.eval_a_model(
@@ -376,7 +376,8 @@ def _failing_follower_rank(rank, world, workdir):
     what its request and its ``close()`` raised."""
     from mmada_parallel_torch import tokens as tk
     from mmada_parallel_torch.models.llada import (LLaDAConfig,
-                                                   init_llada_params)
+                                                   init_llada_params,
+                                                   param_shardings)
     from mmada_parallel_torch.parallel import (MeshConfig, make_mesh,
                                                shard_params)
     from mmada_parallel_torch.parallel import tp_overlap as TP
@@ -388,7 +389,7 @@ def _failing_follower_rank(rank, world, workdir):
     mesh = make_mesh(MeshConfig(data=1, fsdp=1, tensor=world), "cpu")
     params = shard_params(
         init_llada_params(cfg, torch.Generator().manual_seed(0)),
-        TP.ring_param_shardings(cfg), mesh)
+        param_shardings(cfg), mesh)
     rounds = [0]
 
     def faulty(xs, directions, group):
@@ -1024,8 +1025,8 @@ def _ring_leaves(tree, prefix=""):
 
 def _check_ring_leaves(got, want, kv, rtol, what):
     from mmada_parallel_torch.models.llada import LLaDAConfig
-    from mmada_parallel_torch.parallel.tp_overlap import ring_param_shardings
-    specs = _ring_leaves(ring_param_shardings(LLaDAConfig.tiny(
+    from mmada_parallel_torch.models.llada import param_shardings
+    specs = _ring_leaves(param_shardings(LLaDAConfig.tiny(
         **_cfg_kw(n_kv_heads=kv))))
     want = {k: v.detach().numpy() for k, v in _ring_leaves(want).items()}
     assert set(want) == set(got[0])
@@ -1043,9 +1044,9 @@ def _check_ring_leaves(got, want, kv, rtol, what):
 def test_ring_backbone_gradients_match_jax(ring, kv):
     """JAX's ``test_ring_backbone_gradients_match_gspmd``: the gradient of
     ``sum(hidden ** 2)`` through the ring, synced by the ring's rule
-    (``training/trainer.py:_ring_syncs``: tensor-split leaves over
-    ``data``, the chunk-local ``wte``, ``ln_f`` and norms over ``tensor``
-    and ``data``), equals each rank's slice of ``jax.grad`` of the
+    (``training/trainer.py:_ring_syncs``: tensor-split leaves, the
+    vocab-parallel ``wte`` among them, over ``data``, the chunk-local
+    ``ln_f`` and norms over ``tensor`` and ``data``), equals each rank's slice of ``jax.grad`` of the
     unsharded ``llada_hidden`` at JAX's tolerance, 5e-4 (kv 4: 8 q heads
     over 4 kv, on 4-wide rings with data=2)."""
     got = [res[f"ring_grads/{kv}"] for res in ring["ranks"]]

@@ -111,11 +111,10 @@ def test_cli_keeps_the_jax_flags_and_defaults():
                                     "--mesh_fsdp", "2"],
                                    ["--mesh_fsdp", "2"]])
 def test_multi_device_flags_raise(tmp_path, extra):
-    """Plain Megatron tensor parallelism is not ported; the ring needs a
-    tensor axis of 2 or more; a mesh needs the ranks of a torchrun world."""
-    match = {"--mesh_tensor": "Megatron .* item 16b.11",
-             "--tp_ring": "--tp_ring needs --mesh_tensor >= 2"}.get(
-                 extra[0], "torchrun world")
+    """The ring needs a tensor axis of 2 or more; a mesh (``fsdp`` or
+    Megatron ``tensor``) needs the ranks of a torchrun world."""
+    match = {"--tp_ring": "--tp_ring needs --mesh_tensor >= 2"}.get(
+        extra[0], "torchrun world")
     with pytest.raises(SystemExit, match=match):
         train_a.main(["--data_config", _data_config(tmp_path, 2),
                       "--output_dir", str(tmp_path / "o"), "--tiny_model",
@@ -139,11 +138,16 @@ def _torchrun(args, timeout=300):
 
 @pytest.mark.parametrize("flags", [
     ["--mesh_fsdp", "2", "--shard_strategy", "full"],
-    ["--mesh_tensor", "2", "--tp_ring"]], ids=["fsdp", "ring"])
+    ["--mesh_tensor", "2", "--tp_ring"],
+    ["--mesh_tensor", "2", "--shard_strategy", "full"],
+    ["--mesh_tensor", "2", "--shard_strategy", "zero2"],
+    ["--mesh_tensor", "2", "--shard_strategy", "ddp"]],
+    ids=["fsdp", "ring", "tensor-full", "tensor-zero2", "tensor-ddp"])
 def test_mesh_flags_train_under_torchrun(tmp_path, flags):
-    """Two torchrun ranks train the tiny model 2 steps over ``fsdp=2`` or
-    on a 2-rank ring: one ``[done]`` line (rank 0 logs), and a sharded
-    checkpoint that restores whole in one process."""
+    """Two torchrun ranks train the tiny model 2 steps over ``fsdp=2``, on
+    a 2-rank ring, or with Megatron tensor parallelism over ``tensor=2``
+    (no ring) under each strategy: one ``[done]`` line (rank 0 logs), and
+    a sharded checkpoint that restores whole in one process."""
     from mmada_parallel_torch.models.llada import (LLaDAConfig,
                                                    init_llada_params)
     from mmada_parallel_torch.training.checkpoint import CheckpointManager
@@ -162,6 +166,8 @@ def test_mesh_flags_train_under_torchrun(tmp_path, flags):
     assert shards["mesh"] == ({"data": 1, "fsdp": 2, "tensor": 1}
                               if "--mesh_fsdp" in flags else
                               {"data": 1, "fsdp": 1, "tensor": 2})
+    if "--tp_ring" not in flags and "--mesh_tensor" in flags:
+        assert "tensor" in shards["specs"]["params/blocks/q_proj"]
     kw = dict(n_heads=4, n_kv_heads=2) if "--tp_ring" in flags else {}
     cfg = LLaDAConfig.tiny(vocab_size=512, **kw)
     params = init_llada_params(cfg, torch.Generator().manual_seed(0))

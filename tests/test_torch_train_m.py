@@ -343,12 +343,11 @@ def test_interleave_validator_writes_its_sample(tmp_path):
 @pytest.mark.parametrize("override", ["mesh.fsdp=2", "mesh.tensor=2",
                                       "training.shard_strategy=zero3"])
 def test_multi_device_settings_raise(tmp_path, override):
-    """``mesh.fsdp`` needs a torchrun world; ``mesh.tensor`` is plain
-    Megatron tensor parallelism, not ported; the strategy must be one of
-    JAX's."""
+    """``mesh.fsdp`` and ``mesh.tensor`` (Megatron tensor parallelism) need
+    a torchrun world; the strategy must be one of JAX's."""
     match = {"mesh.fsdp=2": "torchrun world",
-             "mesh.tensor=2": "item 16b.11"}.get(override,
-                                                 "unknown shard_strategy")
+             "mesh.tensor=2": "torchrun world"}.get(override,
+                                                    "unknown shard_strategy")
     with pytest.raises(SystemExit, match=match):
         PTM.main(["tiny_debug=true", f"output_dir={tmp_path}", "device=cpu",
                   override])
@@ -479,6 +478,61 @@ def test_profiling_helpers(tmp_path):
     timer = P.StepTimer()
     timer.data_done()
     assert set(timer.step_done()) == {"data_time", "step_time"}
+
+
+def _m_cli_args(path):
+    return ["tiny_debug=true", f"shards={path}", "device=cpu",
+            "dataset.preprocessing.max_seq_length=8",
+            "dataset.preprocessing.resolution=8",
+            "model.mmada.num_vq_tokens=16", "training.batch_size=2",
+            "training.gradient_accumulation_steps=2", "training.save_every=2",
+            "training.log_every=1", "training.warmup_steps=1",
+            "training.max_train_steps=2"]
+
+
+def _m_losses(path):
+    import json
+    lines = (path / "tb" / "log.txt").read_text().splitlines()
+    return [json.loads(x)["loss"] for x in lines]
+
+
+def _m_torchrun(args):
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", "-m", "mmada_parallel_torch.cli.train_m",
+         *args], cwd=repo,
+        env=dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS="1"),
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.count("[done] 2 steps") == 1
+
+
+@pytest.mark.parametrize("strategy", ["full", "zero2", "ddp"])
+def test_mesh_tensor_trains_under_torchrun(tmp_path, strategy):
+    """``mesh.tensor=2`` (Megatron tensor parallelism, no fsdp) under
+    torchrun and each strategy: the two ranks hold the same rows, and the
+    logged losses are the one-process run's.  The tiny M backbone computes
+    in bf16, and the row-parallel products' partial sums round to bf16
+    before their all-reduce where the one-process GEMM rounds once, so the
+    losses agree to rtol 2e-3, not bit for bit; the sharded checkpoint
+    splits ``q_proj`` over ``tensor``."""
+    import json
+    path = tmp_path / "pairs-000.tar"
+    _pair_shard(path)
+    args = _m_cli_args(path)
+    PTM.main(args + [f"output_dir={tmp_path / 'one'}"])
+    _m_torchrun(args + [f"output_dir={tmp_path / 'two'}", "mesh.tensor=2",
+                        f"training.shard_strategy={strategy}"])
+    one, two = _m_losses(tmp_path / "one"), _m_losses(tmp_path / "two")
+    assert len(one) == len(two) == 2
+    np.testing.assert_allclose(two, one, rtol=2e-3)
+    shards = json.loads((tmp_path / "two" / "ckpt" / "2" /
+                         "shards.json").read_text())
+    assert shards["mesh"] == {"data": 1, "fsdp": 1, "tensor": 2}
+    assert "tensor" in shards["specs"]["params/blocks/q_proj"]
 
 
 def test_mesh_fsdp_trains_under_torchrun_as_one_rank(tmp_path):
