@@ -40,8 +40,15 @@ Phases (each prints its own lines; any failure exits non-zero):
    on pre-rotated inputs beside K2 and K4 as a yardstick for their
    attention part (not the same function: no rotation); the device kernel
    names of one K2 and one K4 bf16 call (the tensor-core body, not the FMA
-   template); then each kernel's autograd Function: q/k/v gradients
-   against plain autograd, bf16 and f32;
+   template); the backward kernels of K1, K2 and K3
+   (``csrc/attention_bwd.cu``) against their plain versions in bf16 at the
+   body's edges (forced K2 splits among them), two launches bit for bit,
+   the rotation post-pass bitwise, timed with their bounds at the A step's,
+   the M trainer's and the training ring's shapes (K3 at 2424 and 5120
+   beside SDPA's backward); then each kernel's autograd Function: one
+   forward and (bf16 K1-K3) one backward launch, the forward against plain
+   autograd, the bf16 gradients gated by the bf16 plain chain's distance
+   from the f32 chain, the f32 gradients equal to plain autograd's;
    K1 and K2 also at the text-to-image and understanding servers' shapes
    (the T2I server's left-padded B=4 batch, the MMU server's right-padded
    B=2 batch with re-ranked positions, the cached A T2I partial step); K2
@@ -127,9 +134,11 @@ Phases (each prints its own lines; any failure exits non-zero):
 5. training at full width, 4 of the 32 layers (f32 params, bf16 compute,
    AdamW, clip 4.0), after the inference weights are freed: the A SFT step
    of ``cli/train_a.py`` (B=1, L=5120, 2 accumulation microbatches, remat
-   ``whole_layer``: exactly 16 K1 launches, loss and grad norm against the
-   plain attention path, 3 finite steps of each, and 3 more with the vocab
-   head's old f32 upcast for its before and after) and the M
+   ``whole_layer``: exactly 16 K1 launches and 8 of its backward, loss and
+   grad norm against the plain attention path, 3 finite steps of each, and
+   3 more with the vocab head's old f32 upcast for its before and after;
+   ``[train-a-k3]``, the same step with bf16 RoPE through K3 and its
+   backward against the plain path) and the M
    ``forward_process`` step on a padded ``[t2i | lm | mmu]`` batch at the
    interleave length, with seconds per step, tokens per second and peak
    memory; one more step of each (A plain, A K1, M) under ``torch.profiler``
@@ -208,7 +217,17 @@ KERNELS = {          # name -> (source, TPU kernel it replaces)
     "flash_attention_rope_prefix": (
         CSRC + "flash_attention_rope_prefix.cu",
         "mmada_parallel_tpu/ops/rope_attention.py:298"),
+    # the backward of K1, K3 and K2: the JAX custom VJPs' backward (the
+    # plain chain recomputed, left to XLA)
+    "flash_attention_rope_bwd": (
+        CSRC + "attention_bwd.cu", "mmada_parallel_tpu/ops/attention.py:134"),
+    "flash_attention_rope_qonly_bwd": (
+        CSRC + "attention_bwd.cu", "mmada_parallel_tpu/ops/attention.py:334"),
+    "flash_attention_bwd": (
+        CSRC + "attention_bwd.cu", "mmada_parallel_tpu/ops/attention.py:68"),
 }
+BWD = ("flash_attention_rope_bwd", "flash_attention_rope_qonly_bwd",
+       "flash_attention_bwd")
 
 # tolerances of the kernels against their plain versions on the card
 # bf16: both sides round the rotated q/k to bf16 identically, but p is
@@ -289,6 +308,7 @@ def phase_build() -> None:
 
 
 def _launch_counters():
+    from mmada_parallel_torch.ops import attention_bwd as B
     from mmada_parallel_torch.ops.flash_attention import flash_attention
     from mmada_parallel_torch.ops.rope_attention import (
         flash_attention_rope, flash_attention_rope_prefix,
@@ -296,7 +316,8 @@ def _launch_counters():
     return {"flash_attention_rope": flash_attention_rope,
             "flash_attention_rope_qonly": flash_attention_rope_qonly,
             "flash_attention": flash_attention,
-            "flash_attention_rope_prefix": flash_attention_rope_prefix}
+            "flash_attention_rope_prefix": flash_attention_rope_prefix,
+            **{name: getattr(B, name) for name in BWD}}
 
 
 def reset_launches() -> None:
@@ -1105,8 +1126,9 @@ def phase_kernel_prefix() -> dict:
 def phase_prefix_crossover() -> int:
     """K4 against K1 on the equivalent dense bias (causal, B=1) at the edit
     and A-train lengths, then ``rope_attention_prefix(impl="auto")`` with a
-    backward at both: K1 below 4096 tokens, K4 from it, and no launch in
-    either backward.  Returns K4's launch count."""
+    backward at both: K1 below 4096 tokens, with K1's backward kernel, and
+    K4 from it, whose backward recomputes the plain chain.  Returns K4's
+    launch count."""
     import torch
     from mmada_parallel_torch.ops.attention import (_prefix_dense_bias,
                                                     rope_attention_prefix)
@@ -1132,7 +1154,8 @@ def phase_prefix_crossover() -> int:
             f"{k4:.3f} ms, K1 dense bias {k1:.3f} ms ({k1 / k4:.2f}x)")
         tensors[L] = (q, k, v, sin, cos, hi)
     launches = {}
-    for L, want in ((EDIT_L, {"flash_attention_rope": 1}),
+    for L, want in ((EDIT_L, {"flash_attention_rope": 1,
+                              "flash_attention_rope_bwd": 1}),
                     (TRAIN_L, {"flash_attention_rope_prefix": 1})):
         q, k, v, sin, cos, hi = tensors[L]
         q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
@@ -1150,17 +1173,391 @@ def phase_prefix_crossover() -> int:
     return launches[TRAIN_L]["flash_attention_rope_prefix"]
 
 
+# The backward kernel against its plain version (ops.attention_bwd), both in
+# bf16 and both rounding P and dS to bf16 before their products: the scores
+# are summed in another order (wgmma against the f32 einsum) and P comes
+# from the SFU's 2^x, so a P or dS element can round to the neighbouring
+# bf16 value (2^-8 relative), and dq, dk, dv are rounded to bf16.  Each
+# gradient is held by its relative L2 from the plain one, ||g - w|| / ||w||,
+# and by its largest |g - w| in units
+# of w's RMS (one wrong row or tile, which the L2 over millions of elements
+# would dilute).  Two controls must fail the L2 gate in every case: the
+# kernel's gradient scaled by 1.01 (a 1 % error everywhere) and the plain
+# backward with one 128-key tile masked (a kernel that skips a tile).
+# Readings and limits: PERF.md section 6.
+BWD_REL_L2, BWD_MAX_RMS = 2e-3, 0.25
+
+
+def _grad_readings(g, w) -> tuple:
+    """``(||g - w|| / ||w||, max |g - w| / rms(w))`` in f32."""
+    import math
+    g, w = g.float(), w.float()
+    err, n = g - w, w.norm()
+    rms = float(n) / math.sqrt(w.numel())
+    if rms == 0:
+        return float(err.norm() > 0), float(err.abs().max() > 0)
+    return float(err.norm() / n), float(err.abs().max()) / rms
+
+
+def _bwd_setup(entry: str, B, Lq, Lk, H, KV, D, gen, *, bias=None,
+               sin=None, cos=None):
+    """bf16 inputs on the card for one backward of ``entry`` (K1, K2, K3)
+    and its calls: ``fwd()`` -> (out, stats); ``kernel(out, stats)`` and
+    ``plain(out, stats)`` -> (dq, dk, dv); ``chain(q, k, v)`` the plain
+    forward chain (whose autograd the Function ran before the kernel);
+    ``xs`` (q, k, v), ``dout`` and the other inputs (bias, tables)."""
+    import types
+    import torch
+    from mmada_parallel_torch.ops import attention as A
+    from mmada_parallel_torch.ops import attention_bwd as TB
+    from mmada_parallel_torch.ops.flash_attention import flash_attention
+    from mmada_parallel_torch.ops.rope_attention import (
+        _split_tables, flash_attention_rope, flash_attention_rope_qonly)
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    blhd = entry == "K3"
+    shapes = [(B, Lq, H, D), (B, Lk, KV, D), (B, Lk, KV, D)]
+    if not blhd:
+        shapes = [(b, n, h * d) for b, n, h, d in shapes]
+    q, k, v, dout = (torch.randn(*sh, generator=gen, device=dev).to(bf16)
+                     for sh in shapes + shapes[:1])
+    heads = dict(n_heads=H, n_kv_heads=KV)
+    ns = types.SimpleNamespace(xs=(q, k, v), dout=dout,
+                               others=[t for t in (bias, sin, cos)
+                                       if t is not None])
+    if blhd:
+        ns.fwd = lambda: flash_attention(q, k, v, bias, with_stats=True)
+        ns.kernel = lambda o, st: TB.flash_attention_bwd(q, k, v, bias, o,
+                                                         st, dout)
+        ns.plain = lambda o, st, b=bias: TB.attention_bwd_reference(
+            q, k, v, b, o, st, dout)
+        ns.chain = lambda q_, k_, v_: A._xla_attention(q_, k_, v_, bias)
+    elif entry == "K1":
+        tables = _split_tables(sin, cos, Lq, Lk)
+        ns.fwd = lambda: flash_attention_rope(q, k, v, sin, cos, bias,
+                                              with_stats=True, **heads)
+        ns.kernel = lambda o, st: TB.flash_attention_rope_bwd(
+            q, k, v, sin, cos, bias, o, st, dout, **heads)
+        ns.plain = lambda o, st, b=bias: TB._rope_bwd_reference(
+            q, k, v, *tables, b, o, st, dout, H, KV)
+        ns.chain = lambda q_, k_, v_: A._packed_reference(
+            q_, k_, v_, sin, cos, bias, H, KV)
+    else:
+        ns.fwd = lambda: flash_attention_rope_qonly(q, k, v, sin, cos, bias,
+                                                    with_stats=True, **heads)
+        ns.kernel = lambda o, st: TB.flash_attention_rope_qonly_bwd(
+            q, k, v, sin, cos, bias, o, st, dout, **heads)
+        ns.plain = lambda o, st, b=bias: TB._rope_bwd_reference(
+            q, k, v, sin, cos, None, None, b, o, st, dout, H, KV)
+        ns.chain = lambda q_, k_, v_: A._packed_qonly_reference(
+            q_, k_, v_, sin, cos, bias, H, KV)
+    return ns
+
+
+def _bwd_bytes(ns, out, stats) -> int:
+    """Bytes the backward must move: q, k, v, out, dout, the bias, tables
+    and statistics read once; dq, dk, dv (q's, k's, v's sizes) written
+    once."""
+    ts = [*ns.xs, out, ns.dout, stats, *ns.others, *ns.xs]
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _sdpa_bwd_ms(label: str, ns) -> float:
+    """The backward of one ``scaled_dot_product_attention`` call on the
+    same BLHD inputs (no bias), timed: the library yardstick beside K3's
+    backward.  The port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    q, k, v = (x.transpose(1, 2).detach().requires_grad_(True)
+               for x in ns.xs)
+    out = F.scaled_dot_product_attention(q, k, v,
+                                         enable_gqa=k.shape[1] < q.shape[1])
+    g = ns.dout.transpose(1, 2)
+
+    def call():
+        return torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+
+    ms = time_ms(call)
+    names = sorted(_device_kernels(call, f"{label} SDPA backward"))
+    log(f"[kernel-bwd] {label} yardstick: scaled_dot_product_attention's "
+        f"backward {ms:.3f} ms, device kernels {[n[:80] for n in names]}")
+    return ms
+
+
+def _bwd_case(name: str, entry: str, B, Lq, Lk, H, KV, D, gen, *, bias=None,
+              sin=None, cos=None, timed=False, library=False) -> dict:
+    """``entry``'s backward kernel against its plain version on one bf16
+    input: every gradient within ``BWD_REL_L2`` and ``BWD_MAX_RMS``, both
+    controls outside, two launches bit for bit; timed, also the plain
+    backward, the plain chain's autograd (the Function's backward before
+    the kernel: the forward recomputed and differentiated) and the bound
+    (5 products, 10 B H Lq Lk D FLOPs, on the tensor cores)."""
+    import torch
+    ns = _bwd_setup(entry, B, Lq, Lk, H, KV, D, gen, bias=bias, sin=sin,
+                    cos=cos)
+    out, stats = ns.fwd()
+    got, again, want = ns.kernel(out, stats), ns.kernel(out, stats), \
+        ns.plain(out, stats)
+    # control: the plain backward with keys [0, 128) masked
+    skip = (torch.zeros(B, 1, Lq, Lk, device=out.device) if bias is None
+            else bias.clone())
+    skip[..., :128] = -1e30
+    dropped = ns.plain(out, stats, skip)
+    torch.cuda.synchronize()
+    errs, reads, scaled, tile = [], [], [], []
+    for what, g, a, w, d in zip(("dq", "dk", "dv"), got, again, want,
+                                dropped):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{entry} bwd {name}: {what} not finite")
+        if not torch.equal(g, a):
+            raise AssertionError(f"{entry} bwd {name}: two launches differ "
+                                 f"in {what}")
+        errs.append(float((g.float() - w.float()).abs().max()))
+        reads.append(_grad_readings(g, w))
+        scaled.append(_grad_readings(g.float() * 1.01, w)[0])
+        tile.append(_grad_readings(d, w)[0])
+    readings = (f"relative L2 dq/dk/dv {[f'{r[0]:.3e}' for r in reads]}, "
+                f"max|err|/rms {[f'{r[1]:.3f}' for r in reads]} (limits "
+                f"{BWD_REL_L2}, {BWD_MAX_RMS}); controls' relative L2: "
+                f"x1.01 {[f'{x:.3e}' for x in scaled]}, one key tile "
+                f"dropped {[f'{x:.3e}' for x in tile]}")
+    if not all(r <= BWD_REL_L2 and m <= BWD_MAX_RMS for r, m in reads):
+        raise AssertionError(f"{entry} bwd {name}: disagrees with the plain "
+                             f"backward: {readings}")
+    if not (min(scaled) > BWD_REL_L2 and max(tile) > BWD_REL_L2):
+        raise AssertionError(f"{entry} bwd {name}: a control passes the "
+                             f"gate: {readings}")
+    rec = {"max_abs_err": max(errs), "ms": None, "plain_ms": None,
+           "bound_ms": None, "bound_by": None, "library_ms": None,
+           "rel_l2": max(r[0] for r in reads),
+           "max_rms": max(r[1] for r in reads)}
+    desc = (f"{_desc(B, Lq, Lk, H, KV, D, torch.bfloat16)}"
+            f"{' bias' if bias is not None else ''}"
+            f"{' per-row tables' if sin is not None and sin.ndim == 3 else ''}")
+    times = ""
+    if timed:
+        rec["ms"] = time_ms(lambda: ns.kernel(out, stats))
+        rec["plain_ms"] = time_ms(lambda: ns.plain(out, stats), reps=3,
+                                  warmup=1)
+        req = [x.detach().requires_grad_(True) for x in ns.xs]
+        rec["chain_ms"] = time_ms(lambda: torch.autograd.grad(
+            ns.chain(*req), req, ns.dout), reps=3, warmup=1)
+        rec["bound_ms"], rec["bound_by"] = _bound(
+            10 * B * H * Lq * Lk * D, _bwd_bytes(ns, out, stats),
+            torch.bfloat16)
+        times = (f" kernel {rec['ms']:.3f} ms, plain backward "
+                 f"{rec['plain_ms']:.3f} ms, plain chain's autograd "
+                 f"(forward + backward) {rec['chain_ms']:.3f} ms, bound "
+                 f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+                 f"{100 * rec['bound_ms'] / rec['ms']:.1f} % of bound")
+    if library:
+        rec["library_ms"] = _sdpa_bwd_ms(f"{entry} bwd {name}", ns)
+    log(f"[kernel-bwd] {entry} bwd {name}: {desc} max|err| dq/dk/dv "
+        f"{[f'{e:.3e}' for e in errs]}, {readings}, two launches "
+        f"bitwise equal{times}")
+    return rec
+
+
+def phase_kernel_bwd() -> dict:
+    """The backward kernels (``csrc/attention_bwd.cu``) against their plain
+    versions in bf16: the rotation post-pass bit for bit against its plain
+    version; K1, K2 and K3 at the tensor-core body's edges (D=64, ragged
+    Lq/Lk, GQA, per-row tables with fully masked rows, an odd Lk with a
+    bias, K2 split forwards whose statistics come from the combine), each
+    twice bit for bit; timed with their bounds at the training shapes: K1
+    at the A step's (B=1, L=5120, H=32) and the M trainer's (B=1, L=2565,
+    its key-padding bias), K2 at the training ring's (B=1, Lq=606, Lk=2424,
+    H=KV=16, sigma-gathered tables), K3 at B=1 L=2424 and 5120 beside
+    SDPA's backward.  Returns each backward's record."""
+    import torch
+    from mmada_parallel_torch.ops import attention_bwd as TB
+    from mmada_parallel_torch.parallel.tp_overlap import sigma_positions
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    dev = torch.device("cuda")
+    H, D = EDIT_H, EDIT_D
+    # the rotation post-pass alone
+    sin, cos = _rope_tables(300, D, dev)
+    dy = torch.randn(2, 300, 4 * D, generator=gen, device=dev).to(
+        torch.bfloat16)
+    got = TB.rope_rotate_backward(dy, sin, cos, n_heads=4)
+    want = TB.rope_rotate_backward(dy.cpu(), sin.cpu(), cos.cpu(), n_heads=4)
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError("rope_rotate_backward: the post-pass differs "
+                             "from its plain version")
+    log("[kernel-bwd] rotation post-pass (the transposed Neox rotation) "
+        "B=2 L=300 NH=4 D=128 bf16: bitwise equal to its plain version")
+    recs, cases = {}, []
+
+    def case(*args, **kw):
+        cases.append(_bwd_case(*args, **kw))
+        return cases[-1]
+    # K1: the edges, then the A step's and the M trainer's shapes
+    pos, b = _ragged(2, 301, (301, 173), dev)
+    s_t, c_t = _rope_tables(301, 64, dev)
+    case("D64 ragged GQA per-row bias odd-L", "K1", 2, 301, 301, 4, 2,
+         64, gen, bias=b, sin=s_t[pos].contiguous(),
+         cos=c_t[pos].contiguous())
+    s_t, c_t = _rope_tables(517, D, dev)
+    case("GQA 32/8", "K1", 1, 517, 517, H, 8, D, gen, sin=s_t, cos=c_t)
+    s_t, c_t = _rope_tables(TRAIN_L, D, dev)
+    a = case("A-train", "K1", 1, TRAIN_L, TRAIN_L, H, H, D, gen,
+             sin=s_t, cos=c_t, timed=True)
+    m_mask = _m_cli_mask(dev)
+    Lc = m_mask.shape[1]
+    s_t, c_t = _rope_tables(Lc, D, dev)
+    m = case("M-trainer", "K1", 1, Lc, Lc, H, H, D, gen,
+             bias=_mask_bias(m_mask), sin=s_t, cos=c_t, timed=True)
+    recs["flash_attention_rope_bwd"] = dict(
+        a, max_abs_err=max(a["max_abs_err"], m["max_abs_err"]))
+    # K2: per-row q tables with a bias at an odd Lk; split forwards (their
+    # statistics from the combine); the training ring's chunk
+    s_t, c_t = _rope_tables(301, 64, dev)
+    qpos = torch.stack([torch.randperm(301, generator=gen, device=dev)[:40]
+                        for _ in range(2)]).sort(dim=1).values
+    e1 = case("D64 per-row bias odd-Lk", "K2", 2, 40, 301, 4, 2, 64,
+              gen, bias=_pad_bias([301, 200], 40, 301, dev).contiguous(),
+              sin=s_t[qpos].contiguous(), cos=c_t[qpos].contiguous())
+    s_t, c_t = _rope_tables(640, D, dev)
+    for n_split in (2, 5):
+        with _forced_splits(n_split):
+            e2 = case(f"split {n_split} (forced) bias", "K2", 1, 16,
+                      640, 8, 8, D, gen,
+                      bias=_pad_bias([600], 16, 640, dev).contiguous(),
+                      sin=s_t[:16].contiguous(),
+                      cos=c_t[:16].contiguous())
+            e1 = dict(e1, max_abs_err=max(e1["max_abs_err"],
+                                          e2["max_abs_err"]))
+    g, Hr, L = 2, EDIT_H // 2, EDIT_L
+    C = L // g
+    rpos = sigma_positions(g, C, 1, dev)[C // 2:C]   # rank 1's second half
+    s_t, c_t = _rope_tables(L, D, dev)
+    r = case("ring-train", "K2", 1, C // 2, L, Hr, Hr, D, gen,
+             sin=s_t[rpos].contiguous(), cos=c_t[rpos].contiguous(),
+             timed=True)
+    recs["flash_attention_rope_qonly_bwd"] = dict(
+        r, max_abs_err=max(r["max_abs_err"], e1["max_abs_err"]))
+    # K3: an odd Lk with a bias and a fully masked row; ragged GQA; then
+    # B=1 at 2424 (its record) and at 5120, each beside SDPA's backward
+    b5 = _pad_bias([301, 250], 190, 301, dev)
+    b5[0, 0, 7, :] = -1e30
+    x1 = case("D64 odd-Lk bias masked-row", "K3", 2, 190, 301, 4, 2, 64,
+              gen, bias=b5.contiguous())
+    x2 = case("ragged GQA 32/8", "K3", 1, 333, 517, H, 8, D, gen)
+    e = case("edit", "K3", 1, EDIT_L, EDIT_L, H, H, D, gen, timed=True,
+             library=True)
+    t = case("A-train", "K3", 1, TRAIN_L, TRAIN_L, H, H, D, gen,
+             timed=True, library=True)
+    recs["flash_attention_bwd"] = dict(
+        e, max_abs_err=max(x["max_abs_err"] for x in (x1, x2, e, t)))
+    log(f"[kernel-bwd] K1 A-train {a['ms']:.3f} ms (bound "
+        f"{a['bound_ms']:.4f} ms, plain chain {a['chain_ms']:.3f} ms), "
+        f"M-trainer {m['ms']:.3f} ms (bound {m['bound_ms']:.4f}, plain chain"
+        f" {m['chain_ms']:.3f}); K2 ring-train {r['ms']:.3f} ms (bound "
+        f"{r['bound_ms']:.4f}, plain chain {r['chain_ms']:.3f}); K3 L="
+        f"{EDIT_L} {e['ms']:.3f} ms (SDPA backward {e['library_ms']:.3f}), "
+        f"L={TRAIN_L} {t['ms']:.3f} ms (SDPA backward "
+        f"{t['library_ms']:.3f})); largest readings over the {len(cases)} "
+        f"cases: relative L2 {max(c['rel_l2'] for c in cases):.3e} (limit "
+        f"{BWD_REL_L2}), max|err|/rms {max(c['max_rms'] for c in cases):.3f}"
+        f" (limit {BWD_MAX_RMS})")
+    return recs
+
+
+# The Functions' bf16 gradients: each within GRAD_BF16_RATIO times the bf16
+# plain chain's own distance (relative L2) from the f32 plain chain on the
+# same inputs (the bf16 inputs upcast): the backward kernel rounds P and dS
+# to bf16 where the plain chain rounds dP and the gradients, so it is
+# another sample of bf16 noise around the f32 gradient, not the plain
+# chain's, and a wrong kernel is far outside it.
+GRAD_BF16_RATIO = 1.5
+# each entry point's forward and backward launch counters
+GRAD_ROUTES = {"K1 rope_attention": ("flash_attention_rope",
+                                     "flash_attention_rope_bwd"),
+               "K2 rope_attention_qonly": ("flash_attention_rope_qonly",
+                                           "flash_attention_rope_qonly_bwd"),
+               "K3 dot_product_attention": ("flash_attention",
+                                            "flash_attention_bwd"),
+               "K4 rope_attention_prefix": ("flash_attention_rope_prefix",
+                                            None)}
+
+
+def _function_grads(fn, xs, w, runs) -> dict:
+    """``{(impl, dtype): (out, [dq, dk, dv], launches)}`` of
+    ``(fn(q, k, v, impl).float() * w).sum()`` for each ``(impl, dtype)``
+    of ``runs``, the inputs cast to ``dtype``."""
+    import torch
+    res = {}
+    for impl, dt in runs:
+        reset_launches()
+        ins = [x.detach().to(dt).requires_grad_(True) for x in xs]
+        out = fn(*ins, impl)
+        (out.float() * w).sum().backward()
+        torch.cuda.synchronize()
+        res[impl, dt] = (out.detach().float(), [t.grad.float() for t in ins],
+                         read_launches())
+    return res
+
+
+def _check_function_grads(name: str, res: dict, dtype, tol, route) -> str:
+    """The Function (``pallas``) against plain autograd (``xla``): one
+    forward launch and, for bf16 K1-K3, one backward launch; the forward
+    within the kernel's ``tol``; f32 gradients within ``tol`` (the backward
+    recomputes the plain chain); bf16 gradients within ``GRAD_BF16_RATIO``
+    of the bf16 plain chain's distance from the f32 chain.  Returns the
+    readings for the log."""
+    import torch
+    fwd, bwd = route
+    bf16 = dtype == torch.bfloat16
+    want = {fwd: 1, **({bwd: 1} if bf16 and bwd else {})}
+    got = {k: v for k, v in res["pallas", dtype][2].items() if v}
+    if got != want or any(res["xla", dtype][2].values()):
+        raise AssertionError(f"{name} {dtype}: launches {got} (Function), "
+                             f"expected {want}; plain "
+                             f"{res['xla', dtype][2]}")
+    out_k, grads_k, _ = res["pallas", dtype]
+    out_p, grads_p, _ = res["xla", dtype]
+    err = float((out_k - out_p).abs().max())
+    if not torch.allclose(out_k, out_p, **tol):
+        raise AssertionError(f"{name} {dtype}: forward max |err| {err:.3e} "
+                             f"({tol})")
+    if not bf16:
+        errs = [float((a - b).abs().max()) for a, b in zip(grads_k, grads_p)]
+        if not all(torch.allclose(a, b, **tol)
+                   for a, b in zip(grads_k, grads_p)):
+            raise AssertionError(f"{name} f32: Function and plain autograd "
+                                 f"differ, max |err| dq/dk/dv {errs} "
+                                 f"({tol})")
+        return (f"launches {want}, forward max |err| {err:.3e}, gradients "
+                f"max |err| dq/dk/dv {[f'{e:.3e}' for e in errs]} tol {tol}")
+    grads_f = res["xla", torch.float32][1]
+    dk = [_rel_l2(a, f) for a, f in zip(grads_k, grads_f)]
+    dp = [_rel_l2(a, f) for a, f in zip(grads_p, grads_f)]
+    for what, a, b in zip(("dq", "dk", "dv"), dk, dp):
+        if not a <= GRAD_BF16_RATIO * b:
+            raise AssertionError(
+                f"{name} bf16: {what} relative L2 from the f32 chain "
+                f"{a:.3e}, above {GRAD_BF16_RATIO} x the bf16 plain chain's "
+                f"{b:.3e}")
+    return (f"launches {want}, forward max |err| {err:.3e}; relative L2 "
+            f"from the f32 plain chain dq/dk/dv "
+            f"{[f'{x:.3e}' for x in dk]} (Function) against "
+            f"{[f'{x:.3e}' for x in dp]} (bf16 plain chain), bound "
+            f"{GRAD_BF16_RATIO}x")
+
+
 def phase_kernel_grads() -> None:
-    """Each kernel's autograd Function (``impl="pallas"``): the forward
-    within the kernel's tolerance of plain autograd (``impl="xla"``), and
-    q/k/v gradients equal to it, since the backward recomputes the plain
-    chain (tolerance: the kernel's, because the gradients flow through the
-    same ``w`` either way and only the forward differs)."""
+    """Each kernel's autograd Function (``impl="pallas"``) against plain
+    autograd (``impl="xla"``): the forward within the kernel's tolerance;
+    in bf16, K1, K2 and K3 launch their backward kernel once a backward and
+    K4 recomputes the plain chain, and each gradient is gated against the
+    f32 plain chain (``GRAD_BF16_RATIO``); in f32 the backward recomputes
+    the plain chain and the gradients equal plain autograd's."""
     import torch
     from mmada_parallel_torch.ops import attention as A
     from mmada_parallel_torch.ops.masks import mixed_prefix_bounds
     gen = torch.Generator(device="cuda").manual_seed(6)
     dev = torch.device("cuda")
+    f32 = torch.float32
     for dtype, tol, B, L, H, KV, D in (
             (torch.bfloat16, BF16_TOL, 2, 300, 8, 4, 128),
             (torch.float32, F32_TOL, 2, 200, 4, 2, 64)):
@@ -1190,35 +1587,17 @@ def phase_kernel_grads() -> None:
                                              n_heads=H, n_kv_heads=KV,
                                              impl=impl)),
         }
+        runs = [("pallas", dtype), ("xla", dtype)] + (
+            [("xla", f32)] if dtype != f32 else [])
         for name, (shapes, fn) in cases.items():
             xs = [torch.randn(*sh, generator=gen, device=dev).to(dtype)
                   for sh in shapes]
             w = torch.randn(*shapes[0], generator=gen, device=dev)
-            outs, grads = [], []
-            for impl in ("pallas", "xla"):
-                reset_launches()
-                ins = [x.detach().requires_grad_(True) for x in xs]
-                out = fn(*ins, impl)
-                (out.float() * w).sum().backward()
-                torch.cuda.synchronize()
-                launched = sum(read_launches().values())
-                if launched != (1 if impl == "pallas" else 0):
-                    raise AssertionError(f"{name} impl={impl}: {launched} "
-                                         f"launches, forward + backward")
-                outs.append(out.detach().float())
-                grads.append([t.grad.float() for t in ins])
-            errs = [(a - b).abs().max() for a, b in zip(
-                [outs[0], *grads[0]], [outs[1], *grads[1]])]
-            for a, b in zip([outs[0], *grads[0]], [outs[1], *grads[1]]):
-                if not torch.allclose(a, b, **tol):
-                    raise AssertionError(
-                        f"{name} {dtype}: Function and plain autograd "
-                        f"differ, max |err| out/dq/dk/dv "
-                        f"{[f'{float(e):.3e}' for e in errs]} ({tol})")
+            res = _function_grads(fn, xs, w, runs)
+            readings = _check_function_grads(name, res, dtype, tol,
+                                             GRAD_ROUTES[name])
             log(f"[grad] {name} {str(dtype).split('.')[-1]} "
-                f"{'x'.join(map(str, shapes[0]))}: one launch, max |err| "
-                f"out/dq/dk/dv {[f'{float(e):.3e}' for e in errs]} tol "
-                f"{tol}")
+                f"{'x'.join(map(str, shapes[0]))}: {readings}")
     _ring_train_grad(gen)
 
 
@@ -1226,7 +1605,8 @@ def _ring_train_grad(gen) -> None:
     """K2's Function at the shape ``train_a --tp_ring`` gives it at g=2 and
     the 8B widths (``[train-a-ring]``): the queries of one sigma-chunk half
     (B=1, Lq=606) against all 2424 pre-rotated keys, 16 of the 32 heads,
-    bf16, no bias; forward and q/k/v gradients against plain autograd."""
+    bf16, no bias; the forward against plain autograd, one forward and one
+    backward launch, the gradients gated against the f32 plain chain."""
     import torch
     from mmada_parallel_torch.ops import attention as A
     from mmada_parallel_torch.parallel.tp_overlap import sigma_positions
@@ -1240,31 +1620,17 @@ def _ring_train_grad(gen) -> None:
     xs = [torch.randn(*sh, generator=gen, device=dev).to(torch.bfloat16)
           for sh in shapes]
     w = torch.randn(*shapes[0], generator=gen, device=dev)
-    outs, grads = [], []
-    for impl in ("pallas", "xla"):
-        reset_launches()
-        ins = [x.detach().requires_grad_(True) for x in xs]
-        out = A.rope_attention_qonly(*ins, sin, cos, None, n_heads=H,
-                                     n_kv_heads=H, impl=impl)
-        (out.float() * w).sum().backward()
-        torch.cuda.synchronize()
-        launched = read_launches()["flash_attention_rope_qonly"]
-        if launched != (1 if impl == "pallas" else 0):
-            raise AssertionError(f"K2 ring-train grad impl={impl}: "
-                                 f"{launched} launches")
-        outs.append(out.detach().float())
-        grads.append([t.grad.float() for t in ins])
-    errs = []
-    for a, b in zip([outs[0], *grads[0]], [outs[1], *grads[1]]):
-        errs.append(float((a - b).abs().max()))
-        if not torch.allclose(a, b, **BF16_TOL):
-            raise AssertionError(f"K2 ring-train grad: Function and plain "
-                                 f"autograd differ, max |err| out/dq/dk/dv "
-                                 f"{errs} ({BF16_TOL})")
+    res = _function_grads(
+        lambda q, k, v, impl: A.rope_attention_qonly(
+            q, k, v, sin, cos, None, n_heads=H, n_kv_heads=H, impl=impl),
+        xs, w, [("pallas", torch.bfloat16), ("xla", torch.bfloat16),
+                ("xla", torch.float32)])
+    readings = _check_function_grads(
+        "K2 ring-train", res, torch.bfloat16, BF16_TOL,
+        GRAD_ROUTES["K2 rope_attention_qonly"])
     log(f"[grad] K2 rope_attention_qonly at the ring's training chunk "
-        f"(g=2): bf16 B=1 Lq={C // 2} Lk={L} H=KV={H} D={D}, no bias: one "
-        f"launch, max |err| out/dq/dk/dv {[f'{e:.3e}' for e in errs]} tol "
-        f"{BF16_TOL}")
+        f"(g=2): bf16 B=1 Lq={C // 2} Lk={L} H=KV={H} D={D}, no bias: "
+        f"{readings}")
 
 
 # ---------------------------------------------------------------------------
@@ -2270,6 +2636,8 @@ _KERNEL_CLASSES = (
     ("attention kernels K1-K4", ("attention_kernel", "attention_mma_kernel",
                                  "split_combine_kernel",
                                  "rope_rotate_kernel")),
+    ("attention backward kernels", ("attention_bwd_", "bwd_delta_kernel",
+                                    "rope_rotate_bwd_kernel")),
     ("f32 GEMMs (FMA)", ("sgemm", "f32f32")),
     ("int8 tensor-core GEMMs", ("s8s8", "i8i8", "imma", "int8", "_s8_")),
     ("bf16 tensor-core GEMMs", ("nvjet", "gemm")),
@@ -3227,12 +3595,10 @@ def _train_params(cfg):
 
 
 # the A step's first loss and grad norm, kernel path against the plain
-# attention path: the end-to-end gate.  K1 itself is held element by element
-# against its plain version at this step's shape, and at the M step's, in
-# phase 2 (K1 cases e and f): the Function's backward recomputes the plain
-# chain, so the q/k/v gradients do not see the kernel's output, and a wrong
-# kernel reaches these two numbers only through later activations.  Both
-# compute in bf16; K1 rounds p to bf16 per key tile
+# attention path: the end-to-end gate.  K1 and its backward are held element
+# by element against their plain versions at this step's shape, and at the
+# M step's, in phase 2 (K1 cases e and f, the backward's A-train and
+# M-trainer cases).  Both compute in bf16; K1 rounds p to bf16 per key tile
 # before the online rescale, the plain chain after normalising, so an
 # attention output element differs by up to a bf16 ulp (2^-8 relative).
 # Those differences are independent across elements, and the loss averages
@@ -3240,7 +3606,11 @@ def _train_params(cfg):
 # them by orders of magnitude: the FMA template gave 1.7e-6 (loss) and
 # 8e-6 (grad norm) relative on the H100; the tensor-core body (which sums
 # the scores in another order and takes p from the SFU's 2^x) gives 9.9e-6
-# and 1.7e-4, inside the limits by 10x and 6x.
+# and 1.7e-4, inside the limits by 10x and 6x.  The backward kernel rounds
+# P and dS to bf16 where the plain chain rounds dP and the gradients: more
+# independent bf16 roundings, the same sums.  The same gates hold the
+# bf16-RoPE step through K3 and its backward against the plain path with
+# bf16 RoPE.
 A_LOSS_RTOL, A_GRAD_NORM_RTOL = 1e-4, 1e-3
 
 
@@ -3268,9 +3638,10 @@ def phase_train_a() -> dict:
     n_params = count_params(params)
     state, step, mk, sk, lk, peak = _train_a_steps(cfg, params, batch, 3)
     want = {n: 0 for n in KERNELS}
-    # 4 layers x 2 microbatches x (forward + remat recompute); the
-    # Function's backward recomputes the plain chain and launches nothing
+    # 4 layers x 2 microbatches x (forward + remat recompute), and the
+    # backward kernel once a layer and microbatch
     want["flash_attention_rope"] = cfg.n_layers * 2 * 2
+    want["flash_attention_rope_bwd"] = cfg.n_layers * 2
     if any(x != want for x in lk):
         raise AssertionError(f"train-a: launches per step {lk}, expected "
                              f"{want}")
@@ -3290,7 +3661,8 @@ def phase_train_a() -> dict:
         f"{mk[0]['grad_norm']:.6f} vs {mp[0]['grad_norm']:.6f}; losses "
         f"{[round(m['loss'], 6) for m in mk]} (K1) "
         f"{[round(m['loss'], 6) for m in mp]} (plain); K1 launches per step "
-        f"{want['flash_attention_rope']}")
+        f"{want['flash_attention_rope']}, its backward "
+        f"{want['flash_attention_rope_bwd']}")
     # steps 2-3 of each: the first pays the allocator's and cuBLAS's warm-up
     best_k, best_p = min(sk[1:]), min(sp[1:])
     log(f"[train-a] s/step {[round(x, 3) for x in sk]} (K1), "
@@ -3313,7 +3685,53 @@ def phase_train_a() -> dict:
         f"{peak_o / 2 ** 30:.2f} GiB; first-step loss {mk[0]['loss']:.6f} "
         f"against {mo[0]['loss']:.6f}, grad norm {mk[0]['grad_norm']:.6f} "
         f"against {mo[0]['grad_norm']:.6f}")
-    return {"state": state, "cfg": cfg}
+    k3 = _train_a_k3(batch)
+    return {"state": state, "cfg": cfg,
+            "launches": {"flash_attention_rope_bwd": sum(
+                x["flash_attention_rope_bwd"] for x in lk), **k3}}
+
+
+def _train_a_k3(batch) -> dict:
+    """[train-a-k3]: the A step with the rotation in bf16
+    (``rope_full_precision=False``), so attention runs K3 and its backward:
+    one plain step, then 2 through the kernels (16 K3 and 8 backward
+    launches a step), the first held to the plain step by the A step's
+    gates.  Returns the backward's launches."""
+    import dataclasses
+    import gc
+    import torch
+
+    def cfg_of(impl):
+        return dataclasses.replace(_train_cfg(impl), rope_full_precision=False)
+
+    _, _, mp, _, lp, _ = _train_a_steps(cfg_of("xla"),
+                                        _train_params(cfg_of("xla")), batch, 1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = cfg_of("auto")
+    _, _, mk, sk, lk, peak = _train_a_steps(cfg, _train_params(cfg), batch, 2)
+    want = {n: 0 for n in KERNELS}
+    want["flash_attention"] = cfg.n_layers * 2 * 2
+    want["flash_attention_bwd"] = cfg.n_layers * 2
+    if any(sum(x.values()) for x in lp) or any(x != want for x in lk):
+        raise AssertionError(f"train-a-k3: launches {lk} (kernels), {lp} "
+                             f"(plain), expected {want} a step")
+    for key, rtol in (("loss", A_LOSS_RTOL),
+                      ("grad_norm", A_GRAD_NORM_RTOL)):
+        a, b = mk[0][key], mp[0][key]
+        if not (math.isfinite(a) and abs(a - b) <= rtol * abs(b)):
+            raise AssertionError(f"train-a-k3: first-step {key} {a} (K3) vs "
+                                 f"{b} (plain), rtol {rtol}")
+    log(f"[train-a-k3] the A step with bf16 RoPE (K3 and its backward): "
+        f"first step loss {mk[0]['loss']:.6f} (K3) vs {mp[0]['loss']:.6f} "
+        f"(plain), grad norm {mk[0]['grad_norm']:.6f} vs "
+        f"{mp[0]['grad_norm']:.6f}; s/step {[round(x, 3) for x in sk]}, "
+        f"peak {peak / 2 ** 30:.2f} GiB; launches per step "
+        f"{ {k: v for k, v in want.items() if v} }")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_attention_bwd": sum(x["flash_attention_bwd"]
+                                       for x in lk)}
 
 
 @contextlib.contextmanager
@@ -3408,7 +3826,8 @@ def phase_train_m(a_run: dict) -> None:
         state, m = step(state, batch)
         torch.cuda.synchronize()
         secs.append(time.time() - t0)
-        check_launches("train-m", {"flash_attention_rope": cfg.n_layers})
+        check_launches("train-m", {"flash_attention_rope": cfg.n_layers,
+                                   "flash_attention_rope_bwd": cfg.n_layers})
         vals = {k: float(v) for k, v in m.items()}
         if not (all(math.isfinite(x) for x in vals.values())
                 and vals["nonfinite"] == 0):
@@ -3418,7 +3837,8 @@ def phase_train_m(a_run: dict) -> None:
         f"left-padded by {M_T2I_PAD}, interleave_noising on the card), 4 of "
         f"32 layers, no remat: losses t2i {vals['loss_t2i']:.6f} lm "
         f"{vals['loss_lm']:.6f} mmu {vals['loss_mmu']:.6f}, grad norm "
-        f"{vals['grad_norm']:.6f}; K1 launches per step {cfg.n_layers}")
+        f"{vals['grad_norm']:.6f}; K1 launches per step {cfg.n_layers}, "
+        f"its backward {cfg.n_layers}")
     log(f"[train-m] s/step {[round(x, 3) for x in secs]}, tokens/s "
         f"{3 * L / secs[-1]:.1f} (second step), peak {peak / 2 ** 30:.2f} "
         f"GiB")
@@ -3521,8 +3941,12 @@ def phase_train_m_cli() -> None:
         if L != 2565:
             raise AssertionError(f"train-m-cli: sequence length {L}, "
                                  f"expected 2565")
-        want = {n: 0 for n in KERNELS}
-        want["flash_attention_rope"] = mcfg.n_layers * accum * 2
+        # 4 layers x 4 microbatches x (forward + remat recompute); in bf16
+        # one backward launch a layer and microbatch (f32 recomputes the
+        # plain chain)
+        want32 = {n: 0 for n in KERNELS}
+        want32["flash_attention_rope"] = mcfg.n_layers * accum * 2
+        want = dict(want32, flash_attention_rope_bwd=mcfg.n_layers * accum)
         none = {n: 0 for n in KERNELS}
         ref, g_ref, launches = _m_first_step(m, cfg, first, "xla", f32)
         runs = {}
@@ -3531,7 +3955,8 @@ def phase_train_m_cli() -> None:
             dist = float(torch.sqrt(sum((x - y).float().square().sum()
                                         for x, y in zip(g, g_ref))))
             runs[impl, dt] = (met, dist)
-            if launches_ != (want if impl == "auto" else none):
+            if launches_ != (none if impl == "xla" else
+                             want if dt == bf16 else want32):
                 raise AssertionError(f"train-m-cli: {impl} {dt} first step "
                                      f"launched {launches_}")
             del g
@@ -3600,7 +4025,8 @@ def phase_train_m_cli() -> None:
             f"{[round(h['text_loss'], 4) for h in hist]}, image "
             f"{[round(h['image_loss'], 4) for h in hist]}, grad norms "
             f"{[round(h['grad_norm'], 4) for h in hist]}; K1 launches per "
-            f"step {want['flash_attention_rope']}")
+            f"step {want['flash_attention_rope']}, its backward "
+            f"{want['flash_attention_rope_bwd']}")
         log(f"[train-m-cli] s/step {[round(x, 3) for x in secs]} (the step "
             f"alone, up to a synchronize), batch assembly "
             f"{[round(x, 3) for x in data_s]} s, the loop's batch_time "
@@ -3644,9 +4070,9 @@ def phase_pararl() -> None:
     512x512 layout (grid 32 x 32, 256 text slots), 16 text and 8 image
     steps at the CLI's temperatures, the code-diversity reward, 4 of 16
     steps scored, 3 updates.  K1 runs 4 layers x 16 steps a rollout and 4
-    layers x 4 scored steps an update (the Function's backward launches
-    nothing).  Then, on the last trajectory, the loss and gradient norm
-    through K1 against the plain attention path."""
+    layers x 4 scored steps an update, and its backward kernel once for
+    each of the update's forwards.  Then, on the last trajectory, the loss
+    and gradient norm through K1 against the plain attention path."""
     import dataclasses
     import torch
     from mmada_parallel_torch import tokens as tk
@@ -3678,7 +4104,8 @@ def phase_pararl() -> None:
             lambda: step(state, (traj, rw), gen))
         peaks += [peak, peak_u]
         check_launches("pararl update", {
-            "flash_attention_rope": cfg.n_layers * len(sub)})
+            "flash_attention_rope": cfg.n_layers * len(sub),
+            "flash_attention_rope_bwd": cfg.n_layers * len(sub)})
         vals = {k: float(v) for k, v in m.items()}
         if not (all(math.isfinite(x) for x in vals.values())
                 and vals["nonfinite"] == 0):
@@ -3694,7 +4121,7 @@ def phase_pararl() -> None:
         f"{[round(x, 4) for x in rws]}, losses "
         f"{[round(x, 4) for x in losses]}; K1 launches "
         f"{cfg.n_layers * opts.text_steps} a rollout, "
-        f"{cfg.n_layers * len(sub)} an update")
+        f"{cfg.n_layers * len(sub)} an update and as many of its backward")
     log(f"[pararl] rollout s {[round(x, 3) for x in rolls]}, update s "
         f"{[round(x, 3) for x in updates]}, peak memory "
         f"{max(peaks[0::2]) / 2 ** 30:.2f} GiB (rollout), "
@@ -3719,11 +4146,12 @@ def phase_pararl() -> None:
         got[impl] = _rl_metrics({"loss": loss.detach(), "grad_norm": norm,
                                  "traj_logp": m["traj_logp"].detach()},
                                 fixed)
-        got[impl]["launches"] = counts["flash_attention_rope"]
+        got[impl]["launches"] = (counts["flash_attention_rope"],
+                                 counts["flash_attention_rope_bwd"])
         for p in leaves:
             p.grad = None
-    if got["xla"]["launches"] or got["auto"]["launches"] != \
-            cfg.n_layers * len(sub):
+    if got["xla"]["launches"] != (0, 0) or got["auto"]["launches"] != \
+            (cfg.n_layers * len(sub),) * 2:
         raise AssertionError(f"pararl: launches {got}")
     _rl_close("pararl", got["auto"], got["xla"], RL_LOSS_RTOL,
               RL_GRAD_NORM_RTOL)
@@ -4787,6 +5215,46 @@ MESH_BF16_FACTOR, MESH_BF16_FLOOR = 2.0, 1e-5
 # The same mesh's f32 run holds the tight gates above leaf by leaf, which a
 # wrong sync fails.
 TP_BF16_RTOL = 1e-3
+# The training ring ([train-a-ring]) also runs bf16 with the backward by the
+# plain-chain recompute ("bf16-chain", the attention gradient of PR 12),
+# solo and on the ring.  The ring's bf16-chain run keeps PR 12's gate
+# against the solo bf16-chain step (twice the solo's distance from f32).
+# The ring's bf16 run, whose backward is K2's kernel, is held to the
+# ring's own bf16-chain run on the same seed: the loss and grad norm within
+# twice that run's distance from the solo f32 step (at least 1e-5
+# relative), the ring's own bf16 noise.  The solo bf16 step is not its
+# base: with K1's backward kernel it sits closer to f32 (1.2e-4 of the loss
+# at step 2, against 3.1e-4 with the plain chain, H100), which says nothing
+# of the ring's reduce-scatter sums (PERF.md section 6).  A control run
+# ("bf16-control": K2's backward kernel with its gradients scaled by
+# BF16_CONTROL_SCALE, a kernel 20 % off everywhere) must fail that gate.
+BF16_CHAIN, BF16_CONTROL = "bf16-chain", "bf16-control"
+BF16_CONTROL_SCALE = 1.2
+
+
+@contextlib.contextmanager
+def _backward(precision: str):
+    """The attention Functions' backward for one run of ``precision``:
+    ``bf16-chain`` takes the plain-chain recompute where bf16 would launch
+    the backward kernel; ``bf16-control`` launches K2's backward kernel and
+    scales its gradients by ``BF16_CONTROL_SCALE``."""
+    from mmada_parallel_torch.ops import attention as A
+    kept = A._kernel_backward, A.flash_attention_rope_qonly_bwd
+    if precision == BF16_CHAIN:
+        A._kernel_backward = lambda t: False
+    elif precision == BF16_CONTROL:
+        def scaled(*args, **kw):
+            return [g * BF16_CONTROL_SCALE for g in kept[1](*args, **kw)]
+        A.flash_attention_rope_qonly_bwd = scaled
+    try:
+        yield
+    finally:
+        A._kernel_backward, A.flash_attention_rope_qonly_bwd = kept
+
+
+def _compute_dtype(precision: str):
+    import torch
+    return torch.float32 if precision == "f32" else torch.bfloat16
 
 
 def _mesh_cfg(dtype):
@@ -4826,7 +5294,7 @@ def _mesh_solo(batch, precisions, steps: int = MESH_STEPS) -> dict:
     from mmada_parallel_torch.models.llada import init_llada_params
     out = {}
     for name in precisions:
-        cfg = _mesh_cfg({"f32": torch.float32, "bf16": torch.bfloat16}[name])
+        cfg = _mesh_cfg(_compute_dtype(name))
         params = init_llada_params(
             cfg, torch.Generator(device="cuda").manual_seed(MESH_SEED))
         sizes = {k: v.numel() for k, v in _leaves(params).items()}
@@ -4836,7 +5304,8 @@ def _mesh_solo(batch, precisions, steps: int = MESH_STEPS) -> dict:
         for _ in range(steps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            state, m = step(state, batch)
+            with _backward(name):
+                state, m = step(state, batch)
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
             ms.append({k: float(v) for k, v in m.items()})
@@ -4940,8 +5409,7 @@ def _mesh_train_rank(rank, world, workdir):
            dist.get_backend(), "device": str(dev)}
     for strategy in inp["strategies"]:
         for name in inp["precisions"]:
-            dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[name]
-            cfg = _mesh_cfg(dtype)
+            cfg = _mesh_cfg(_compute_dtype(name))
             tally = {}
             for turn in range(world):      # one whole tree on the card
                 if rank == turn:
@@ -4966,7 +5434,8 @@ def _mesh_train_rank(rank, world, workdir):
                 torch.cuda.synchronize()
                 reset_launches()
                 t0 = time.perf_counter()
-                state, m = step(state, batch)
+                with _backward(name):
+                    state, m = step(state, batch)
                 torch.cuda.synchronize()
                 run["secs"].append(time.perf_counter() - t0)
                 run["launches"].append(read_launches())
@@ -4997,32 +5466,64 @@ def _mesh_train_rank(rank, world, workdir):
 
 
 def _mesh_gate(phase: str, strategy: str, what: str, got: list,
-               solo: dict, bf16_rtol=None) -> None:
+               solo: dict, bf16_rtol=None, chain=None) -> None:
     """Each step's loss and grad norm against the solo step's (f32: rtol;
-    bf16: the solo bf16 step's distance from the solo f32 step, or
-    ``bf16_rtol`` of the solo bf16 step's value)."""
+    bf16 and bf16-chain: twice the same solo run's distance from the solo
+    f32 step, or ``bf16_rtol`` of the solo bf16 step's value) or, for bf16
+    where ``chain`` (this rank's bf16-chain metrics) is given, against
+    ``chain`` within twice its distance from the solo f32 step."""
     for i, m in enumerate(got):
         for key, rtol in (("loss", MESH_LOSS_RTOL),
                           ("grad_norm", MESH_NORM_RTOL)):
+            f32 = solo["f32"]["metrics"][i][key]
+            base = "the solo step's"
             if what == "f32":
-                want = solo["f32"]["metrics"][i][key]
+                want = f32
                 bound = rtol * abs(want)
             elif bf16_rtol is not None:
-                want = solo["bf16"]["metrics"][i][key]
+                want = solo[what]["metrics"][i][key]
                 bound = bf16_rtol * abs(want)
             else:
-                want = solo["bf16"]["metrics"][i][key]
-                bound = max(MESH_BF16_FACTOR * abs(
-                    want - solo["f32"]["metrics"][i][key]),
-                    MESH_BF16_FLOOR * abs(want))
+                if what == "bf16" and chain is not None:
+                    want, base = chain[i][key], "the ring's bf16-chain"
+                else:
+                    want = solo[what]["metrics"][i][key]
+                bound = max(MESH_BF16_FACTOR * abs(want - f32),
+                            MESH_BF16_FLOOR * abs(want))
             if not (math.isfinite(m[key]) and abs(m[key] - want) <= bound):
                 raise AssertionError(
                     f"[{phase}] {strategy} {what} step {i + 1} {key} "
-                    f"{m[key]} against the solo step's {want} (bound "
+                    f"{m[key]} against {base} {want} (bound "
                     f"{bound:.3e})")
         if m["nonfinite"]:
             raise AssertionError(f"[{phase}] {strategy} {what} step {i + 1} "
                                  f"skipped")
+
+
+def _mesh_control(phase: str, strategy: str, ranks, solo, want) -> None:
+    """The ``bf16-control`` run of each rank: its launches as bf16's, and
+    the bf16 gate against the rank's bf16-chain run must refuse it."""
+    for r, res in enumerate(ranks):
+        run = res[(strategy, BF16_CONTROL)]
+        if any(x != want for x in run["launches"]):
+            raise AssertionError(f"[{phase}] {strategy} {BF16_CONTROL} rank "
+                                 f"{r} launches {run['launches']}, expected "
+                                 f"{want} a step")
+        try:
+            _mesh_gate(phase, strategy, "bf16", run["metrics"], solo, None,
+                       res[(strategy, BF16_CHAIN)]["metrics"])
+        except AssertionError as e:
+            if r == 0:
+                log(f"[{phase}] {strategy} {BF16_CONTROL} (K2's backward x"
+                    f"{BF16_CONTROL_SCALE}): losses "
+                    f"{[round(m['loss'], 6) for m in run['metrics']]}, grad "
+                    f"norms "
+                    f"{[round(m['grad_norm'], 6) for m in run['metrics']]}; "
+                    f"refused by the bf16 gate as it must be: {e}")
+            continue
+        raise AssertionError(f"[{phase}] {strategy} rank {r}: the bf16 gate "
+                             f"passes the {BF16_CONTROL} run "
+                             f"{run['metrics']}")
 
 
 def _mesh_phase(phase: str, mode: str, strategies, world: int,
@@ -5041,8 +5542,8 @@ def _mesh_phase(phase: str, mode: str, strategies, world: int,
     rows = shape[0] * shape[1]
     batch = _a_train_batch(torch.Generator(device="cuda").manual_seed(22),
                            rows, EDIT_L)
-    solo = _mesh_solo(batch, ("f32",) + tuple(p for p in precisions
-                                              if p != "f32"), steps)
+    solo = _mesh_solo(batch, ("f32",) + tuple(
+        p for p in precisions if p not in ("f32", BF16_CONTROL)), steps)
     alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     # the ranks share the card: let their allocators return what they free
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
@@ -5067,13 +5568,22 @@ def _mesh_phase(phase: str, mode: str, strategies, world: int,
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
     sizes = solo["f32"]["sizes"]
     n_layers = MESH_LAYERS
-    want = {n: 0 for n in KERNELS}
-    if mode != "ring":              # forward + remat recompute, one row
-        want["flash_attention_rope"] = n_layers * 2
-    else:                           # 2g sigma-chunks a layer, no remat
-        want["flash_attention_rope_qonly"] = 2 * world * n_layers
+    wants = {}
+    for what in precisions:
+        want = wants[what] = {n: 0 for n in KERNELS}
+        bwd = what in ("bf16", BF16_CONTROL)   # f32, bf16-chain: the chain
+        if mode != "ring":          # forward + remat recompute, one row
+            want["flash_attention_rope"] = n_layers * 2
+            want["flash_attention_rope_bwd"] = n_layers * bwd
+        else:                       # 2g sigma-chunks a layer, no remat
+            want["flash_attention_rope_qonly"] = 2 * world * n_layers
+            want["flash_attention_rope_qonly_bwd"] = 2 * world * n_layers * bwd
     for strategy in strategies:
         for what in precisions:
+            if what == BF16_CONTROL:
+                _mesh_control(phase, strategy, ranks, solo, wants[what])
+                continue
+            want = wants[what]
             runs = [res[(strategy, what)] for res in ranks]
             rk = _mesh_reckon(sizes, mode, strategy, world, shape[0],
                               shape[2])
@@ -5134,8 +5644,11 @@ def _mesh_phase(phase: str, mode: str, strategies, world: int,
                     raise AssertionError(
                         f"[{phase}] {strategy} {what} rank {r} launches "
                         f"{run['launches']}, expected {want} a step")
+                chain = (ranks[r][(strategy, BF16_CHAIN)]["metrics"]
+                         if what == "bf16" and BF16_CHAIN in precisions
+                         else None)
                 _mesh_gate(phase, strategy, what, run["metrics"], solo,
-                           bf16_rtol)
+                           bf16_rtol, chain)
             for (r, k), x in rel.items():
                 if not x <= MESH_PARAM_REL_L2:
                     raise AssertionError(
@@ -5166,10 +5679,13 @@ def phase_train_a_fsdp() -> dict:
 def phase_train_a_ring() -> dict:
     """[train-a-ring]: ``train_a --tp_ring`` at g=2 (mesh (1, 1, 2)) on the
     same model, one row of 2424 (each rank's K2 at Lq=606 a sigma-chunk
-    half, 16 heads), f32 and bf16, against the solo step; ``wte`` and
-    ``head`` vocab-parallel (``param_shardings``), so a rank holds half of
-    each.  Returns rank 0's bf16 run."""
-    out = _mesh_phase("train-a-ring", "ring", ("full",), 2)
+    half, 16 heads), f32, bf16-chain, bf16 and the bf16 control, against
+    the solo step; ``wte`` and ``head`` vocab-parallel
+    (``param_shardings``), so a rank holds half of each; bf16 (K2's
+    backward kernel) against the ring's own bf16-chain run, which the
+    control must fail (see ``BF16_CHAIN``).  Returns rank 0's bf16 run."""
+    out = _mesh_phase("train-a-ring", "ring", ("full",), 2,
+                      precisions=("f32", BF16_CHAIN, "bf16", BF16_CONTROL))
     return out["ranks"][0][("full", "bf16")]
 
 
@@ -5743,6 +6259,7 @@ def main() -> int:
     ring_record, ring_train_record = phase_kernel_ring()
     tp_record, tp_cached_record = phase_kernel_tp()
     prefix_launches = phase_prefix_crossover()
+    records.update(phase_kernel_bwd())
     phase_kernel_grads()
     mark("phase 2 (kernels)")
     phase_small_slice()
@@ -5785,6 +6302,7 @@ def main() -> int:
     tp_launches = phase_tp_forward()
     mark("phase 4 (tensor parallelism at full width)")
     a_run = phase_train_a()
+    launches.update(a_run["launches"])
     phase_train_m(a_run)
     del a_run
     gc.collect()
@@ -5796,6 +6314,8 @@ def main() -> int:
     mark("phase 5 (training) up to the mesh")
     fsdp_run = phase_train_a_fsdp()
     ring_train_run = phase_train_a_ring()
+    launches["flash_attention_rope_qonly_bwd"] = sum(
+        x["flash_attention_rope_qonly_bwd"] for x in ring_train_run["launches"])
     phase_train_m_mesh()
     phase_fsdp_nccl()
     mark("phase 5 (training) up to tensor parallelism")

@@ -219,7 +219,7 @@ def _m_encoder(args, cfg, params, tokenizer, T):
                               resolution=args.resolution).get_code
 
 
-def main(argv=None):
+def _main(argv=None):
     import numpy as np
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -452,6 +452,16 @@ def main(argv=None):
     finally:
         for s in servers:
             s.close()
+
+
+
+def main(argv=None):
+    """The CLI; a rank that formed its process group here (torchrun) leaves
+    it on the way out, also when the run raises
+    (``parallel.mesh.leaves_process_group``)."""
+    from mmada_parallel_torch.parallel.mesh import leaves_process_group
+    with leaves_process_group():
+        return _main(argv)
 
 
 if __name__ == "__main__":

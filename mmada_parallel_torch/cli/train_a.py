@@ -226,7 +226,7 @@ def _padcat(micro, k: int):
     return np.concatenate(outs, 0)
 
 
-def main(argv=None):
+def _main(argv=None):
     import torch
     import torch.distributed as dist
 
@@ -384,6 +384,16 @@ def main(argv=None):
     writer.close()
     if is_main:
         print(f"[done] {global_step} steps")
+
+
+
+def main(argv=None):
+    """The CLI; a rank that formed its process group here (torchrun) leaves
+    it on the way out, also when the run raises
+    (``parallel.mesh.leaves_process_group``)."""
+    from mmada_parallel_torch.parallel.mesh import leaves_process_group
+    with leaves_process_group():
+        return _main(argv)
 
 
 if __name__ == "__main__":

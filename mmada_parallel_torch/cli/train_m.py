@@ -567,7 +567,7 @@ def train_loop(cfg, state, step, samples, models: Models, sched,
     return state, history
 
 
-def main(argv=None):
+def _main(argv=None):
     import torch
     from mmada_parallel_torch.config import load_config
     from mmada_parallel_torch.data.shards import InterleavePairShardDataset
@@ -641,6 +641,16 @@ def main(argv=None):
     writer.close()
     if is_main:
         print(f"[done] {state.step} steps")
+
+
+
+def main(argv=None):
+    """The CLI; a rank that formed its process group here (torchrun) leaves
+    it on the way out, also when the run raises
+    (``parallel.mesh.leaves_process_group``)."""
+    from mmada_parallel_torch.parallel.mesh import leaves_process_group
+    with leaves_process_group():
+        return _main(argv)
 
 
 if __name__ == "__main__":

@@ -131,7 +131,7 @@ def rollout_and_score(params, cfg, ids, layout, opts, rewards, generator):
     return traj, rewards(final_ids, codes)
 
 
-def main(argv=None):
+def _main(argv=None):
     import json
 
     import torch
@@ -214,6 +214,16 @@ def main(argv=None):
         mngr.save(args.steps, state, {"iters": args.steps})
         mngr.wait()
         print(f"[done] {args.steps} ParaRL iterations")
+
+
+
+def main(argv=None):
+    """The CLI; a rank that formed its process group here (torchrun) leaves
+    it on the way out, also when the run raises
+    (``parallel.mesh.leaves_process_group``)."""
+    from mmada_parallel_torch.parallel.mesh import leaves_process_group
+    with leaves_process_group():
+        return _main(argv)
 
 
 if __name__ == "__main__":

@@ -53,7 +53,11 @@
 // 0 * garbage cannot make a NaN): a row whose bias is -1e30 everywhere gives
 // mean(v) over the Lk real keys, as the plain reference does (across splits
 // too: every split of such a row has the same m, so each weight is 2^0).
-// Rows >= Lq are computed on zero q and never written.
+// Rows >= Lq are computed on zero q and never written.  Given an lse
+// pointer (only when a gradient is wanted), the body also writes each row's
+// (m, log2 l) for the backward: kept apart rather than as one log-sum-exp,
+// because a fully masked row's m is ~-1.44e30, where m + log2 l rounds to m
+// and would lose the row's 1/Lk.
 //
 // What bounds it: at the edit shape (B=1, L=2424, H=32, D=128) the two
 // products are 4*B*H*Lq*Lk*D = 96 GFLOP against ~40 MB of q/k/v/out, so it is
@@ -275,8 +279,8 @@ attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const float* __restrict__ bias,
                      const int* __restrict__ kv_hi, bf16* __restrict__ out,
                      float* __restrict__ o_part, float2* __restrict__ ml,
-                     int Lq, int Lk, int H, int KV, int n_split,
-                     float scale) {
+                     float2* __restrict__ lse, int Lq, int Lk, int H, int KV,
+                     int n_split, float scale) {
   static_assert(D == 64 || D == 128, "head dim 64 or 128");
   static_assert(!(kPrefix && (kBias || kSplit)),
                 "prefix bounds take no bias and no split");
@@ -558,6 +562,11 @@ attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     return;
   }
+  if (lse != nullptr && tig == 0) {  // the backward's row statistics
+    float2* lb = lse + ((long long)b * H + h) * Lq;
+    if (row_lo < Lq) lb[row_lo] = make_float2(m[0], log2f(l_lo));
+    if (row_hi < Lq) lb[row_hi] = make_float2(m[1], log2f(l_hi));
+  }
   bf16* ob = out + (long long)b * Lq * q_row + (long long)h * D;
 #pragma unroll
   for (int n = 0; n < kDn; ++n) {
@@ -580,7 +589,8 @@ template <int D>
 __global__ void __launch_bounds__(256)
 split_combine_kernel(const float* __restrict__ o_part,
                      const float2* __restrict__ ml, bf16* __restrict__ out,
-                     long long n_rows, int n_split) {
+                     float2* __restrict__ lse, long long n_rows, int n_split,
+                     int Lq, int H) {
   constexpr int kPer = D / 4;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rows * kPer) return;
@@ -605,11 +615,18 @@ split_combine_kernel(const float* __restrict__ o_part,
                            __floats2bfloat162_rn(acc[2] / den, acc[3] / den)};
   *reinterpret_cast<uint2*>(out + r * D + d0) =
       *reinterpret_cast<const uint2*>(res);
+  if (lse != nullptr && d0 == 0) {  // r = (b * Lq + i) * H + h
+    const long long bi = r / H;
+    lse[(bi / Lq * H + r % H) * Lq + bi % Lq] = make_float2(m_max, log2f(den));
+  }
 }
 
 // Host side: the arguments of one call.  kv_hi only with kPrefix; o_part
 // and ml (f32 scratch, n_split x [B*Lq*H, D] and n_split x [B*Lq*H, 2]) only
-// with n_split > 1.
+// with n_split > 1.  lse, where not null, receives each row's softmax
+// statistics for the backward (attention_mma_bwd.cuh): f32 [B, H, Lq, 2],
+// (m, log2 l), the row max of the base-2 scores and the log2 of the row sum
+// of 2^(x - m), written by the body or, split, by the combine.
 struct Args {
   const void* q;
   const void* k;
@@ -619,6 +636,7 @@ struct Args {
   void* out;
   float* o_part;
   float* ml;
+  float* lse;
   int B, Lq, Lk, H, KV, n_split;
   float scale;
 };
@@ -639,8 +657,9 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
           static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
           static_cast<const bf16*>(a.v), a.bias, a.kv_hi,
           static_cast<bf16*>(a.out), a.o_part,
-          reinterpret_cast<float2*>(a.ml), a.Lq, a.Lk, a.H, a.KV, a.n_split,
-          a.scale);
+          reinterpret_cast<float2*>(a.ml),
+          kSplit ? nullptr : reinterpret_cast<float2*>(a.lse), a.Lq, a.Lk,
+          a.H, a.KV, a.n_split, a.scale);
   err = cudaGetLastError();
   if (!kSplit || err != cudaSuccess) return err;
   const long long n_rows = (long long)a.B * a.Lq * a.H;
@@ -648,7 +667,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   split_combine_kernel<D><<<(unsigned)((n_threads + 255) / 256), 256, 0,
                             stream>>>(
       a.o_part, reinterpret_cast<const float2*>(a.ml),
-      static_cast<bf16*>(a.out), n_rows, a.n_split);
+      static_cast<bf16*>(a.out), reinterpret_cast<float2*>(a.lse), n_rows,
+      a.n_split, a.Lq, a.H);
   return cudaGetLastError();
 }
 
@@ -670,11 +690,12 @@ int run(const Args& a, int D, cudaStream_t stream) {
   return (int)cudaErrorInvalidValue;
 }
 
-// K1 and K3: no bounds, no split.
+// K1 and K3: no bounds, no split; lse may be null.
 inline int dispatch(const void* q, const void* k, const void* v,
-                    const float* bias, void* out, int B, int Lq, int Lk, int H,
-                    int KV, int D, float scale, cudaStream_t stream) {
-  const Args a{q, k, v, bias, nullptr, out, nullptr, nullptr,
+                    const float* bias, void* out, float* lse, int B, int Lq,
+                    int Lk, int H, int KV, int D, float scale,
+                    cudaStream_t stream) {
+  const Args a{q, k, v, bias, nullptr, out, nullptr, nullptr, lse,
                B, Lq, Lk, H, KV, 1, scale};
   return run(a, D, stream);
 }

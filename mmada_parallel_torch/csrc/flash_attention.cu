@@ -16,14 +16,16 @@
 #include "attention_mma.cuh"
 
 // C entry point, bound with ctypes.  dtype: 0 = float32, 1 = bfloat16.  bias
-// may be null.  scale is D^-1/2.  Returns the cudaError_t of the launch.
+// may be null.  lse (bf16 only, may be null): f32 [B, H, Lq, 2] row
+// statistics for the backward (attention_mma_bwd.cuh).  scale is D^-1/2.
+// Returns the cudaError_t of the launch.
 extern "C" int mmada_flash_attention(const void* q, const void* k,
                                      const void* v, const float* bias,
-                                     void* out, int B, int Lq, int Lk, int H,
-                                     int KV, int D, float scale, int dtype,
-                                     void* stream) {
+                                     void* out, float* lse, int B, int Lq,
+                                     int Lk, int H, int KV, int D,
+                                     float scale, int dtype, void* stream) {
   if (dtype == 1)
-    return tc::dispatch(q, k, v, bias, out, B, Lq, Lk, H, KV, D, scale,
+    return tc::dispatch(q, k, v, bias, out, lse, B, Lq, Lk, H, KV, D, scale,
                         static_cast<cudaStream_t>(stream));
   return dispatch<false, false>(q, k, v, nullptr, nullptr, nullptr, nullptr,
                                 bias, nullptr, out, B, Lq, Lk, H, KV, D, 0, 0,

@@ -35,15 +35,17 @@ extern "C" int mmada_rope_rotate(const void* x, const float* sin_t,
 // tq_bstride / tk_bstride: batch stride of the q / k rope tables in floats
 // (0 for shared [L, D] tables, L*D for per-row [B, L, D] tables).  bias may be
 // null.  q_rot / k_rot: bf16 scratch shaped as q / k, written by the pre-pass
-// (unused, and may be null, for f32).  scale is D^-1/2, rounded by the caller
+// (unused, and may be null, for f32).  lse (bf16 only, may be null): f32
+// [B, H, Lq, 2] row statistics for the backward (attention_mma_bwd.cuh).
+// scale is D^-1/2, rounded by the caller
 // as the reference rounds it.  Returns the first failing launch's
 // cudaError_t (0 on success).
 extern "C" int mmada_flash_attention_rope(
     const void* q, const void* k, const void* v, const float* sin_q,
     const float* cos_q, const float* sin_k, const float* cos_k,
-    const float* bias, void* q_rot, void* k_rot, void* out, int B, int Lq,
-    int Lk, int H, int KV, int D, long long tq_bstride, long long tk_bstride,
-    float scale, int dtype, void* stream) {
+    const float* bias, void* q_rot, void* k_rot, void* out, float* lse,
+    int B, int Lq, int Lk, int H, int KV, int D, long long tq_bstride,
+    long long tk_bstride, float scale, int dtype, void* stream) {
   if (dtype != 1)
     return dispatch<true, true>(q, k, v, sin_q, cos_q, sin_k, cos_k, bias,
                                 nullptr, out, B, Lq, Lk, H, KV, D, tq_bstride,
@@ -54,6 +56,6 @@ extern "C" int mmada_flash_attention_rope(
   if (err != cudaSuccess) return (int)err;
   err = rope_rotate(k, sin_k, cos_k, k_rot, B, Lk, KV, D, tk_bstride, s);
   if (err != cudaSuccess) return (int)err;
-  return tc::dispatch(q_rot, k_rot, v, bias, out, B, Lq, Lk, H, KV, D, scale,
-                      s);
+  return tc::dispatch(q_rot, k_rot, v, bias, out, lse, B, Lq, Lk, H, KV, D,
+                      scale, s);
 }

@@ -48,6 +48,6 @@ extern "C" int mmada_flash_attention_rope_prefix(
   err = rope_rotate(k, sin_k, cos_k, k_rot, B, Lk, KV, D, tk_bstride, s);
   if (err != cudaSuccess) return (int)err;
   const tc::Args a{q_rot, k_rot, v, nullptr, kv_hi, out, nullptr, nullptr,
-                   B, Lq, Lk, H, KV, 1, scale};
+                   nullptr, B, Lq, Lk, H, KV, 1, scale};
   return tc::run<true, false>(a, D, s);
 }

@@ -27,13 +27,15 @@
 // Lq*D for per-row [B, Lq, D]).  bias may be null.  bf16 only: q_rot is bf16
 // scratch shaped as q; with n_split > 1 (at most ceil(Lk/64)), o_part and
 // ml are f32 scratch of n_split*B*Lq*H*D and n_split*B*Lq*H*2 floats (null,
-// and n_split 1, for f32).  scale is D^-1/2.  Returns the first failing
-// launch's cudaError_t (0 on success).
+// and n_split 1, for f32); lse (may be null) f32 [B, H, Lq, 2] row
+// statistics for the backward, written by the body or, split, by the
+// combine.  scale is D^-1/2.  Returns the first failing launch's
+// cudaError_t (0 on success).
 extern "C" int mmada_flash_attention_rope_qonly(
     const void* q, const void* k, const void* v, const float* sin_q,
     const float* cos_q, const float* bias, void* q_rot, float* o_part,
-    float* ml, void* out, int B, int Lq, int Lk, int H, int KV, int D,
-    int n_split, long long tq_bstride, float scale, int dtype,
+    float* ml, void* out, float* lse, int B, int Lq, int Lk, int H, int KV,
+    int D, int n_split, long long tq_bstride, float scale, int dtype,
     void* stream) {
   if (dtype != 1)
     return dispatch<true, false>(q, k, v, sin_q, cos_q, nullptr, nullptr,
@@ -43,7 +45,7 @@ extern "C" int mmada_flash_attention_rope_qonly(
   const cudaError_t err = rope_rotate(q, sin_q, cos_q, q_rot, B, Lq, H, D,
                                       tq_bstride, s);
   if (err != cudaSuccess) return (int)err;
-  const tc::Args a{q_rot, k, v, bias, nullptr, out, o_part, ml,
+  const tc::Args a{q_rot, k, v, bias, nullptr, out, o_part, ml, lse,
                    B, Lq, Lk, H, KV, n_split, scale};
   return n_split > 1 ? tc::run<false, true>(a, D, s)
                      : tc::run<false, false>(a, D, s);

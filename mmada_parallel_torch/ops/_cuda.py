@@ -33,14 +33,21 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 # stream as c_void_p, or ctypes would cut them to 32 bits)
 _SIGNATURES = {
     "mmada_flash_attention_rope": (
-        [_P] * 11 + [_I] * 6 + [_LL, _LL, _F, _I, _P], _I),
+        [_P] * 12 + [_I] * 6 + [_LL, _LL, _F, _I, _P], _I),
     "mmada_rope_rotate": ([_P] * 4 + [_I] * 4 + [_LL, _P], _I),
     "mmada_flash_attention_rope_qonly": (
-        [_P] * 10 + [_I] * 7 + [_LL, _F, _I, _P], _I),
+        [_P] * 11 + [_I] * 7 + [_LL, _F, _I, _P], _I),
     "mmada_flash_attention": (
-        [_P] * 5 + [_I] * 6 + [_F, _I, _P], _I),
+        [_P] * 6 + [_I] * 6 + [_F, _I, _P], _I),
     "mmada_flash_attention_rope_prefix": (
         [_P] * 11 + [_I] * 6 + [_LL, _LL, _F, _I, _P], _I),
+    # the backward (csrc/attention_bwd.cu)
+    "mmada_rope_rotate_bwd": ([_P] * 3 + [_I] * 4 + [_LL, _P], _I),
+    "mmada_flash_attention_bwd": ([_P] * 11 + [_I] * 6 + [_F, _P], _I),
+    "mmada_flash_attention_rope_bwd": (
+        [_P] * 17 + [_I] * 6 + [_LL, _LL, _F, _P], _I),
+    "mmada_flash_attention_rope_qonly_bwd": (
+        [_P] * 14 + [_I] * 6 + [_LL, _F, _P], _I),
 }
 
 

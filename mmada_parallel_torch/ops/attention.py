@@ -19,11 +19,17 @@ fallback: a CUDA tensor under ``auto`` either launches a kernel or raises.
 
 Gradients: a kernel's output comes back through ``ctypes`` with no autograd
 history, so every kernel is called through a :class:`torch.autograd.Function`
-whose forward launches it and whose backward recomputes the plain chain and
-returns its vector-Jacobian product -- the JAX package's custom VJPs
-(``_flash_diff_fn``, ``_packed_diff_fn``, ``_packed_qonly_diff_fn``,
-``_packed_prefix_diff_fn``).  The backward launches no kernel.  Tables,
-biases and bounds get no gradient, as in JAX.
+-- the JAX package's custom VJPs (``_flash_diff_fn``, ``_packed_diff_fn``,
+``_packed_qonly_diff_fn``, ``_packed_prefix_diff_fn``).  For bf16 CUDA
+inputs of K1, K2 and K3 (``rope_attention``, ``rope_attention_qonly``,
+``dot_product_attention``) its forward also keeps the rows' softmax
+statistics, and its backward launches the backward kernel
+(:mod:`.attention_bwd`, ``csrc/attention_bwd.cu``), which raises rather than
+fall back.  Two cases still recompute the plain chain in the backward and
+return its vector-Jacobian product, as JAX's VJPs do: f32 inputs (the
+forward runs the FMA template) and K4's ``rope_attention_prefix``, which no
+sampler or trainer calls.  Tables, biases and bounds get no gradient, as in
+JAX.
 """
 
 from __future__ import annotations
@@ -33,6 +39,9 @@ from typing import Callable, Optional
 
 import torch
 
+from mmada_parallel_torch.ops.attention_bwd import (
+    flash_attention_bwd, flash_attention_rope_bwd,
+    flash_attention_rope_qonly_bwd)
 from mmada_parallel_torch.ops.flash_attention import flash_attention
 from mmada_parallel_torch.ops.masks import to_bias
 from mmada_parallel_torch.ops.rope_attention import (
@@ -85,34 +94,58 @@ def _use_kernel(impl: str, t: torch.Tensor) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# Autograd: kernel forward, plain-chain recompute backward
+# Autograd: kernel forward; backward kernel or plain-chain recompute
 # ---------------------------------------------------------------------------
 
 
+def _kernel_backward(t: torch.Tensor) -> bool:
+    """True where a Function with a backward kernel launches it: bf16 CUDA
+    tensors (the tensor-core body's statistics); f32 recomputes the plain
+    chain."""
+    return t.device.type == "cuda" and t.dtype == torch.bfloat16
+
+
 class _KernelFn(torch.autograd.Function):
-    """``kernel(q, k, v, *consts)`` forward; backward: the VJP of
-    ``plain(q, k, v, *consts)``, recomputed under ``enable_grad``, for the
-    q/k/v the forward was asked to differentiate, and ``None`` for the
-    constants (tables, bias, bounds).  ``kernel`` and ``plain`` carry the
-    head counts (``functools.partial``)."""
+    """``kernel(q, k, v, *consts)`` forward.  Backward: where ``bwd`` is
+    given, the input is one :func:`_kernel_backward` takes and a gradient is
+    wanted, the forward also asks the kernel for its statistics
+    (``with_stats=True``) and the backward returns ``bwd(q, k, v, *consts,
+    out, stats, dout)``; otherwise the VJP of ``plain(q, k, v, *consts)``,
+    recomputed under ``enable_grad``.  Gradients for the q/k/v the forward
+    was asked to differentiate, ``None`` for the constants (tables, bias,
+    bounds).  ``kernel``, ``plain`` and ``bwd`` carry the head counts
+    (``functools.partial``)."""
 
     @staticmethod
-    def forward(ctx, kernel, plain, q, k, v, *consts):
-        ctx.plain = plain
+    def forward(ctx, kernel, plain, bwd, q, k, v, *consts):
+        ctx.plain, ctx.bwd = plain, None
+        if (bwd is not None and _kernel_backward(q)
+                and any(ctx.needs_input_grad[3:6])):
+            out, stats = kernel(q, k, v, *consts, with_stats=True)
+            ctx.bwd = bwd
+            ctx.save_for_backward(q, k, v, *consts, out, stats)
+            return out
         ctx.save_for_backward(q, k, v, *consts)
         return kernel(q, k, v, *consts)
 
     @staticmethod
     def backward(ctx, g):
+        needs = ctx.needs_input_grad[3:6]
+        if ctx.bwd is not None:
+            q, k, v, *consts, out, stats = ctx.saved_tensors
+            grads = ctx.bwd(q, k, v, *consts, out, stats, g.contiguous())
+            return (None, None, None,
+                    *(x if n else None for x, n in zip(grads, needs)),
+                    *(None,) * len(consts))
         q, k, v, *consts = ctx.saved_tensors
-        needs = ctx.needs_input_grad[2:5]
         with torch.enable_grad():
             xs = [x.detach().requires_grad_(n) for x, n in zip((q, k, v),
                                                                  needs)]
             wrt = [x for x, n in zip(xs, needs) if n]
             grads = iter(torch.autograd.grad(ctx.plain(*xs, *consts), wrt, g)
                          if wrt else ())
-        return (None, None, *(next(grads) if n else None for n in needs),
+        return (None, None, None,
+                *(next(grads) if n else None for n in needs),
                 *(None,) * len(consts))
 
 
@@ -133,8 +166,8 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (:func:`~mmada_parallel_torch.ops.flash_attention.flash_attention`);
     CPU tensors and ``xla`` run the plain chain."""
     if _use_kernel(impl, q):
-        return _KernelFn.apply(flash_attention, _xla_attention, q, k, v,
-                               bias)
+        return _KernelFn.apply(flash_attention, _xla_attention,
+                               flash_attention_bwd, q, k, v, bias)
     return _xla_attention(q, k, v, bias)
 
 
@@ -184,6 +217,7 @@ def rope_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _use_kernel(impl, q) and full_precision:
         return _KernelFn.apply(_heads(flash_attention_rope, H, KV),
                                _heads(flash_attention_rope_reference, H, KV),
+                               _heads(flash_attention_rope_bwd, H, KV),
                                q, k, v, sin, cos, bias)
     q4 = q.reshape(B, L, H, D)
     k4 = k.reshape(B, k.shape[1], KV, D)
@@ -238,7 +272,7 @@ def rope_attention_prefix(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                               or L >= PREFIX_MIN_LEN):
         return _KernelFn.apply(
             _heads(flash_attention_rope_prefix, H, KV),
-            _heads(flash_attention_rope_prefix_reference, H, KV),
+            _heads(flash_attention_rope_prefix_reference, H, KV), None,
             q, k, v, sin, cos, kv_hi)
     bias = to_bias(_prefix_dense_bias(kv_hi, k.shape[1]))
     return rope_attention(q, k, v, sin, cos, bias, n_heads=H, n_kv_heads=KV,
@@ -274,6 +308,7 @@ def rope_attention_qonly(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _KernelFn.apply(
             _heads(flash_attention_rope_qonly, H, KV),
             _heads(flash_attention_rope_qonly_reference, H, KV),
+            _heads(flash_attention_rope_qonly_bwd, H, KV),
             q, k, v, sin_q, cos_q, bias)
     q4 = rope_tensor(q.reshape(B, Lq, H, D), sin_q, cos_q, full_precision)
     k4 = k.reshape(B, k.shape[1], KV, D)

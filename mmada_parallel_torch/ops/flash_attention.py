@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 
 from mmada_parallel_torch.ops.rope_attention import (_KERNEL_DTYPES,
+                                                     _stats_buffer,
                                                      check_aligned,
                                                      check_no_grad,
                                                      check_packed)
@@ -26,7 +27,7 @@ from mmada_parallel_torch.ops.rope_attention import (_KERNEL_DTYPES,
 __all__ = ["flash_attention"]
 
 
-def _launch(q, k, v, bias):
+def _launch(q, k, v, bias, with_stats: bool = False):
     from mmada_parallel_torch.ops import _cuda
     check_no_grad("flash_attention", q, k, v, bias)
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -43,23 +44,26 @@ def _launch(q, k, v, bias):
     if q.dtype == torch.bfloat16:               # the tensor-core body
         check_aligned("flash_attention", 16, q, k, v)
         check_aligned("flash_attention", 8, bias)
+    lse = _stats_buffer("flash_attention", q, H, with_stats)
     out = torch.empty_like(q)
     lib = _cuda.library()
     with torch.cuda.device(q.device):
         err = lib.mmada_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             bias.data_ptr() if bias is not None else None, out.data_ptr(),
+            lse.data_ptr() if lse is not None else None,
             B, Lq, Lk, H, KV, D, D ** -0.5, _KERNEL_DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention CUDA launch failed: "
                            f"cudaError_t {err}")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if with_stats else out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    bias: Optional[torch.Tensor] = None, *,
+                    with_stats: bool = False):
     """``[B, Lq, H, D] x [B, Lk, KV, D] -> [B, Lq, H, D]``, non-causal.
 
     ``bias`` is an optional additive f32 ``[B, 1, Lq, Lk]``.  A CUDA tensor
@@ -67,14 +71,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     D in {64, 128}, contiguous inputs, any Lq, Lk and GQA ratio) and raises
     on anything it does not take; a CPU tensor runs the plain
     ``_xla_attention``.  ``flash_attention.launches``
-    counts kernel launches."""
+    counts kernel launches.  ``with_stats=True`` (bf16 on CUDA) also
+    returns the rows' softmax statistics for the backward
+    (:mod:`.attention_bwd`): ``(out, stats)``."""
     if q.device.type == "cpu":
         from mmada_parallel_torch.ops.attention import _xla_attention
-        return _xla_attention(q, k, v, bias)
+        out = _xla_attention(q, k, v, bias)
+        if not with_stats:
+            return out
+        from mmada_parallel_torch.ops.attention_bwd import (
+            attention_stats_reference)
+        return out, attention_stats_reference(q, k, bias)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
-    return _launch(q, k, v, bias)
+    return _launch(q, k, v, bias, with_stats)
 
 
 flash_attention.launches = 0

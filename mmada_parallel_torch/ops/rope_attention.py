@@ -188,7 +188,20 @@ def check_no_grad(name: str, *tensors) -> None:
             f"give it a backward) or under torch.no_grad()")
 
 
-def _launch(q, k, v, sin_q, cos_q, sin_k, cos_k, bias, H: int, KV: int):
+def _stats_buffer(name: str, q, H: int, with_stats: bool):
+    """The f32 ``[B, H, Lq, 2]`` row statistics a bf16 forward writes for
+    the backward (``ops.attention_bwd``), or None."""
+    if not with_stats:
+        return None
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: with_stats needs bf16 inputs (the f32 "
+                         f"template writes no statistics)")
+    return torch.empty(q.shape[0], H, q.shape[1], 2, dtype=torch.float32,
+                       device=q.device)
+
+
+def _launch(q, k, v, sin_q, cos_q, sin_k, cos_k, bias, H: int, KV: int,
+            with_stats: bool = False):
     from mmada_parallel_torch.ops import _cuda
     check_no_grad("flash_attention_rope", q, k, v, sin_q, cos_q, bias)
     B, Lq, Lk, D = check_packed(q, k, v, bias, H, KV)
@@ -205,6 +218,7 @@ def _launch(q, k, v, sin_q, cos_q, sin_k, cos_k, bias, H: int, KV: int):
                       sin_k, cos_k)
         check_aligned("flash_attention_rope", 8, bias)
         q_rot, k_rot = torch.empty_like(q), torch.empty_like(k)
+    lse = _stats_buffer("flash_attention_rope", q, H, with_stats)
     out = torch.empty_like(q)
     lib = _cuda.library()
     with torch.cuda.device(q.device):
@@ -214,13 +228,14 @@ def _launch(q, k, v, sin_q, cos_q, sin_k, cos_k, bias, H: int, KV: int):
             bias.data_ptr() if bias is not None else None,
             q_rot.data_ptr() if q_rot is not None else None,
             k_rot.data_ptr() if k_rot is not None else None, out.data_ptr(),
+            lse.data_ptr() if lse is not None else None,
             B, Lq, Lk, H, KV, D, tq, tk, D ** -0.5, _KERNEL_DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_rope CUDA launch failed: "
                            f"cudaError_t {err}")
     flash_attention_rope.launches += 1
-    return out
+    return (out, lse) if with_stats else out
 
 
 def rope_rotate(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor, *,
@@ -287,7 +302,8 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _launch_qonly(q, k, v, sin_q, cos_q, bias, H: int, KV: int):
+def _launch_qonly(q, k, v, sin_q, cos_q, bias, H: int, KV: int,
+                  with_stats: bool = False):
     from mmada_parallel_torch.ops import _cuda
     check_no_grad("flash_attention_rope_qonly", q, k, v, sin_q, cos_q, bias)
     B, Lq, Lk, D = check_packed(q, k, v, bias, H, KV)
@@ -311,6 +327,7 @@ def _launch_qonly(q, k, v, sin_q, cos_q, bias, H: int, KV: int):
                                device=q.device)
             o_part = part.data_ptr()
             ml = o_part + rows * D * part.element_size()
+    lse = _stats_buffer("flash_attention_rope_qonly", q, H, with_stats)
     out = torch.empty_like(q)
     lib = _cuda.library()
     with torch.cuda.device(q.device):
@@ -318,21 +335,22 @@ def _launch_qonly(q, k, v, sin_q, cos_q, bias, H: int, KV: int):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), sin_q.data_ptr(),
             cos_q.data_ptr(), bias.data_ptr() if bias is not None else None,
             q_rot.data_ptr() if q_rot is not None else None, o_part, ml,
-            out.data_ptr(), B, Lq, Lk, H, KV, D, n_split, tq, D ** -0.5,
+            out.data_ptr(), lse.data_ptr() if lse is not None else None,
+            B, Lq, Lk, H, KV, D, n_split, tq, D ** -0.5,
             _KERNEL_DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_rope_qonly CUDA launch failed: "
                            f"cudaError_t {err}")
     flash_attention_rope_qonly.launches += 1
-    return out
+    return (out, lse) if with_stats else out
 
 
 def flash_attention_rope(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          sin: torch.Tensor, cos: torch.Tensor,
                          bias: Optional[torch.Tensor] = None, *,
-                         n_heads: int, n_kv_heads: Optional[int] = None
-                         ) -> torch.Tensor:
+                         n_heads: int, n_kv_heads: Optional[int] = None,
+                         with_stats: bool = False):
     """``[B, Lq, H*D] x [B, Lk, KV*D] -> [B, Lq, H*D]``: pre-RoPE packed
     q/k/v in, attention out.
 
@@ -343,16 +361,23 @@ def flash_attention_rope(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     anything the kernel does not take; a CPU tensor runs
     :func:`flash_attention_rope_reference`.  ``flash_attention_rope.launches``
     counts calls that launched the kernel (one per call, whatever the number
-    of CUDA kernels the call starts)."""
+    of CUDA kernels the call starts).  ``with_stats=True`` (bf16 on CUDA)
+    also returns the rows' softmax statistics for the backward
+    (:mod:`.attention_bwd`): ``(out, stats)``."""
     H = n_heads
     KV = n_kv_heads if n_kv_heads is not None else H
     tables = _split_tables(sin, cos, q.shape[1], k.shape[1])
     if q.device.type == "cpu":
-        return _reference(q, k, v, *tables, bias, H, KV)
+        out = _reference(q, k, v, *tables, bias, H, KV)
+        if not with_stats:
+            return out
+        from mmada_parallel_torch.ops.attention_bwd import (
+            packed_stats_reference)
+        return out, packed_stats_reference(q, k, *tables, bias, H, KV)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_rope runs on cuda or cpu, not "
                          f"{q.device}")
-    return _launch(q, k, v, *tables, bias, H, KV)
+    return _launch(q, k, v, *tables, bias, H, KV, with_stats)
 
 
 flash_attention_rope.launches = 0
@@ -379,8 +404,8 @@ def flash_attention_rope_qonly(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, sin_q: torch.Tensor,
                                cos_q: torch.Tensor,
                                bias: Optional[torch.Tensor] = None, *,
-                               n_heads: int, n_kv_heads: Optional[int] = None
-                               ) -> torch.Tensor:
+                               n_heads: int, n_kv_heads: Optional[int] = None,
+                               with_stats: bool = False):
     """Packed attention with PRE-ROTATED k: ``[B, Lq, H*D] x [B, Lk, KV*D]
     -> [B, Lq, H*D]``, the feature-cache hot path.
 
@@ -393,16 +418,26 @@ def flash_attention_rope_qonly(q: torch.Tensor, k: torch.Tensor,
     a CPU tensor runs :func:`flash_attention_rope_qonly_reference`.  A bf16
     launch splits the key tiles as :func:`plan_splits` says for this card.
     ``flash_attention_rope_qonly.launches`` counts calls that launched the
-    kernel (one per call: the pre-pass, the body and the combine)."""
+    kernel (one per call: the pre-pass, the body and the combine).
+    ``with_stats=True`` (bf16 on CUDA) also returns the rows' softmax
+    statistics for the backward (written by the combine when the call
+    splits): ``(out, stats)``."""
     H = n_heads
     KV = n_kv_heads if n_kv_heads is not None else H
     if q.device.type == "cpu":
-        return flash_attention_rope_qonly_reference(
+        out = flash_attention_rope_qonly_reference(
             q, k, v, sin_q, cos_q, bias, n_heads=H, n_kv_heads=KV)
+        if not with_stats:
+            return out
+        from mmada_parallel_torch.ops.attention_bwd import (
+            packed_stats_reference)
+        return out, packed_stats_reference(q, k, sin_q, cos_q, None, None,
+                                           bias, H, KV)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_rope_qonly runs on cuda or cpu, "
                          f"not {q.device}")
-    return _launch_qonly(q, k, v, sin_q.float(), cos_q.float(), bias, H, KV)
+    return _launch_qonly(q, k, v, sin_q.float(), cos_q.float(), bias, H, KV,
+                         with_stats)
 
 
 flash_attention_rope_qonly.launches = 0

@@ -9,7 +9,8 @@ collects them, killing what outlives its deadline.  A rank that returns
 waits at a barrier for its peers before it leaves the group, so none closes
 its sockets while a peer is still setting up a group of the mesh; a rank
 that raised skips it, and its peers leave at their deadline (or when its
-sockets close) with their results.  The rings
+sockets close) with their results.  The CLIs that form a group under
+torchrun leave it the same way (``mesh.leaves_process_group``).  The rings
 and sharded trainers of ``chip_smoke.py`` and of the port's tests start this
 way.
 
@@ -20,7 +21,6 @@ module to find it.
 from __future__ import annotations
 
 import dataclasses
-import datetime
 import os
 import sys
 import time
@@ -44,32 +44,25 @@ class RankOutcome:
     error: Optional[str] = None
 
 
-def _teardown_barrier(backend: str, deadline: float) -> None:
-    """Wait for every rank of the default group, at most until
-    ``deadline`` (``time.time()``); on gloo ``monitored_barrier`` names the
-    ranks that never came."""
-    if backend == "gloo":
-        left = max(deadline - time.time(), 1.0)
-        dist.monitored_barrier(timeout=datetime.timedelta(seconds=left))
-    else:
-        dist.barrier()
-
-
-def _rank_entry(fn, rank, world, workdir, backend, device_type, deadline):
+def _rank_entry(fn, rank, world, workdir, backend, device_type, deadline,
+                init_group=True):
     if device_type == "cuda":
         torch.cuda.set_device(rank if backend == "nccl" else 0)
     else:
         torch.set_num_threads(1)
     try:
-        from mmada_parallel_torch.parallel.mesh import init_distributed
-        init_distributed(f"file://{workdir}/rdv", world, rank, backend)
+        from mmada_parallel_torch.parallel.mesh import (init_distributed,
+                                                        teardown_barrier)
+        if init_group:
+            init_distributed(f"file://{workdir}/rdv", world, rank, backend)
         out = fn(rank, world, workdir)
         torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
         # a rank whose fn raised never gets here: its peers' barrier fails
         # at the deadline (or when the gone rank's sockets close), and the
         # rank that raised is the one reported
         try:
-            _teardown_barrier(backend, deadline)
+            if dist.is_initialized():
+                teardown_barrier(backend, deadline)
         except RuntimeError as e:
             sys.stderr.write(f"rank {rank}: a peer never reached the "
                              f"teardown barrier: {str(e)[:200]}\n")
@@ -83,19 +76,21 @@ def _rank_entry(fn, rank, world, workdir, backend, device_type, deadline):
 
 
 def spawn_ranks(fn: Callable, world: int, workdir, backend: str = "gloo",
-                device_type: str = "cpu",
-                timeout: float = 300.0) -> Callable[[], List[RankOutcome]]:
+                device_type: str = "cpu", timeout: float = 300.0,
+                init_group: bool = True) -> Callable[[], List[RankOutcome]]:
     """Start ``world`` ranks running ``fn(rank, world, workdir)``; returns
     ``join()``, which waits at most ``timeout`` s from now, kills what is
     left and gives each rank's :class:`RankOutcome`.  ``workdir`` must be
-    empty of an earlier run's rendezvous and results."""
+    empty of an earlier run's rendezvous and results.  With ``init_group``
+    false the ranks form no group: ``fn`` forms its own (as a torchrun
+    rank's ``main`` does) and leaves it."""
     import torch.multiprocessing as mp
     workdir = str(workdir)
     ctx = mp.get_context("spawn")
     deadline = time.time() + timeout
     procs = [ctx.Process(target=_rank_entry,
                          args=(fn, r, world, workdir, backend, device_type,
-                               deadline))
+                               deadline, init_group))
              for r in range(world)]
     for p in procs:
         p.start()

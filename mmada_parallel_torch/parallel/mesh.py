@@ -23,15 +23,20 @@ out in :mod:`mmada_parallel_torch.parallel.fsdp`.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import datetime
 import os
+import sys
+import time
 from typing import Any, Dict, Optional
 
 import torch
 import torch.distributed as dist
 
 __all__ = ["AXES", "MeshConfig", "PartitionSpec", "make_mesh",
-           "shard_params", "ShardedParams", "init_distributed", "replicated",
+           "shard_params", "ShardedParams", "init_distributed",
+           "leaves_process_group", "teardown_barrier", "replicated",
            "batch_sharding", "drop_axis", "opt_state_specs",
            "shard_opt_state", "local_rows", "dp_coordinate", "dp_groups"]
 
@@ -266,3 +271,44 @@ def init_distributed(coordinator: Optional[str] = None,
     else:
         dist.init_process_group(backend, init_method=coordinator,
                                 world_size=num_processes, rank=process_id)
+
+
+def teardown_barrier(backend: str, deadline: float) -> None:
+    """Wait for every rank of the default group, at most until
+    ``deadline`` (``time.time()``); on gloo ``monitored_barrier`` names the
+    ranks that never came."""
+    if backend == "gloo":
+        left = max(deadline - time.time(), 1.0)
+        dist.monitored_barrier(timeout=datetime.timedelta(seconds=left))
+    else:
+        dist.barrier()
+
+
+@contextlib.contextmanager
+def leaves_process_group(timeout: float = 300.0):
+    """Run the with-block; if the default process group was formed inside
+    it (the CLIs' :func:`init_distributed` under torchrun), leave it on the
+    way out, also when the block raised: the rank waits for its peers at
+    :func:`teardown_barrier` (at most ``timeout`` s; a peer that never
+    comes is reported on stderr) and then calls
+    ``destroy_process_group()``.  A rank that raised skips the barrier (its
+    peers meet the deadline, or its closed sockets) and only destroys the
+    group.  A rank that exits with the group alive can abort
+    in gloo's teardown while a peer still talks to it."""
+    formed_before = dist.is_initialized()
+    ok = False
+    try:
+        yield
+        ok = True
+    finally:
+        if not formed_before and dist.is_initialized():
+            try:
+                if ok:
+                    teardown_barrier(dist.get_backend(),
+                                     time.time() + timeout)
+            except RuntimeError as e:
+                sys.stderr.write(f"rank {dist.get_rank()}: a peer never "
+                                 f"reached the teardown barrier: "
+                                 f"{str(e)[:200]}\n")
+            finally:
+                dist.destroy_process_group()

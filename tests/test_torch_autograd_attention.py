@@ -9,8 +9,14 @@ tensors to it.  Through the Functions, the q/k/v gradients of
 ``rope_attention_prefix`` must equal the plain path's (``impl="xla"``) and
 JAX's ``jax.grad`` on the same numpy inputs, in f32 at atol = rtol = 1e-5
 (the same math; only the f32 summation order differs between XLA and
-PyTorch).  Without the Functions they are lost, and the raw launchers refuse
-inputs that need a gradient."""
+PyTorch).  The Functions of the first three take the backward kernel's
+route (``ops.attention._kernel_backward`` routes the CPU tensors there):
+their forward stand-ins return the row statistics, and their backward
+reaches a stand-in of the backward launcher (the plain backward of
+``ops.attention_bwd``, counted); ``rope_attention_prefix`` at this length
+takes K1 on the dense bias.  Without
+the Functions the gradients are lost, and the raw launchers refuse inputs
+that need a gradient."""
 
 import dataclasses
 import functools
@@ -28,6 +34,7 @@ from mmada_parallel_tpu.ops import attention as JA
 from mmada_parallel_torch.models import llada as TL
 from mmada_parallel_torch.models.from_jax import llada_params_from_jax
 from mmada_parallel_torch.ops import attention as TA
+from mmada_parallel_torch.ops import attention_bwd as TB
 from mmada_parallel_torch.ops import flash_attention as TF
 from mmada_parallel_torch.ops import rope_attention as TR
 
@@ -49,18 +56,41 @@ def _detached(fn):
     return kernel
 
 
+BACKWARDS = {"rope_attention": "flash_attention_rope_bwd",
+             "rope_attention_qonly": "flash_attention_rope_qonly_bwd",
+             "dot_product_attention": "flash_attention_bwd",
+             # below PREFIX_MIN_LEN ``auto`` takes K1 on the dense bias
+             "rope_attention_prefix": "flash_attention_rope_bwd"}
+
+
 @pytest.fixture
 def fake_kernels(monkeypatch):
-    """Route ``auto`` on CPU tensors to stand-in kernels."""
+    """Route ``auto`` on CPU tensors to stand-in kernels, and the
+    Functions' backward to stand-ins of the backward launchers; returns the
+    backward stand-ins' call counts."""
     monkeypatch.setattr(TA, "_use_kernel", lambda impl, t: impl != "xla")
+    monkeypatch.setattr(TA, "_kernel_backward", lambda t: True)
+    # the CPU wrappers run the plain versions (with the row statistics
+    # where ``with_stats`` asks for them)
     for name, plain in (
-            ("flash_attention_rope", TR.flash_attention_rope_reference),
-            ("flash_attention_rope_qonly",
-             TR.flash_attention_rope_qonly_reference),
-            ("flash_attention", TA._xla_attention),
+            ("flash_attention_rope", TR.flash_attention_rope),
+            ("flash_attention_rope_qonly", TR.flash_attention_rope_qonly),
+            ("flash_attention", TF.flash_attention),
             ("flash_attention_rope_prefix",
              TR.flash_attention_rope_prefix_reference)):
         monkeypatch.setattr(TA, name, _detached(plain))
+    calls = dict.fromkeys(BACKWARDS.values(), 0)
+
+    def counted(name):
+        plain = _detached(getattr(TB, name))
+
+        def bwd(*args, **kw):
+            calls[name] += 1
+            return plain(*args, **kw)
+        return bwd
+    for name in calls:
+        monkeypatch.setattr(TA, name, counted(name))
+    return calls
 
 
 def _case(name):
@@ -127,12 +157,15 @@ def _torch_grads(fn, arrays, w, impl):
     return out.detach().numpy(), [g.numpy() for g in grads]
 
 
-@pytest.mark.parametrize("name", ENTRY_POINTS)
-def test_grads_through_function_match_plain_and_jax(name, fake_kernels):
+def _check_grads(name, calls, want_calls):
+    """The kernel path's output and q/k/v gradients against the plain
+    path's and ``jax.grad``'s; the backward stand-ins' counts against
+    ``want_calls``."""
     arrays, tfn, jfn = _case(name)
     w_shape = arrays[0].shape
     w = _rand(w_shape, 11)
     out_k, grads_k = _torch_grads(tfn, arrays, w, "auto")
+    assert calls == want_calls
     out_p, grads_p = _torch_grads(tfn, arrays, w, "xla")
     np.testing.assert_allclose(out_k, out_p, **TOL)
     jgrads = jax.grad(lambda q, k, v: (jfn(q, k, v) * w).sum(),
@@ -142,11 +175,34 @@ def test_grads_through_function_match_plain_and_jax(name, fake_kernels):
         np.testing.assert_allclose(gk, np.asarray(gj), **TOL)
 
 
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_grads_through_function_match_plain_and_jax(name, fake_kernels):
+    _check_grads(name, fake_kernels, {bwd: int(BACKWARDS[name] == bwd)
+                                      for bwd in BACKWARDS.values()})
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_grads_through_the_chain_recompute_match_plain_and_jax(
+        name, fake_kernels, monkeypatch):
+    """The Functions' other backward, taken where ``_kernel_backward``
+    refuses the input (f32 on the card, K4): the plain chain recomputed
+    and differentiated, with no backward launcher reached."""
+    monkeypatch.setattr(TA, "_kernel_backward", lambda t: False)
+    _check_grads(name, fake_kernels, dict.fromkeys(BACKWARDS.values(), 0))
+
+
+def _no_grad_ctx():
+    """A context for calling ``_KernelFn.forward`` straight: no input asks
+    for a gradient, so the kernel is called without statistics."""
+    return types.SimpleNamespace(save_for_backward=lambda *a: None,
+                                 needs_input_grad=(False,) * 12)
+
+
 @pytest.fixture
 def without_functions(fake_kernels, monkeypatch):
     """The routing before the Functions: each entry point calls its kernel
     straight, so autograd never sees the launch."""
-    ctx = types.SimpleNamespace(save_for_backward=lambda *a: None)
+    ctx = _no_grad_ctx()
     monkeypatch.setattr(TA._KernelFn, "apply", staticmethod(
         functools.partial(TA._KernelFn.forward, ctx)))
 
@@ -189,6 +245,8 @@ def test_model_projection_grads_through_the_kernel_path(fake_kernels,
             torch.from_numpy(ids))
 
     kernel, plain = grads("auto"), grads("xla")
+    # every layer's attention went back through the backward stand-in
+    assert fake_kernels["flash_attention_rope_bwd"] == tcfg.n_layers
     jgrads = jax.grad(lambda p: jax.nn.logsumexp(
         JL.llada_forward(p, jcfg, jnp.asarray(ids)), axis=-1).mean())(jp)
     for name in ("q_proj", "k_proj", "v_proj", "ff_proj"):
@@ -198,7 +256,7 @@ def test_model_projection_grads_through_the_kernel_path(fake_kernels,
                                    atol=1e-5, rtol=1e-4)
 
     # the old routing: the kernel called without its Function
-    ctx = types.SimpleNamespace(save_for_backward=lambda *a: None)
+    ctx = _no_grad_ctx()
     monkeypatch.setattr(TA._KernelFn, "apply", staticmethod(
         functools.partial(TA._KernelFn.forward, ctx)))
     lost = grads("auto")

@@ -210,7 +210,9 @@ def test_chip_smoke_and_train_cli_import_no_jax_package():
     assert res["jax"] == []
     assert res["counters"] == sorted(
         ["flash_attention", "flash_attention_rope",
-         "flash_attention_rope_prefix", "flash_attention_rope_qonly"])
+         "flash_attention_rope_prefix", "flash_attention_rope_qonly",
+         "flash_attention_bwd", "flash_attention_rope_bwd",
+         "flash_attention_rope_qonly_bwd"])
     assert res["m_len"] == 2360         # the interleave length chip_smoke uses
 
 
