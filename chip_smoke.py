@@ -16,7 +16,8 @@ Phases (each prints its own lines; any failure exits non-zero):
 0. device: the card's name and power limit, the cards visible and whether
    NCCL is available, torch/CUDA versions, TF32 off;
 1. build: one ``nvcc`` per ``mmada_parallel_torch/csrc/*.cu`` for sm_90a,
-   all at once, then one link;
+   all at once, then one link; one line with the registers and spill
+   bytes of the backward's dK/dV and dQ passes at D=64 and 128 (ptxas);
 2. the four attention kernels against their plain PyTorch versions on the
    card, timed with CUDA events against them and against their bound (the
    larger of FLOPs over the 989 TFLOP/s bf16 peak and bytes over 3.35 TB/s):
@@ -42,10 +43,13 @@ Phases (each prints its own lines; any failure exits non-zero):
    names of one K2 and one K4 bf16 call (the tensor-core body, not the FMA
    template); the backward kernels of K1, K2 and K3
    (``csrc/attention_bwd.cu``) against their plain versions in bf16 at the
-   body's edges (forced K2 splits among them), two launches bit for bit,
-   the rotation post-pass bitwise, timed with their bounds at the A step's,
-   the M trainer's and the training ring's shapes (K3 at 2424 and 5120
-   beside SDPA's backward); then each kernel's autograd Function: one
+   body's edges (forced K2 splits, the bias staged by TMA and by cp.async,
+   one q tile, G = 4, B = 2 off the tiles), two launches bit for bit,
+   the rotation post-pass bitwise, timed with their bounds and device time
+   by pass at the A step's, the M trainer's and the training ring's shapes
+   (K3 at 2424 and 5120 beside SDPA's backward, and at the M trainer's
+   shape beside SDPA's with the bias as a bf16 mask); then each kernel's
+   autograd Function: one
    forward and (bf16 K1-K3) one backward launch, the forward against plain
    autograd, the bf16 gradients gated by the bf16 plain chain's distance
    from the f32 chain, the f32 gradients equal to plain autograd's;
@@ -296,10 +300,46 @@ def phase_build() -> None:
         f"{time.time() - t0:.1f} s ({len(_cuda._sources())} sources, nvcc "
         f"-gencode arch=compute_90a,code=sm_90a)")
     with open(path[:-3] + ".log") as f:
-        for line in f:
-            if "entry function" in line or "registers" in line \
-                    or "spill" in line:
-                log(f"[build] ptxas: {line.strip()}")
+        report = f.read()
+    for line in report.splitlines():
+        if "entry function" in line or "registers" in line \
+                or "spill" in line or "setmaxnreg" in line:
+            log(f"[build] ptxas: {line.strip()}")
+    passes = bwd_ptxas(report)
+    log("[build] backward passes (ptxas -v): " + "; ".join(
+        f"{name} D={D}{' bias' if bias else ''} {regs} registers, "
+        f"{stores}/{loads} bytes spill stores/loads"
+        for (name, D, bias), (regs, stores, loads) in sorted(passes.items())))
+
+
+def bwd_ptxas(report: str) -> dict:
+    """``{(pass, D, bias): (registers, spill store bytes, spill load
+    bytes)}`` of the backward's dK/dV and dQ kernels, from the ``-Xptxas
+    -v`` report ``ops/_cuda.build()`` keeps beside the library.  The
+    registers are the launch's (the consumers raise theirs with
+    ``setmaxnreg``)."""
+    import re
+    entry = re.compile(r"Compiling entry function '\S*attention_bwd_"
+                       r"(dkdv|dq)_kernelILi(\d+)ELb([01])E")
+    spill = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+    used = re.compile(r"Used (\d+) registers")
+    out, key, spills = {}, None, (0, 0)
+    for line in report.splitlines():
+        m = entry.search(line)
+        if m:
+            key = (m.group(1), int(m.group(2)), m.group(3) == "1")
+            spills = (0, 0)
+            continue
+        if key is None:
+            continue
+        m = spill.search(line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = used.search(line)
+        if m:
+            out[key] = (int(m.group(1)), *spills)
+            key = None
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -713,6 +753,12 @@ def _device_kernels(fn, what: str = "device kernels") -> dict:
     return us
 
 
+def _short_kernel(name: str) -> str:
+    """A device kernel's name without its namespaces and arguments."""
+    return (name.replace("(anonymous namespace)::", "").split("(")[0]
+            .removeprefix("void ").replace("tc::", ""))
+
+
 def _check_tensor_core_body(name: str, fn) -> None:
     """A bf16 call of ``fn`` must run the tensor-core body
     (``attention_mma_kernel``) and no FMA-template ``attention_kernel``;
@@ -724,9 +770,7 @@ def _check_tensor_core_body(name: str, fn) -> None:
         raise AssertionError(f"{name}: bf16 device kernels {list(names)}, "
                              f"expected the tensor-core body and no FMA "
                              f"template")
-    short = [n.replace("(anonymous namespace)::", "").split("(")[0]
-             .removeprefix("void ") + f" {us:.1f} us"
-             for n, us in names.items()]
+    short = [f"{_short_kernel(n)} {us:.1f} us" for n, us in names.items()]
     log(f"[kernel] {name} bf16 device kernels: {short}")
 
 
@@ -1262,15 +1306,18 @@ def _bwd_bytes(ns, out, stats) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def _sdpa_bwd_ms(label: str, ns) -> float:
+def _sdpa_bwd_ms(label: str, ns, bias=None) -> float:
     """The backward of one ``scaled_dot_product_attention`` call on the
-    same BLHD inputs (no bias), timed: the library yardstick beside K3's
-    backward.  The port never calls it."""
+    same BLHD inputs, timed: the library yardstick beside K3's backward.
+    A bias goes to SDPA as its additive ``attn_mask`` in bf16 (the inputs'
+    dtype; -1e30 stays -1e30 to bf16's precision).  The port never calls
+    it."""
     import torch
     import torch.nn.functional as F
     q, k, v = (x.transpose(1, 2).detach().requires_grad_(True)
                for x in ns.xs)
-    out = F.scaled_dot_product_attention(q, k, v,
+    mask = None if bias is None else bias.to(q.dtype)
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                          enable_gqa=k.shape[1] < q.shape[1])
     g = ns.dout.transpose(1, 2)
 
@@ -1280,8 +1327,17 @@ def _sdpa_bwd_ms(label: str, ns) -> float:
     ms = time_ms(call)
     names = sorted(_device_kernels(call, f"{label} SDPA backward"))
     log(f"[kernel-bwd] {label} yardstick: scaled_dot_product_attention's "
-        f"backward {ms:.3f} ms, device kernels {[n[:80] for n in names]}")
+        f"backward{' with the bias as a bf16 attn_mask' if mask is not None else ''}"
+        f" {ms:.3f} ms, device kernels {[n[:80] for n in names]}")
     return ms
+
+
+def _bias_route(bias) -> str:
+    """The route by which the backward stages a bias tile: TMA where the
+    row stride (Lk * 4 bytes) and the start are 16-byte multiples, the
+    producer's cp.async copies elsewhere (attention_mma_bwd.cuh)."""
+    return ("TMA" if bias.shape[-1] % 4 == 0 and bias.data_ptr() % 16 == 0
+            else "cp.async")
 
 
 def _bwd_case(name: str, entry: str, B, Lq, Lk, H, KV, D, gen, *, bias=None,
@@ -1332,7 +1388,7 @@ def _bwd_case(name: str, entry: str, B, Lq, Lk, H, KV, D, gen, *, bias=None,
            "rel_l2": max(r[0] for r in reads),
            "max_rms": max(r[1] for r in reads)}
     desc = (f"{_desc(B, Lq, Lk, H, KV, D, torch.bfloat16)}"
-            f"{' bias' if bias is not None else ''}"
+            f"{f' bias ({_bias_route(bias)} route)' if bias is not None else ''}"
             f"{' per-row tables' if sin is not None and sin.ndim == 3 else ''}")
     times = ""
     if timed:
@@ -1345,13 +1401,19 @@ def _bwd_case(name: str, entry: str, B, Lq, Lk, H, KV, D, gen, *, bias=None,
         rec["bound_ms"], rec["bound_by"] = _bound(
             10 * B * H * Lq * Lk * D, _bwd_bytes(ns, out, stats),
             torch.bfloat16)
+        parts = _device_kernels(lambda: ns.kernel(out, stats),
+                                f"{entry} bwd {name}")
         times = (f" kernel {rec['ms']:.3f} ms, plain backward "
                  f"{rec['plain_ms']:.3f} ms, plain chain's autograd "
                  f"(forward + backward) {rec['chain_ms']:.3f} ms, bound "
                  f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
-                 f"{100 * rec['bound_ms'] / rec['ms']:.1f} % of bound")
+                 f"{100 * rec['bound_ms'] / rec['ms']:.1f} % of bound; "
+                 f"device us by kernel (profiler on): " + ", ".join(
+                     f"{_short_kernel(n)} {us:.1f}"
+                     for n, us in sorted(parts.items())))
     if library:
-        rec["library_ms"] = _sdpa_bwd_ms(f"{entry} bwd {name}", ns)
+        rec["library_ms"] = _sdpa_bwd_ms(f"{entry} bwd {name}", ns,
+                                         bias=bias)
     log(f"[kernel-bwd] {entry} bwd {name}: {desc} max|err| dq/dk/dv "
         f"{[f'{e:.3e}' for e in errs]}, {readings}, two launches "
         f"bitwise equal{times}")
@@ -1364,11 +1426,17 @@ def phase_kernel_bwd() -> dict:
     version; K1, K2 and K3 at the tensor-core body's edges (D=64, ragged
     Lq/Lk, GQA, per-row tables with fully masked rows, an odd Lk with a
     bias, K2 split forwards whose statistics come from the combine), each
-    twice bit for bit; timed with their bounds at the training shapes: K1
-    at the A step's (B=1, L=5120, H=32) and the M trainer's (B=1, L=2565,
-    its key-padding bias), K2 at the training ring's (B=1, Lq=606, Lk=2424,
-    H=KV=16, sigma-gathered tables), K3 at B=1 L=2424 and 5120 beside
-    SDPA's backward.  Returns each backward's record."""
+    twice bit for bit; the redesign's edges: the bias staged by TMA (Lk %
+    4 == 0) and by the producer's cp.async (odd Lk, Lk % 4 == 2), one q
+    tile (Lq <= 64, fewer tiles than the ring's stages), G = 4 (the dK/dV
+    loop crosses heads), B = 2 with Lq and Lk off the 64-row tiles (the
+    tensor maps' zero fill at a batch boundary); timed with their bounds at
+    the training shapes: K1 at the A step's (B=1, L=5120, H=32) and the M
+    trainer's (B=1, L=2565, its key-padding bias), K2 at the training
+    ring's (B=1, Lq=606, Lk=2424, H=KV=16, sigma-gathered tables), K3 at
+    B=1 L=2424 and 5120 and at the M trainer's shape with its bias, each
+    beside SDPA's backward (the bias as a bf16 mask).  Returns each
+    backward's record."""
     import torch
     from mmada_parallel_torch.ops import attention_bwd as TB
     from mmada_parallel_torch.parallel.tp_overlap import sigma_positions
@@ -1407,8 +1475,11 @@ def phase_kernel_bwd() -> dict:
     s_t, c_t = _rope_tables(Lc, D, dev)
     m = case("M-trainer", "K1", 1, Lc, Lc, H, H, D, gen,
              bias=_mask_bias(m_mask), sin=s_t, cos=c_t, timed=True)
+    s_t, c_t = _rope_tables(196, 64, dev)
+    e3 = case("D64 G=4 B=2 off-tile bias", "K1", 2, 196, 196, 8, 2, 64, gen,
+              bias=_pad_bias([196, 150], 196, 196, dev), sin=s_t, cos=c_t)
     recs["flash_attention_rope_bwd"] = dict(
-        a, max_abs_err=max(a["max_abs_err"], m["max_abs_err"]))
+        a, max_abs_err=max(x["max_abs_err"] for x in (a, m, e3)))
     # K2: per-row q tables with a bias at an odd Lk; split forwards (their
     # statistics from the combine); the training ring's chunk
     s_t, c_t = _rope_tables(301, 64, dev)
@@ -1443,12 +1514,27 @@ def phase_kernel_bwd() -> dict:
     x1 = case("D64 odd-Lk bias masked-row", "K3", 2, 190, 301, 4, 2, 64,
               gen, bias=b5.contiguous())
     x2 = case("ragged GQA 32/8", "K3", 1, 333, 517, H, 8, D, gen)
+    x3 = case("B=2 off-tile bias Lk%4=0", "K3", 2, 190, 300, 4, 2, D, gen,
+              bias=_pad_bias([300, 150], 190, 300, dev))
+    x4 = case("one q tile bias", "K3", 1, 40, 256, 4, 4, 64, gen,
+              bias=_pad_bias([200], 40, 256, dev))
+    x5 = case("G=4 B=2 off-tile bias odd-Lk", "K3", 2, 130, 203, 8, 2, D,
+              gen, bias=_pad_bias([203, 120], 130, 203, dev))
+    x6 = case("B=2 bias Lk%4=2", "K3", 2, 70, 130, 4, 4, D, gen,
+              bias=_pad_bias([130, 60], 70, 130, dev))
     e = case("edit", "K3", 1, EDIT_L, EDIT_L, H, H, D, gen, timed=True,
              library=True)
     t = case("A-train", "K3", 1, TRAIN_L, TRAIN_L, H, H, D, gen,
              timed=True, library=True)
+    k3m = case("M-trainer", "K3", 1, Lc, Lc, H, H, D, gen,
+               bias=_mask_bias(m_mask), timed=True, library=True)
+    # the same padding at Lk % 4 == 0: the bias by TMA, for the route's cost
+    k3t = case("M-trainer-like Lk%4=0", "K3", 1, Lc + 3, Lc + 3, H, H, D,
+               gen, bias=_mask_bias(torch.cat([m_mask, m_mask[:, :3] & False], 1)),
+               timed=True)
     recs["flash_attention_bwd"] = dict(
-        e, max_abs_err=max(x["max_abs_err"] for x in (x1, x2, e, t)))
+        e, max_abs_err=max(x["max_abs_err"] for x in (x1, x2, x3, x4, x5,
+                                                      x6, e, t, k3m, k3t)))
     log(f"[kernel-bwd] K1 A-train {a['ms']:.3f} ms (bound "
         f"{a['bound_ms']:.4f} ms, plain chain {a['chain_ms']:.3f} ms), "
         f"M-trainer {m['ms']:.3f} ms (bound {m['bound_ms']:.4f}, plain chain"
@@ -1456,7 +1542,10 @@ def phase_kernel_bwd() -> dict:
         f"{r['bound_ms']:.4f}, plain chain {r['chain_ms']:.3f}); K3 L="
         f"{EDIT_L} {e['ms']:.3f} ms (SDPA backward {e['library_ms']:.3f}), "
         f"L={TRAIN_L} {t['ms']:.3f} ms (SDPA backward "
-        f"{t['library_ms']:.3f})); largest readings over the {len(cases)} "
+        f"{t['library_ms']:.3f}), M-trainer with its bias {k3m['ms']:.3f} ms"
+        f" (bound {k3m['bound_ms']:.4f}, SDPA backward with the bf16 mask "
+        f"{k3m['library_ms']:.3f}), its TMA-route twin at L={Lc + 3} "
+        f"{k3t['ms']:.3f} ms); largest readings over the {len(cases)} "
         f"cases: relative L2 {max(c['rel_l2'] for c in cases):.3e} (limit "
         f"{BWD_REL_L2}), max|err|/rms {max(c['max_rms'] for c in cases):.3f}"
         f" (limit {BWD_MAX_RMS})")
@@ -6337,6 +6426,7 @@ def main() -> int:
     mark("phase 6 (demos)")
     phase_export()
     mark("phase 7 (export)")
+    log(f"[time] the whole script: {time.time() - t0:.1f} s (limit 1200 s)")
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
     kernels = [{"name": name, "route": "cuda", "source": src,

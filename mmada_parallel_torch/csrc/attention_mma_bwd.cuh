@@ -23,49 +23,169 @@
 // ring training gates compare ranks with the solo step and rely on that).
 //
 // * dK/dV pass (attention_bwd_dkdv_kernel): one block per (kv head, 128-key
-//   tile, batch row), two warpgroups of 64 keys.  K and V stay in shared
-//   memory as the A operands of S^T = K.Q^T and dP^T = V.dout^T; the block
-//   loops over the group's query heads and their 64-row q tiles, which
-//   stream through a 2-stage cp.async ring (Q and dout, with the rows' (m,
-//   log2 l) and delta).  P^T and dS^T are formed in the accumulators and
-//   repacked as bf16 A fragments for dV += P^T.dout and dK += dS^T.Q, which
-//   read Q and dout from the same tiles as MN-major operands.
+//   tile, batch row).  K and V stay in shared memory as the A operands of
+//   S^T = K.Q^T and dP^T = V.dout^T, 64 keys per consumer warpgroup; the
+//   block loops over the group's query heads and their 64-row q tiles (head
+//   outside), which stream through a ring of stages: Q and dout, the rows'
+//   (m, log2 l) and delta and, with a bias, its [64 q x 128 key] f32 tile.
+//   P^T and dS^T are formed in the accumulators and repacked as bf16 A
+//   fragments for dV += P^T.dout and dK += dS^T.Q, which read dout and Q
+//   from the same stage as MN-major operands.
 // * dQ pass (attention_bwd_dq_kernel): one block per (head, 128-row q tile,
-//   batch row), two warpgroups of 64 rows, Q and dout in shared memory as
-//   A operands; the key tiles stream through the ring: S = Q.K^T,
-//   dP = dout.V^T, dS, then dQ += dS.K (K as an MN-major operand).
+//   batch row), Q and dout in shared memory as A operands, 64 rows per
+//   consumer warpgroup; the key tiles stream through the ring (K, V and,
+//   with a bias, its [128 q x 64 key] tile): S = Q.K^T, dP = dout.V^T, dS,
+//   then dQ += dS.K (K as an MN-major operand).
 //
 // Every product is a wgmma with f32 accumulators; P and dS are rounded to
-// bf16 as the A operand of their products (as the forward rounds P).  Tiles
-// sit in shared memory in the forward's 128-byte swizzled layout (kv_off),
-// so the same descriptors read a tile as a K-major or an MN-major operand.
+// bf16 as the A operand of their products (as the forward rounds P).  The
+// bf16 tiles sit in shared memory in the forward's 128-byte swizzled layout
+// (kv_off), so the same descriptors read a tile as a K-major or an MN-major
+// operand.
 //
 // Conventions kept from the forward: the score x is recomputed with the
-// forward's rounding (with a bias, scale and bias added and then the base
-// change); key columns >= Lk are -inf in the dQ pass, K/V rows past Lk are
+// forward's rounding (with a bias, ((s * scale) + bias) * log2 e, each step
+// rounded); key columns >= Lk are -inf in the dQ pass, K/V rows past Lk are
 // zero-filled and never written in the dK/dV pass, q rows past Lq are
-// zero-filled, their P forced to 0 there and never written in the dQ pass;
-// the bias is read as float2 where the forward reads it so (the dQ pass,
-// even Lk) and as scalars elsewhere.  A row masked everywhere (bias -1e30)
-// has x == m on every real key, so P = 2^-log2(Lk) = 1/Lk: the plain chain's
-// uniform softmax and its gradients.
+// zero-filled, their P forced to 0 there and never written in the dQ pass.
+// A row masked everywhere (bias -1e30) has x == m on every real key, so P =
+// 2^-log2(Lk) = 1/Lk: the plain chain's uniform softmax and its gradients.
 //
 // What bounds it: the least work is five products of 2*B*H*Lq*Lk*D FLOPs
 // (S, dP, dV, dK, dQ) against reading q, k, v, out, dout once and writing
 // dq, dk, dv: at the A train step's shape (B=1, L=5120, H=32, D=128) 1.07
-// TFLOP, at the tensor cores' 989 TFLOP/s 1.085 ms.  The two passes each
-// recompute S and dP (seven products in all), and this first version waits
-// for each product before the next, without TMA or ping-pong warpgroups
-// (ROADMAP).
+// TFLOP, at the tensor cores' 989 TFLOP/s 1.086 ms.  The two passes each
+// recompute S and dP, seven products in all, so the kernel can reach at
+// most 5/7 of that bound at the tensor cores' peak.
+//
+// The design, a warp-specialised Hopper kernel (FlashAttention-3's shape)
+// in both passes:
+//
+// * 384 threads: two consumer warpgroups (warps 0-7) run the wgmmas and the
+//   softmax; the producer warpgroup (warps 8-11) keeps the ring full.
+//   setmaxnreg gives the consumers 232 registers a thread and the
+//   producer 40.  A consumer's gain comes only from what the producer gives
+//   back of the launch's 168 a thread: 128 x (168 - 40) = 256 x (232 -
+//   168).  A producer at 32 with consumers at 240 leaves the consumers'
+//   setmaxnreg.inc waiting forever (seen on the card); at 24 / 240 ptxas
+//   spilled 4-48 bytes in the producer; at 40 / 232 nothing spills.
+//   The D=128 dK/dV consumer holds dK and dV (128 f32), S^T and dP^T (64)
+//   and, while they are repacked, P^T and dS^T as bf16 (32); the statistics
+//   and the bias come from shared memory at 32-bit addresses.
+// * The ring is a full/empty pair of mbarriers a stage.  Thread 0 of the
+//   producer copies the bf16 tiles with TMA (cp.async.bulk.tensor, 3-D maps
+//   over [B, L, heads*D] with boxes of 64 columns x 64 rows and the 128-byte
+//   swizzle, which writes exactly the kv_off layout at a 1024-byte aligned
+//   address; rows past Lq or Lk are past the map's L and come back as zeros,
+//   never the next batch row's).  The producer's 128 threads copy the rows'
+//   statistics (8- and 4-byte cp.async, zero past Lq) and, on the cp.async
+//   route of the bias, the bias tile; their completion arrives on the same
+//   full barrier (cp.async.mbarrier.arrive.noinc: 128 arrivals + thread 0's
+//   expect_tx).  The consumers release a stage after their last product of
+//   it has completed (256 arrivals on the empty barrier).  No __syncthreads
+//   after the barriers are set up.  The resident tiles (K, V or Q, dout)
+//   come on a barrier of their own.
+// * Stages per (D, bias), the largest count <= 4 that fits 232,448 bytes
+//   (bwd_smem below: 1,024 bytes of alignment slack, 8 bytes a barrier):
+//     dK/dV: K and V resident, 512 D bytes; a stage holds Q and dout (256 D),
+//       the statistics (768) and, with a bias, 32,768 bytes of bias.
+//       D=128: 65,536 + 4 x 33,536 = 199,680 -> 4 stages; with a bias
+//       65,536 + 2 x 66,304 = 198,144 -> 2 (3 would need 264,448).
+//       D=64: 32,768 + 4 x 17,152 -> 4; with a bias 32,768 + 3 x 49,920 =
+//       182,528 -> 3 (4 would need 232,448 + 1,096).
+//     dQ: Q and dout resident, 512 D bytes; a stage holds K and V (256 D)
+//       and, with a bias, 32,768.  D=128: 4 stages, with a bias 2; D=64: 4,
+//       with a bias 4 (32,768 + 4 x 49,152 = 229,376).
+// * The bias tile is staged in shared memory by the producer as boxes of 32
+//   keys (128 bytes) x the tile's rows, in TMA's 128-byte swizzle (16-byte
+//   chunk c of row r at c ^ (r & 7); bias_off).  With Lk % 4 == 0 (the row
+//   stride a multiple of 16 bytes) and a 16-byte aligned bias, TMA copies it
+//   from a 3-D map over [B, Lq, Lk]; otherwise (the M trainer's Lk = 2565)
+//   the producer's threads copy it with 4-byte cp.async, 32 consecutive keys
+//   of a row a warp, into the same layout.  The swizzle makes both readers
+//   conflict-free: the dK/dV pass reads it transposed (a thread's 2 keys
+//   against 16 q rows; for one register the 8 lanes of a quad row read 8
+//   keys of one row and the 4 quads 4 rows of one parity, whose chunks
+//   the XOR spreads over all 32 banks), the dQ pass as float2 along keys.
+// * Ping-pong: the two consumer warpgroups take turns on two named barriers
+//   to issue their products (S and dP; then dV and dK, or dQ), so one
+//   warpgroup's exponentials and repacking run while the other's products
+//   run on the tensor cores.  FlashAttention-3's other overlap, issuing
+//   tile i+1's S and dP before tile i's exponentials, would hold a second
+//   S/dP pair: 128 + 64 + 64 f32 in the D=128 dK/dV pass, more than the
+//   232 registers a consumer has.  Within a warpgroup each group of products
+//   is waited for before the next.
+//
+// What bounds it now (measured on an H100 by chip_smoke.py's
+// phase_kernel_bwd): each pass runs its products at about 590 TFLOP/s, 60 %
+// of the tensor cores' peak, which puts the seven products at about 40 % of
+// the five-product bound.  A bias adds the staged tile's shared-memory
+// traffic beside the products' operands: about +45 % by TMA, about twice
+// that on the cp.async route, whose 4-byte copies are many instructions.
+// Tried on the card and not kept: a separate 3-stage bias ring a tile ahead
+// of the main ring (no gain); Q and dout held as register A fragments in
+// the dQ pass (slower without a bias); and TMA for an odd Lk, by a map
+// that sees the bias as one long row with a box a tile row, whose starts
+// are 4-byte aligned: the card raised an illegal instruction (a TMA box
+// must start on a 16-byte boundary, so the cp.async route stays).
+//
+// What the redesign changed (the first version waited for every product
+// before the next step, issued 16-byte cp.async copies from all 256 threads
+// into a 2-deep ring with a __syncthreads a tile, read the dK/dV pass's bias
+// transposed from global memory one scalar at a time (and the dQ pass's as
+// scalars at an odd Lk), and spilled 28-64 bytes at D=128): products now
+// overlap with the other warpgroup's softmax; the copies are TMA and one
+// producer warpgroup's cp.async into a 2-4 deep mbarrier ring; the bias is
+// staged in shared memory; the consumers have 232 registers and no global
+// address arithmetic.
 
 #pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; the driver library is not
+                   // linked: cuTensorMapEncodeTiled comes through the
+                   // runtime's cudaGetDriverEntryPoint
 
 #include "attention_mma.cuh"
 
 namespace {
 namespace tc {
 
-constexpr int kBwdStages = 2;  // ring depth of the streamed tiles
+constexpr int kBwdThreads = 3 * 128;  // 2 consumer warpgroups + the producer
+constexpr int kConsumerRegs = 232;
+constexpr int kProducerRegs = 40;
+constexpr int kSmemMax = 232448;      // dynamic shared memory a block may use
+constexpr int kMaxStages = 4;
+constexpr int kBiasTileBytes = 64 * 128 * 4;  // [64 q][128 keys] or [128][64]
+constexpr int kStatsBytes = 64 * 12;          // 64 rows' (m, log2 l), delta
+
+// Dynamic shared memory of one pass at `stages`: the resident tiles (K and
+// V, or Q and dout: 2 x 128 rows x D bf16), a stage's streamed tiles (Q and
+// dout, or K and V: 2 x 64 rows x D), its bias tile and (dK/dV) its rows'
+// statistics, the barriers, and 1024 bytes to align to the swizzle atom.
+template <int D, bool kBias, bool kDkdv>
+__host__ __device__ constexpr int bwd_smem(int stages) {
+  return 1024 + 4 * kKeys * D * 2 +
+         stages * (2 * kKeys * D * 2 + (kBias ? kBiasTileBytes : 0) +
+                   (kDkdv ? kStatsBytes : 0)) +
+         (2 * stages + 1) * 8;
+}
+
+template <int D, bool kBias, bool kDkdv>
+__host__ __device__ constexpr int bwd_stages() {
+  int s = kMaxStages;
+  while (s > 2 && bwd_smem<D, kBias, kDkdv>(s) > kSmemMax) --s;
+  return s;
+}
+
+static_assert(bwd_smem<128, true, true>(bwd_stages<128, true, true>()) <=
+                  kSmemMax &&
+              bwd_smem<128, true, false>(bwd_stages<128, true, false>()) <=
+                  kSmemMax &&
+              bwd_smem<64, true, true>(bwd_stages<64, true, true>()) <=
+                  kSmemMax &&
+              bwd_smem<64, true, false>(bwd_stages<64, true, false>()) <=
+                  kSmemMax,
+              "a backward pass's ring does not fit in shared memory");
 
 #define TC_F8(i)                                                      \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),         \
@@ -98,25 +218,133 @@ __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kk) {
   return desc_sw128(tile + kk * 2048, kBlockBytes, 1024);
 }
 
-__device__ __forceinline__ bf16* align_1024(unsigned char* p) {
-  return reinterpret_cast<bf16*>((reinterpret_cast<uintptr_t>(p) + 1023) &
-                                 ~uintptr_t(1023));
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
-// Copy D columns of rows [r0, r0 + 64 * n_tiles) of a [rows, stride] bf16
-// tensor (src: row 0, first column) into n_tiles [64][D] swizzled tiles,
-// zero-filling rows >= limit.  Issued by all kThreads threads, not
-// committed.
-template <int D>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          long long stride, int r0,
-                                          int n_tiles, int limit) {
-  constexpr int kChunks = D / 8;
-  for (int i = threadIdx.x; i < n_tiles * kKeys * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i % kChunks;
-    const bool ok = r0 + r < limit;
-    cp_async16(smem_u32(dst + (r >> 6) * kKeys * D + kv_off(r & 63, c)),
-               ok ? src + (r0 + r) * stride + c * 8 : src, ok);
+// ---- mbarriers, TMA, named barriers, register reallocation ----
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+          bar)
+      : "memory");
+}
+
+// this thread's arrival, and `bytes` more to come from TMA in this phase
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .b64 st;\n"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
+          bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// an arrival on `bar` once this thread's earlier cp.async copies have
+// landed (counted in the barrier's expected arrivals)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// N-byte (4 or 8) global -> shared copy, zero-filled when !valid
+template <int N>
+__device__ __forceinline__ void cp_async_n(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+               "l"(src), "n"(N), "r"(valid ? N : 0)
+               : "memory");
+}
+
+// one box of a 3-D tensor map at coordinates (c0 innermost, c1, c2) into
+// shared memory at dst, completing its bytes on bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// the consumer warpgroups' turn-taking (ids 1 and 2; 0 is __syncthreads)
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Byte offset of f32 element (row r, key c) of a staged bias tile: boxes of
+// kBoxRows rows x 32 keys (128-byte rows), 16-byte chunk c/4 of row r at
+// chunk (c/4) ^ (r & 7), as TMA's 128-byte swizzle writes a box.
+template <int kBoxRows>
+__device__ __forceinline__ uint32_t bias_off(int r, int c) {
+  return (c >> 5) * (kBoxRows * 128) + r * 128 +
+         ((((c & 31) >> 2) ^ (r & 7)) << 4) + ((c & 3) << 2);
+}
+
+// The cp.async route of the bias: rows [q0, q0 + kR) x keys [k0, k0 + kC)
+// of one batch row's [Lq, Lk] bias (src) into the staged layout at dst,
+// zero past Lq and Lk; 4-byte copies by the producer's 128 threads.  Thread
+// pt copies key pt % kC of every (128 / kC)-th row, so a warp reads 32
+// consecutive keys of a row.
+template <int kR, int kC>
+__device__ __forceinline__ void copy_bias(uint32_t dst, const float* src,
+                                          int Lq, int Lk, int q0, int k0,
+                                          int pt) {
+  constexpr int kStep = 128 / kC;
+  const int c = pt % kC;
+  const int rows = k0 + c < Lk ? Lq - q0 : 0;  // rows to copy, none past Lk
+  const float* tile = src + (long long)q0 * Lk + k0 + c;
+#pragma unroll 4
+  for (int r = pt / kC; r < kR; r += kStep) {
+    const bool ok = r < rows;
+    cp_async_n<4>(dst + bias_off<kR>(r, c), ok ? tile + r * Lk : src, ok);
   }
 }
 
@@ -155,164 +383,238 @@ bwd_delta_kernel(const bf16* __restrict__ out, const bf16* __restrict__ dout,
 // + 8 * (e >> 1) (a key of this warpgroup's 64) and column 8 * j + 2 * tig +
 // (e & 1) (a q row of the tile, or a dim of dK/dV).
 template <int D, bool kBias>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dkdv_kernel(const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v,
-                          const float* __restrict__ bias,
-                          const bf16* __restrict__ dout,
+__global__ void __launch_bounds__(kBwdThreads, 1)
+attention_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_bias,
+                          const float* __restrict__ bias, int bias_tma,
                           const float2* __restrict__ lse,
                           const float* __restrict__ delta,
                           bf16* __restrict__ dk, bf16* __restrict__ dv,
                           int Lq, int Lk, int H, int KV, float scale) {
   static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  constexpr int kS = bwd_stages<D, kBias, true>();
   constexpr int kTile = kKeys * D;  // elements of one [64][D] tile
+  constexpr uint32_t kTileBytes = kTile * 2;
   constexpr int kN = kKeys / 8;     // n8 blocks of S^T: 64 q columns
   constexpr int kDn = D / 8;
 
+  // byte offsets in shared memory: K and V [2][64][D] each, the ring
+  // [kS][Q, dout][64][D], the bias tiles [kS][4 boxes][64][32] f32, the
+  // rows' (m, log2 l) [kS][64] and delta [kS][64], the barriers (full[kS],
+  // empty[kS], the resident tiles')
+  constexpr uint32_t kRing = 4 * kTileBytes, kStage = 2 * kTileBytes;
+  constexpr uint32_t kBiasAt = kRing + kS * kStage;
+  constexpr uint32_t kStAt = kBiasAt + (kBias ? kS * kBiasTileBytes : 0);
+  constexpr uint32_t kDlAt = kStAt + kS * kKeys * 8;
+  constexpr uint32_t kBarAt = kDlAt + kS * kKeys * 4;
   extern __shared__ unsigned char tc_smem[];
-  bf16* Ks = align_1024(tc_smem);               // [2][64][D]
-  bf16* Vs = Ks + 2 * kTile;                    // [2][64][D]
-  bf16* ring = Vs + 2 * kTile;                  // [stages][Q, dout][64][D]
-  float2* st = reinterpret_cast<float2*>(ring + kBwdStages * 2 * kTile);
-  float* dl = reinterpret_cast<float*>(st + kBwdStages * kKeys);
+  unsigned char* base = align_1024(tc_smem);
+  const uint32_t sb = smem_u32(base);
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int wg = warp >> 2;
+  const int warp = tid >> 5, wg = warp >> 2;
   const int g = blockIdx.x, b = blockIdx.z;
   const int k0 = blockIdx.y * kRows;
   const int G = H / KV;
-  const long long q_row = (long long)H * D, kv_row = (long long)KV * D;
-  const bf16* kb = k + (long long)b * Lk * kv_row + (long long)g * D;
-  const bf16* vb = v + (long long)b * Lk * kv_row + (long long)g * D;
-
-  load_rows<D>(Ks, kb, kv_row, k0, 2, Lk);
-  load_rows<D>(Vs, vb, kv_row, k0, 2, Lk);
-  cp_async_commit();
-
   const int n_qt = (Lq + kKeys - 1) / kKeys;
   const int n_it = G * n_qt;  // (query head of the group, q tile) pairs
-  auto load_q = [&](int it, int stage) {
-    const int hq = g * G + it / n_qt, q0 = (it % n_qt) * kKeys;
-    const long long off = (long long)b * Lq * q_row + (long long)hq * D;
-    bf16* Qs = ring + stage * 2 * kTile;
-    load_rows<D>(Qs, q + off, q_row, q0, 1, Lq);
-    load_rows<D>(Qs + kTile, dout + off, q_row, q0, 1, Lq);
-    if (tid < kKeys) {  // the rows' statistics; 0 past Lq (masked there)
-      const int row = q0 + tid;
-      const long long i = ((long long)b * H + hq) * Lq + row;
-      st[stage * kKeys + tid] =
-          row < Lq ? lse[i] : make_float2(0.f, 0.f);
-      dl[stage * kKeys + tid] = row < Lq ? delta[i] : 0.f;
+  const uint32_t full0 = sb + kBarAt, empty0 = full0 + 8 * kS;
+  const uint32_t kv_bar = full0 + 16 * kS;
+
+  if (tid == 0) {
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(full0 + 8 * s, 129);
+      mbar_init(empty0 + 8 * s, 256);
     }
-  };
-  load_q(0, 0);
-  cp_async_commit();
-
-  // this thread's two keys
-  const int key_lo = k0 + warp * 16 + gid, key_hi = key_lo + 8;
-  const uint32_t ka = smem_u32(Ks + wg * kTile);
-  const uint32_t va = smem_u32(Vs + wg * kTile);
-  const float scale_log2 = scale * kLog2e;
-
-  float dka[kDn * 4], dva[kDn * 4];
-#pragma unroll
-  for (int i = 0; i < kDn * 4; ++i) dka[i] = dva[i] = 0.f;
-
-  for (int it = 0; it < n_it; ++it) {
-    const int stage = it % kBwdStages;
-    const int q0 = (it % n_qt) * kKeys;
-    // tile it has landed (and K/V with the first); after the barrier every
-    // warp is done with tile it-1, whose stage takes tile it+1
-    cp_async_wait<0>();
-    fence_async_smem();
-    __syncthreads();
-    if (it + 1 < n_it) load_q(it + 1, (it + 1) % kBwdStages);
-    cp_async_commit();
-
-    const uint32_t qs = smem_u32(ring + stage * 2 * kTile);
-    const uint32_t ds = qs + kTile * (uint32_t)sizeof(bf16);
-    float s[kN * 4], dp[kN * 4];
-#pragma unroll
-    for (int i = 0; i < kN * 4; ++i) s[i] = dp[i] = 0.f;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64(s, desc_kmajor(ka, kk), desc_kmajor(qs, kk));
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64(dp, desc_kmajor(va, kk), desc_kmajor(ds, kk));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-    fence_regs(dp);
-
-    // P^T and dS^T in place; q columns past Lq get P = 0
-    const bool edge = q0 + kKeys > Lq;
-    const float* bias_b = kBias ? bias + (long long)b * Lq * Lk : nullptr;
-#pragma unroll
-    for (int i = 0; i < kN * 4; ++i) {
-      const int col = (i >> 2) * 8 + 2 * tig + (i & 1);
-      const int key = (i >> 1) & 1 ? key_hi : key_lo;
-      float x;
-      if constexpr (kBias) {
-        const float bz = (q0 + col < Lq && key < Lk)
-                             ? bias_b[(long long)(q0 + col) * Lk + key]
-                             : 0.f;
-        x = __fmul_rn(__fadd_rn(__fmul_rn(s[i], scale), bz), kLog2e);
-      } else {
-        x = __fmul_rn(s[i], scale_log2);
-      }
-      const float2 ml = st[stage * kKeys + col];
-      float p = ex2((x - ml.x) - ml.y);
-      if (edge && q0 + col >= Lq) p = 0.f;
-      s[i] = p;
-      dp[i] = p * (dp[i] - dl[stage * kKeys + col]);
-    }
-    // the A fragments of dV += P^T . dout and dK += dS^T . Q: k step kk
-    // covers q rows 16kk..16kk+15, the n8 blocks 2kk and 2kk+1
-    uint32_t pf[kN / 2][4], sf[kN / 2][4];
-#pragma unroll
-    for (int kk = 0; kk < kN / 2; ++kk) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        pf[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
-        sf[kk][e] = pack_bf16(dp[8 * kk + 2 * e], dp[8 * kk + 2 * e + 1]);
-      }
-    }
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kN / 2; ++kk)
-      wgmma_pv<D>(dva, pf[kk], desc_mnmajor(ds, kk));
-#pragma unroll
-    for (int kk = 0; kk < kN / 2; ++kk)
-      wgmma_pv<D>(dka, sf[kk], desc_mnmajor(qs, kk));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(dva);
-    fence_regs(dka);
+    mbar_init(kv_bar, 1);
+    mbar_fence_init();
   }
-  cp_async_wait<0>();
+  __syncthreads();
 
-  bf16* dkb = dk + (long long)b * Lk * kv_row + (long long)g * D;
-  bf16* dvb = dv + (long long)b * Lk * kv_row + (long long)g * D;
-#pragma unroll
-  for (int n = 0; n < kDn; ++n) {
-    const int col = n * 8 + 2 * tig;
-    if (key_lo < Lk) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + key_lo * kv_row + col) =
-          __floats2bfloat162_rn(dka[4 * n] * scale, dka[4 * n + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + key_lo * kv_row + col) =
-          __floats2bfloat162_rn(dva[4 * n], dva[4 * n + 1]);
+  if (wg == 2) {
+    // ---- producer: shared memory at constant offsets from one 32-bit
+    // base, the head and q tile stepped (few live registers) ----
+    setmaxnreg_dec<kProducerRegs>();
+    const int pt = tid - 256;
+    if (pt == 0) {
+      mbar_expect_tx(kv_bar, 4 * kTileBytes);
+      for (int t = 0; t < 2; ++t)
+        for (int cb = 0; cb < D / 64; ++cb) {
+          tma_load(sb + t * kTileBytes + cb * 8192, &tm_k, kv_bar,
+                   g * D + cb * 64, k0 + t * kKeys, b);
+          tma_load(sb + (2 + t) * kTileBytes + cb * 8192, &tm_v, kv_bar,
+                   g * D + cb * 64, k0 + t * kKeys, b);
+        }
     }
-    if (key_hi < Lk) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + key_hi * kv_row + col) =
-          __floats2bfloat162_rn(dka[4 * n + 2] * scale,
-                                dka[4 * n + 3] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + key_hi * kv_row + col) =
-          __floats2bfloat162_rn(dva[4 * n + 2], dva[4 * n + 3]);
+    int stage = 0, hq = g * G, q0 = 0;
+    uint32_t phase = 0;
+    for (int it = 0; it < n_it; ++it) {
+      const uint32_t full = full0 + 8 * stage;
+      mbar_wait(full + 8 * kS, phase ^ 1);  // the stage's empty barrier
+      if (pt == 0) {
+        mbar_expect_tx(full, 2 * kTileBytes +
+                                 (kBias && bias_tma ? kBiasTileBytes : 0));
+        const uint32_t qs = sb + kRing + stage * kStage;
+        for (int cb = 0; cb < D / 64; ++cb) {
+          tma_load(qs + cb * 8192, &tm_q, full, hq * D + cb * 64, q0, b);
+          tma_load(qs + kTileBytes + cb * 8192, &tm_do, full,
+                   hq * D + cb * 64, q0, b);
+        }
+        if (kBias && bias_tma)
+          for (int box = 0; box < 4; ++box)
+            tma_load(sb + kBiasAt + stage * kBiasTileBytes + box * 8192,
+                     &tm_bias, full, k0 + box * 32, q0, b);
+      }
+      if (pt < kKeys) {  // the rows' statistics; 0 past Lq (masked there)
+        const int row = q0 + pt;
+        const bool ok = row < Lq;
+        const long long i = ((long long)b * H + hq) * Lq + row;
+        cp_async_n<8>(sb + kStAt + (stage * kKeys + pt) * 8,
+                      ok ? lse + i : lse, ok);
+        cp_async_n<4>(sb + kDlAt + (stage * kKeys + pt) * 4,
+                      ok ? delta + i : delta, ok);
+      }
+      if (kBias && !bias_tma)
+        copy_bias<kKeys, kRows>(sb + kBiasAt + stage * kBiasTileBytes,
+                                bias + (long long)b * Lq * Lk, Lq, Lk, q0,
+                                k0, pt);
+      cp_async_mbar_arrive(full);
+      if (++stage == kS) {
+        stage = 0;
+        phase ^= 1;
+      }
+      if ((q0 += kKeys) >= Lq) {  // the next query head of the group
+        q0 = 0;
+        ++hq;
+      }
+    }
+    cp_async_wait_all();
+  } else {
+    // ---- consumers: warpgroup wg owns keys k0 + 64 wg .. + 63 ----
+    setmaxnreg_inc<kConsumerRegs>();
+    const int lane = tid & 31, w = warp & 3;
+    const int gid = lane >> 2, tig = lane & 3;
+    const int key_lo = k0 + wg * 64 + w * 16 + gid, key_hi = key_lo + 8;
+    const uint32_t ka = sb + wg * kTileBytes;
+    const uint32_t va = sb + (2 + wg) * kTileBytes;
+    const float scale_log2 = scale * kLog2e;
+    // bias_off<64>(8 j + 2 tig + e, key - k0) = boff[key is hi][e] + 1024 j
+    uint32_t boff[2][2];
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        boff[hi][e] = bias_off<kKeys>(2 * tig + e, wg * 64 + w * 16 + gid +
+                                                       8 * hi);
+
+    float dka[kDn * 4], dva[kDn * 4];
+#pragma unroll
+    for (int i = 0; i < kDn * 4; ++i) dka[i] = dva[i] = 0.f;
+
+    if (wg == 1) named_arrive(1);  // warpgroup 0 issues first
+    mbar_wait(kv_bar, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int it = 0; it < n_it; ++it) {
+      const int q0 = (it % n_qt) * kKeys;
+      mbar_wait(full0 + 8 * stage, phase);
+      const uint32_t qs = sb + kRing + stage * kStage;
+      const uint32_t ds = qs + kTileBytes;
+      float s[kN * 4], dp[kN * 4];
+#pragma unroll
+      for (int i = 0; i < kN * 4; ++i) s[i] = dp[i] = 0.f;
+      named_sync(1 + wg);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(s, desc_kmajor(ka, kk), desc_kmajor(qs, kk));
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(dp, desc_kmajor(va, kk), desc_kmajor(ds, kk));
+      wgmma_commit();
+      named_arrive(2 - wg);
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // P^T and dS^T, q columns past Lq with P = 0, repacked 16 q rows at
+      // a time as the A fragments of dV += P^T . dout and dK += dS^T . Q
+      // (k step kk covers q rows 16kk..16kk+15, the n8 blocks 2kk, 2kk+1)
+      const bool edge = q0 + kKeys > Lq;
+      const float2* st_s =
+          reinterpret_cast<const float2*>(base + kStAt) + stage * kKeys;
+      const float* dl_s =
+          reinterpret_cast<const float*>(base + kDlAt) + stage * kKeys;
+      const unsigned char* bz_s = base + kBiasAt + stage * kBiasTileBytes;
+      uint32_t pf[kN / 2][4], sf[kN / 2][4];
+#pragma unroll
+      for (int kk = 0; kk < kN / 2; ++kk) {
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int i = 8 * kk + u;
+          const int col = (i >> 2) * 8 + 2 * tig + (i & 1);
+          float x;
+          if constexpr (kBias) {
+            const float bz = *reinterpret_cast<const float*>(
+                bz_s + boff[(i >> 1) & 1][i & 1] + (i >> 2) * 1024);
+            x = __fmul_rn(__fadd_rn(__fmul_rn(s[i], scale), bz), kLog2e);
+          } else {
+            x = __fmul_rn(s[i], scale_log2);
+          }
+          const float2 ml = st_s[col];
+          float p = ex2((x - ml.x) - ml.y);
+          if (edge && q0 + col >= Lq) p = 0.f;
+          s[i] = p;
+          dp[i] = p * (dp[i] - dl_s[col]);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          pf[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+          sf[kk][e] = pack_bf16(dp[8 * kk + 2 * e], dp[8 * kk + 2 * e + 1]);
+        }
+      }
+      named_sync(1 + wg);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kN / 2; ++kk)
+        wgmma_pv<D>(dva, pf[kk], desc_mnmajor(ds, kk));
+#pragma unroll
+      for (int kk = 0; kk < kN / 2; ++kk)
+        wgmma_pv<D>(dka, sf[kk], desc_mnmajor(qs, kk));
+      wgmma_commit();
+      if (wg == 0 || it + 1 < n_it) named_arrive(2 - wg);
+      wgmma_wait<0>();
+      fence_regs(dva);
+      fence_regs(dka);
+      mbar_arrive(empty0 + 8 * stage);
+      if (++stage == kS) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    const long long kv_row = (long long)KV * D;
+    bf16* dkb = dk + (long long)b * Lk * kv_row + (long long)g * D;
+    bf16* dvb = dv + (long long)b * Lk * kv_row + (long long)g * D;
+#pragma unroll
+    for (int n = 0; n < kDn; ++n) {
+      const int col = n * 8 + 2 * tig;
+      if (key_lo < Lk) {
+        *reinterpret_cast<__nv_bfloat162*>(dkb + key_lo * kv_row + col) =
+            __floats2bfloat162_rn(dka[4 * n] * scale, dka[4 * n + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dvb + key_lo * kv_row + col) =
+            __floats2bfloat162_rn(dva[4 * n], dva[4 * n + 1]);
+      }
+      if (key_hi < Lk) {
+        *reinterpret_cast<__nv_bfloat162*>(dkb + key_hi * kv_row + col) =
+            __floats2bfloat162_rn(dka[4 * n + 2] * scale,
+                                  dka[4 * n + 3] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dvb + key_hi * kv_row + col) =
+            __floats2bfloat162_rn(dva[4 * n + 2], dva[4 * n + 3]);
+      }
     }
   }
 }
@@ -320,176 +622,219 @@ attention_bwd_dkdv_kernel(const bf16* __restrict__ q,
 // The dQ pass: accumulator rows are this warpgroup's q rows, columns keys
 // of the tile (S, dP) or dims (dQ).
 template <int D, bool kBias>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dq_kernel(const bf16* __restrict__ q,
-                        const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const float* __restrict__ bias,
-                        const bf16* __restrict__ dout,
+__global__ void __launch_bounds__(kBwdThreads, 1)
+attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __grid_constant__ CUtensorMap tm_bias,
+                        const float* __restrict__ bias, int bias_tma,
                         const float2* __restrict__ lse,
                         const float* __restrict__ delta,
                         bf16* __restrict__ dq, int Lq, int Lk, int H, int KV,
                         float scale) {
   static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  constexpr int kS = bwd_stages<D, kBias, false>();
   constexpr int kTile = kKeys * D;
+  constexpr uint32_t kTileBytes = kTile * 2;
   constexpr int kN = kKeys / 8;
   constexpr int kDn = D / 8;
 
+  // byte offsets in shared memory: Q and dout [2][64][D] each, the ring
+  // [kS][K, V][64][D], the bias tiles [kS][2 boxes][128][32] f32, the
+  // barriers (full[kS], empty[kS], the resident tiles')
+  constexpr uint32_t kRing = 4 * kTileBytes, kStage = 2 * kTileBytes;
+  constexpr uint32_t kBiasAt = kRing + kS * kStage;
+  constexpr uint32_t kBarAt = kBiasAt + (kBias ? kS * kBiasTileBytes : 0);
   extern __shared__ unsigned char tc_smem[];
-  bf16* Qs = align_1024(tc_smem);               // [2][64][D]
-  bf16* Ds = Qs + 2 * kTile;                    // dout, [2][64][D]
-  bf16* ring = Ds + 2 * kTile;                  // [stages][K, V][64][D]
+  unsigned char* base = align_1024(tc_smem);
+  const uint32_t sb = smem_u32(base);
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int wg = warp >> 2;
+  const int warp = tid >> 5, wg = warp >> 2;
   const int h = blockIdx.x, b = blockIdx.z;
   const int q0 = blockIdx.y * kRows;
   const int g = h / (H / KV);
-  const long long q_row = (long long)H * D, kv_row = (long long)KV * D;
-  const long long q_off = (long long)b * Lq * q_row + (long long)h * D;
-  const bf16* kb = k + (long long)b * Lk * kv_row + (long long)g * D;
-  const bf16* vb = v + (long long)b * Lk * kv_row + (long long)g * D;
-
-  load_rows<D>(Qs, q + q_off, q_row, q0, 2, Lq);
-  load_rows<D>(Ds, dout + q_off, q_row, q0, 2, Lq);
-  cp_async_commit();
-  auto load_kv = [&](int tile, int stage) {
-    bf16* Kt = ring + stage * 2 * kTile;
-    load_rows<D>(Kt, kb, kv_row, tile * kKeys, 1, Lk);
-    load_rows<D>(Kt + kTile, vb, kv_row, tile * kKeys, 1, Lk);
-  };
-  load_kv(0, 0);
-  cp_async_commit();
-
-  // this thread's two q rows and their statistics (0 past Lq: those rows
-  // are computed on zero q and dout and never written)
-  const int row_lo = q0 + warp * 16 + gid, row_hi = row_lo + 8;
-  float m[2], lg[2], dlt[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r ? row_hi : row_lo;
-    const long long i = ((long long)b * H + h) * Lq + row;
-    const float2 ml = row < Lq ? lse[i] : make_float2(0.f, 0.f);
-    m[r] = ml.x;
-    lg[r] = ml.y;
-    dlt[r] = row < Lq ? delta[i] : 0.f;
-  }
-  const float* bias_lo = nullptr;
-  const float* bias_hi = nullptr;
-  if constexpr (kBias) {
-    bias_lo = bias + ((long long)b * Lq + min(row_lo, Lq - 1)) * Lk;
-    bias_hi = bias + ((long long)b * Lq + min(row_hi, Lq - 1)) * Lk;
-  }
-  const bool bias_vec = (Lk & 1) == 0;
-  const float scale_log2 = scale * kLog2e;
-  const uint32_t qa = smem_u32(Qs + wg * kTile);
-  const uint32_t da = smem_u32(Ds + wg * kTile);
-
-  float dqa[kDn * 4];
-#pragma unroll
-  for (int i = 0; i < kDn * 4; ++i) dqa[i] = 0.f;
-
   const int n_tiles = (Lk + kKeys - 1) / kKeys;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int stage = j % kBwdStages;
-    const int k0 = j * kKeys;
-    cp_async_wait<0>();
-    fence_async_smem();
-    __syncthreads();
-    if (j + 1 < n_tiles) load_kv(j + 1, (j + 1) % kBwdStages);
-    cp_async_commit();
+  const uint32_t full0 = sb + kBarAt, empty0 = full0 + 8 * kS;
+  const uint32_t q_bar = full0 + 16 * kS;
 
-    const uint32_t ks = smem_u32(ring + stage * 2 * kTile);
-    const uint32_t vs = ks + kTile * (uint32_t)sizeof(bf16);
-    float s[kN * 4], dp[kN * 4];
-#pragma unroll
-    for (int i = 0; i < kN * 4; ++i) s[i] = dp[i] = 0.f;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64(s, desc_kmajor(qa, kk), desc_kmajor(ks, kk));
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64(dp, desc_kmajor(da, kk), desc_kmajor(vs, kk));
-    wgmma_commit();
+  if (tid == 0) {
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(full0 + 8 * s, 129);
+      mbar_init(empty0 + 8 * s, 256);
+    }
+    mbar_init(q_bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    // the bias of this tile, read as the forward reads it, while the
-    // products run
-    float bz[kN * 4];
-    if constexpr (kBias) {
-#pragma unroll
-      for (int jn = 0; jn < kN; ++jn) {
-        const int col = k0 + jn * 8 + 2 * tig;
-        float2 lo = make_float2(0.f, 0.f), hi = make_float2(0.f, 0.f);
-        if (bias_vec) {
-          if (col < Lk) {
-            lo = *reinterpret_cast<const float2*>(bias_lo + col);
-            hi = *reinterpret_cast<const float2*>(bias_hi + col);
-          }
-        } else {
-          if (col < Lk) {
-            lo.x = bias_lo[col];
-            hi.x = bias_hi[col];
-          }
-          if (col + 1 < Lk) {
-            lo.y = bias_lo[col + 1];
-            hi.y = bias_hi[col + 1];
-          }
+  if (wg == 2) {
+    // ---- producer (as in the dK/dV pass) ----
+    setmaxnreg_dec<kProducerRegs>();
+    const int pt = tid - 256;
+    if (pt == 0) {
+      mbar_expect_tx(q_bar, 4 * kTileBytes);
+      for (int t = 0; t < 2; ++t)
+        for (int cb = 0; cb < D / 64; ++cb) {
+          tma_load(sb + t * kTileBytes + cb * 8192, &tm_q, q_bar,
+                   h * D + cb * 64, q0 + t * kKeys, b);
+          tma_load(sb + (2 + t) * kTileBytes + cb * 8192, &tm_do, q_bar,
+                   h * D + cb * 64, q0 + t * kKeys, b);
         }
-        bz[4 * jn] = lo.x;
-        bz[4 * jn + 1] = lo.y;
-        bz[4 * jn + 2] = hi.x;
-        bz[4 * jn + 3] = hi.y;
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int k0 = 0; k0 < Lk; k0 += kKeys) {
+      const uint32_t full = full0 + 8 * stage;
+      mbar_wait(full + 8 * kS, phase ^ 1);  // the stage's empty barrier
+      if (pt == 0) {
+        mbar_expect_tx(full, 2 * kTileBytes +
+                                 (kBias && bias_tma ? kBiasTileBytes : 0));
+        const uint32_t ks = sb + kRing + stage * kStage;
+        for (int cb = 0; cb < D / 64; ++cb) {
+          tma_load(ks + cb * 8192, &tm_k, full, g * D + cb * 64, k0, b);
+          tma_load(ks + kTileBytes + cb * 8192, &tm_v, full, g * D + cb * 64,
+                   k0, b);
+        }
+        if (kBias && bias_tma)
+          for (int box = 0; box < 2; ++box)
+            tma_load(sb + kBiasAt + stage * kBiasTileBytes + box * 16384,
+                     &tm_bias, full, k0 + box * 32, q0, b);
+      }
+      if (kBias && !bias_tma)
+        copy_bias<kRows, kKeys>(sb + kBiasAt + stage * kBiasTileBytes,
+                                bias + (long long)b * Lq * Lk, Lq, Lk, q0,
+                                k0, pt);
+      cp_async_mbar_arrive(full);
+      if (++stage == kS) {
+        stage = 0;
+        phase ^= 1;
       }
     }
-    wgmma_wait<0>();
-    fence_regs(s);
-    fence_regs(dp);
-
-    const bool edge = k0 + kKeys > Lk;
+    cp_async_wait_all();
+  } else {
+    // ---- consumers: warpgroup wg owns q rows q0 + 64 wg .. + 63 ----
+    setmaxnreg_inc<kConsumerRegs>();
+    const int lane = tid & 31, w = warp & 3;
+    const int gid = lane >> 2, tig = lane & 3;
+    // this thread's two q rows and their statistics (0 past Lq: those rows
+    // are computed on zero q and dout and never written)
+    const int row_lo = q0 + wg * 64 + w * 16 + gid, row_hi = row_lo + 8;
+    float m[2], lg[2], dlt[2];
 #pragma unroll
-    for (int i = 0; i < kN * 4; ++i) {
-      const int r = (i >> 1) & 1;
-      float x;
-      if constexpr (kBias)
-        x = __fmul_rn(__fadd_rn(__fmul_rn(s[i], scale), bz[i]), kLog2e);
-      else
-        x = __fmul_rn(s[i], scale_log2);
-      const int col = k0 + (i >> 2) * 8 + 2 * tig + (i & 1);
-      if (edge && col >= Lk) x = -INFINITY;
-      const float p = ex2((x - m[r]) - lg[r]);
-      s[i] = p * (dp[i] - dlt[r]);
+    for (int r = 0; r < 2; ++r) {
+      const int row = r ? row_hi : row_lo;
+      const long long i = ((long long)b * H + h) * Lq + row;
+      const float2 ml = row < Lq ? lse[i] : make_float2(0.f, 0.f);
+      m[r] = ml.x;
+      lg[r] = ml.y;
+      dlt[r] = row < Lq ? delta[i] : 0.f;
     }
-    uint32_t sf[kN / 2][4];
-#pragma unroll
-    for (int kk = 0; kk < kN / 2; ++kk) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        sf[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
-    }
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kN / 2; ++kk)
-      wgmma_pv<D>(dqa, sf[kk], desc_mnmajor(ks, kk));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(dqa);
-  }
-  cp_async_wait<0>();
+    // bias_off<128>(row - q0, 8 jn + 2 tig) = (jn >> 2) * 16384 + brow[r]
+    // + ((2 (jn & 3) ^ bxor) << 4): row & 7 == gid, the chunk of key 8 jn +
+    // 2 tig in its box 2 (jn & 3) + (tig >> 1)
+    const uint32_t brow0 = (wg * 64 + w * 16 + gid) * 128 + 8 * (tig & 1);
+    const uint32_t bxor = (tig >> 1) ^ gid;
+    const float scale_log2 = scale * kLog2e;
+    const uint32_t qa = sb + wg * kTileBytes;
+    const uint32_t da = sb + (2 + wg) * kTileBytes;
 
-  bf16* dqb = dq + q_off;
+    float dqa[kDn * 4];
 #pragma unroll
-  for (int n = 0; n < kDn; ++n) {
-    const int col = n * 8 + 2 * tig;
-    if (row_lo < Lq)
-      *reinterpret_cast<__nv_bfloat162*>(dqb + row_lo * q_row + col) =
-          __floats2bfloat162_rn(dqa[4 * n] * scale, dqa[4 * n + 1] * scale);
-    if (row_hi < Lq)
-      *reinterpret_cast<__nv_bfloat162*>(dqb + row_hi * q_row + col) =
-          __floats2bfloat162_rn(dqa[4 * n + 2] * scale,
-                                dqa[4 * n + 3] * scale);
+    for (int i = 0; i < kDn * 4; ++i) dqa[i] = 0.f;
+
+    if (wg == 1) named_arrive(1);  // warpgroup 0 issues first
+    mbar_wait(q_bar, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int j = 0; j < n_tiles; ++j) {
+      const int k0 = j * kKeys;
+      mbar_wait(full0 + 8 * stage, phase);
+      const uint32_t ks = sb + kRing + stage * kStage;
+      const uint32_t vs = ks + kTileBytes;
+      float s[kN * 4], dp[kN * 4];
+#pragma unroll
+      for (int i = 0; i < kN * 4; ++i) s[i] = dp[i] = 0.f;
+      named_sync(1 + wg);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(s, desc_kmajor(qa, kk), desc_kmajor(ks, kk));
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(dp, desc_kmajor(da, kk), desc_kmajor(vs, kk));
+      wgmma_commit();
+      named_arrive(2 - wg);
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+
+      const bool edge = k0 + kKeys > Lk;
+      const unsigned char* bz_s = base + kBiasAt + stage * kBiasTileBytes;
+#pragma unroll
+      for (int jn = 0; jn < kN; ++jn) {
+        float2 lo = make_float2(0.f, 0.f), hi = make_float2(0.f, 0.f);
+        if constexpr (kBias) {
+          const uint32_t off =
+              (jn >> 2) * 16384 + (((2 * (jn & 3)) ^ bxor) << 4) + brow0;
+          lo = *reinterpret_cast<const float2*>(bz_s + off);
+          hi = *reinterpret_cast<const float2*>(bz_s + off + 8 * 128);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * jn + e;
+          const int r = e >> 1;
+          float x;
+          if constexpr (kBias) {
+            const float bz = e == 0 ? lo.x : e == 1 ? lo.y : e == 2 ? hi.x
+                                                                    : hi.y;
+            x = __fmul_rn(__fadd_rn(__fmul_rn(s[i], scale), bz), kLog2e);
+          } else {
+            x = __fmul_rn(s[i], scale_log2);
+          }
+          const int col = k0 + jn * 8 + 2 * tig + (e & 1);
+          if (edge && col >= Lk) x = -INFINITY;
+          const float p = ex2((x - m[r]) - lg[r]);
+          s[i] = p * (dp[i] - dlt[r]);
+        }
+      }
+      uint32_t sf[kN / 2][4];
+#pragma unroll
+      for (int kk = 0; kk < kN / 2; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sf[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+      }
+      named_sync(1 + wg);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kN / 2; ++kk)
+        wgmma_pv<D>(dqa, sf[kk], desc_mnmajor(ks, kk));
+      wgmma_commit();
+      if (wg == 0 || j + 1 < n_tiles) named_arrive(2 - wg);
+      wgmma_wait<0>();
+      fence_regs(dqa);
+      mbar_arrive(empty0 + 8 * stage);
+      if (++stage == kS) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    const long long q_row = (long long)H * D;
+    bf16* dqb = dq + (long long)b * Lq * q_row + (long long)h * D;
+#pragma unroll
+    for (int n = 0; n < kDn; ++n) {
+      const int col = n * 8 + 2 * tig;
+      if (row_lo < Lq)
+        *reinterpret_cast<__nv_bfloat162*>(dqb + row_lo * q_row + col) =
+            __floats2bfloat162_rn(dqa[4 * n] * scale, dqa[4 * n + 1] * scale);
+      if (row_hi < Lq)
+        *reinterpret_cast<__nv_bfloat162*>(dqb + row_hi * q_row + col) =
+            __floats2bfloat162_rn(dqa[4 * n + 2] * scale,
+                                  dqa[4 * n + 3] * scale);
+    }
   }
 }
 
@@ -512,6 +857,49 @@ struct BwdArgs {
   float scale;
 };
 
+// cuTensorMapEncodeTiled from the driver, through the runtime (the library
+// links no libcuda); null when the driver does not have it
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A 3-D map over a contiguous [batch, rows, cols] tensor (cols innermost)
+// of elem-byte elements: boxes of box_cols x box_rows x 1, 128-byte swizzle,
+// zeros past every edge.  False if it cannot be encoded.
+inline bool encode_3d(CUtensorMap* map, const void* base,
+                      CUtensorMapDataType type, int elem, long long cols,
+                      long long rows, long long batch, int box_cols,
+                      int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)(cols * elem),
+                                 (cuuint64_t)(rows * cols * elem)};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int D, bool kBias>
 cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   const long long n_rows = (long long)a.B * a.Lq * a.H;
@@ -524,39 +912,51 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   const auto* lse = reinterpret_cast<const float2*>(a.lse);
 
-  // K and V (2 tiles each) and the ring's Q and dout tiles, the rows'
-  // statistics, + 1024 bytes to align to the swizzle atom
-  const int smem_kv = (4 + 2 * kBwdStages) * kKeys * D * (int)sizeof(bf16) +
-                      kBwdStages * kKeys * (int)(sizeof(float2) + sizeof(float)) +
-                      1024;
+  // the bf16 tensors as [B, L, heads*D] with [64 rows][64 columns] boxes;
+  // the bias as [B, Lq, Lk] f32 with boxes of 32 keys x 64 (dK/dV) or 128
+  // (dQ) rows, where TMA can read it: a row stride (Lk * 4 bytes) and a
+  // start on 16-byte boundaries
+  CUtensorMap tm_q, tm_do, tm_k, tm_v, tm_bkv{}, tm_bq{};
+  const CUtensorMapDataType kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const long long qc = (long long)a.H * D, kc = (long long)a.KV * D;
+  bool ok = encode_3d(&tm_q, a.q, kBf16, 2, qc, a.Lq, a.B, 64, 64) &&
+            encode_3d(&tm_do, a.dout, kBf16, 2, qc, a.Lq, a.B, 64, 64) &&
+            encode_3d(&tm_k, a.k, kBf16, 2, kc, a.Lk, a.B, 64, 64) &&
+            encode_3d(&tm_v, a.v, kBf16, 2, kc, a.Lk, a.B, 64, 64);
+  const int bias_tma = kBias && a.Lk % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(a.bias) % 16 == 0;
+  if (bias_tma)
+    ok = ok &&
+         encode_3d(&tm_bkv, a.bias, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.Lk,
+                   a.Lq, a.B, 32, kKeys) &&
+         encode_3d(&tm_bq, a.bias, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.Lk,
+                   a.Lq, a.B, 32, kRows);
+  if (!ok) return cudaErrorInvalidValue;
+
+  const int smem_kv =
+      bwd_smem<D, kBias, true>(bwd_stages<D, kBias, true>());
   err = cudaFuncSetAttribute(attention_bwd_dkdv_kernel<D, kBias>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_kv);
   if (err != cudaSuccess) return err;
   attention_bwd_dkdv_kernel<D, kBias>
-      <<<dim3(a.KV, (a.Lk + kRows - 1) / kRows, a.B), kThreads, smem_kv,
-         stream>>>(static_cast<const bf16*>(a.q),
-                   static_cast<const bf16*>(a.k),
-                   static_cast<const bf16*>(a.v), a.bias,
-                   static_cast<const bf16*>(a.dout), lse, a.delta,
-                   static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.Lq,
-                   a.Lk, a.H, a.KV, a.scale);
+      <<<dim3(a.KV, (a.Lk + kRows - 1) / kRows, a.B), kBwdThreads, smem_kv,
+         stream>>>(tm_q, tm_do, tm_k, tm_v, tm_bkv, a.bias, bias_tma, lse,
+                   a.delta, static_cast<bf16*>(a.dk),
+                   static_cast<bf16*>(a.dv), a.Lq, a.Lk, a.H, a.KV, a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const int smem_q = (4 + 2 * kBwdStages) * kKeys * D * (int)sizeof(bf16) +
-                     1024;
+  const int smem_q = bwd_smem<D, kBias, false>(bwd_stages<D, kBias, false>());
   err = cudaFuncSetAttribute(attention_bwd_dq_kernel<D, kBias>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_q);
   if (err != cudaSuccess) return err;
   attention_bwd_dq_kernel<D, kBias>
-      <<<dim3(a.H, (a.Lq + kRows - 1) / kRows, a.B), kThreads, smem_q,
-         stream>>>(static_cast<const bf16*>(a.q),
-                   static_cast<const bf16*>(a.k),
-                   static_cast<const bf16*>(a.v), a.bias,
-                   static_cast<const bf16*>(a.dout), lse, a.delta,
-                   static_cast<bf16*>(a.dq), a.Lq, a.Lk, a.H, a.KV, a.scale);
+      <<<dim3(a.H, (a.Lq + kRows - 1) / kRows, a.B), kBwdThreads, smem_q,
+         stream>>>(tm_q, tm_do, tm_k, tm_v, tm_bq, a.bias, bias_tma, lse,
+                   a.delta, static_cast<bf16*>(a.dq), a.Lq, a.Lk, a.H, a.KV,
+                   a.scale);
   return cudaGetLastError();
 }
 

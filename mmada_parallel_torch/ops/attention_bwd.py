@@ -8,7 +8,10 @@ plain chain and leaves XLA to fuse it (``_flash_diff_fn``,
 K3 in bf16 is the hand-written kernel ``csrc/attention_bwd.cu`` (body
 ``csrc/attention_mma_bwd.cuh``): FlashAttention-2's backward dataflow on
 Hopper's tensor cores, from the forward's row statistics and with no
-atomics, so a gradient is bitwise the same from run to run.
+atomics, so a gradient is bitwise the same from run to run; each of its
+two passes is warp-specialised (a producer warpgroup feeding an mbarrier
+ring by TMA and cp.async, two consumer warpgroups taking turns on the
+tensor cores).
 
 * :func:`flash_attention_bwd` (K3's, BLHD), :func:`flash_attention_rope_bwd`
   (K1's: q and k rotated by the forward's pre-pass, dq and dk sent back

@@ -202,6 +202,31 @@ def test_stats_are_the_softmax():
     torch.testing.assert_close(p, torch.softmax(scores, -1), **TOL)
 
 
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN49_GLOBAL__N__2650c3a8_16_attention_bwd_cu_23c4c3372tc25attention_bwd_dkdv_kernelILi128ELb1EEEv14CUtensorMap_stS2_' for 'sm_90a'
+ptxas info    : Function properties for _ZN49_GLOBAL__N__2650c3a8_16_attention_bwd_cu_23c4c3372tc25attention_bwd_dkdv_kernelILi128ELb1EEEv14CUtensorMap_stS2_
+    40 bytes stack frame, 44 bytes spill stores, 64 bytes spill loads
+ptxas info    : Used 168 registers, used 3 barriers, 40 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN49_GLOBAL__N__2650c3a8_16_attention_bwd_cu_23c4c3372tc16bwd_delta_kernelILi64EEEvPK13__nv_bfloat16S4_Pfiix' for 'sm_90a'
+ptxas info    : Function properties for _ZN49_GLOBAL__N__2650c3a8_16_attention_bwd_cu_23c4c3372tc16bwd_delta_kernelILi64EEEvPK13__nv_bfloat16S4_Pfiix
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 26 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN49_GLOBAL__N__2650c3a8_16_attention_bwd_cu_23c4c3372tc23attention_bwd_dq_kernelILi64ELb0EEEv14CUtensorMap_stS2_' for 'sm_90a'
+ptxas info    : Function properties for _ZN49_GLOBAL__N__2650c3a8_16_attention_bwd_cu_23c4c3372tc23attention_bwd_dq_kernelILi64ELb0EEEv14CUtensorMap_stS2_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 3 barriers
+"""
+
+
+def test_bwd_ptxas_report_reads_each_pass():
+    """``chip_smoke.bwd_ptxas`` takes each backward pass's registers and
+    spill bytes from the ``-Xptxas -v`` report the build keeps, by pass, D
+    and bias, and nothing of the other kernels."""
+    import chip_smoke
+    assert chip_smoke.bwd_ptxas(PTXAS_LOG) == {
+        ("dkdv", 128, True): (168, 44, 64), ("dq", 64, False): (168, 0, 0)}
+
+
 def test_backward_launchers_refuse_f32_on_the_card_path():
     """The backward kernel is bf16 only (f32 recomputes the plain chain in
     the Function); its checks run before any launch."""
@@ -242,13 +267,22 @@ def _assert_grad_close(g, w):
 
 # (entry, B, Lq, Lk, H, KV, D, bias, per-row tables): D 64 and 128, ragged
 # Lq/Lk off the 128-row and 64-key tiles, odd Lk with a bias, GQA, fully
-# masked rows (the padding bias), K2 at Lq != Lk
+# masked rows (the padding bias), K2 at Lq != Lk; then the edges of the
+# warp-specialised passes: the bias tile staged by TMA (Lk % 4 == 0) and by
+# the producer's cp.async (odd Lk), one q tile (Lq <= 64, fewer than the
+# ring's stages), G = 4 (the dK/dV loop crosses heads), B = 2 with Lq and
+# Lk off the 64-row tiles (the tensor maps' zero fill at a batch boundary)
 CUDA_CASES = [("K3", 2, 190, 301, 4, 2, 64, True, False),
               ("K3", 1, 197, 517, 8, 2, 128, False, False),
               ("K1", 2, 130, 130, 4, 2, 128, True, True),
               ("K1", 1, 300, 300, 4, 4, 64, False, False),
               ("K2", 2, 40, 301, 4, 2, 128, True, True),
-              ("K2", 1, 606, 2424, 2, 2, 128, False, False)]
+              ("K2", 1, 606, 2424, 2, 2, 128, False, False),
+              ("K3", 2, 190, 300, 4, 2, 128, True, False),
+              ("K3", 1, 40, 256, 4, 4, 64, True, False),
+              ("K3", 2, 130, 203, 8, 2, 128, True, False),
+              ("K1", 2, 196, 196, 8, 2, 64, True, False),
+              ("K2", 2, 33, 300, 8, 2, 128, True, True)]
 
 
 def _cuda_call(case, dev, gen):
