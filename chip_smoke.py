@@ -17,25 +17,38 @@ Phases (each prints its own lines; any failure exits non-zero):
    NCCL is available, torch/CUDA versions, TF32 off;
 1. build: one ``nvcc`` per ``mmada_parallel_torch/csrc/*.cu`` for sm_90a,
    all at once, then one link; one line with the registers and spill
-   bytes of the backward's dK/dV and dQ passes at D=64 and 128 (ptxas);
+   bytes of the warp-specialised kernels, the forward body and the
+   backward's dK/dV and dQ passes, at D=64 and 128 with and without a bias
+   (ptxas; a forward entry missing fails);
 2. the four attention kernels against their plain PyTorch versions on the
    card, timed with CUDA events against them and against their bound (the
-   larger of FLOPs over the 989 TFLOP/s bf16 peak and bytes over 3.35 TB/s):
+   larger of FLOPs over the 989 TFLOP/s bf16 peak and bytes over 3.35 TB/s),
+   each timed case also with its kernels' device time from the profiler:
    K1's bf16 rotation pre-pass bitwise against ``rope_tensor``; K1 fused
-   RoPE at the edit's shapes (bf16: pre-pass + the tensor-core body), K2
+   RoPE at the edit's shapes (bf16: pre-pass + the warp-specialised body;
+   at B=1 and at the M trainer's shape its device kernels checked to be
+   those two and its output and statistics to be the previous body's
+   (``attention_mma.cuh``, through K2's unsplit path) bit for bit; at B=1
+   two launches bit for bit, and one SDPA call on its pre-rotated q/k
+   beside it as the body's yardstick, not the same function), K2
    q-only RoPE at the cached samplers' partial and full shapes (bf16:
    pre-pass + the tensor-core body, split-K with its combine kernel where
    the planner splits; each case prints its split count), K3 BLHD at the
-   edit shape (bf16: the tensor-core body) with one
+   edit shape (bf16: the warp-specialised body, its device kernel checked,
+   the previous body's output bit for bit, two launches bit for bit) with
+   one
    ``scaled_dot_product_attention`` call beside it as the library yardstick,
    K4 prefix bounds at the A-train shape and a mixed task batch (bf16:
    pre-pass + the tensor-core body with the bounds; with K1 on the
    equivalent dense bias beside it at 2424 and 5120, the crossover
    ``rope_attention_prefix``'s ``auto`` would want, and ``auto``'s choice at
    both lengths checked by launch counts), each at small f32 shapes, every
-   kernel at the tensor-core body's bf16 edges (D=64, ragged Lq/Lk, GQA,
+   kernel at the tensor-core bodies' bf16 edges (D=64, ragged Lq/Lk, GQA,
    fully masked rows, per-row tables, odd Lk with a bias, forced splits,
-   bounds 0 and past Lk), and K1 at the A and M train steps' shapes and at
+   bounds 0 and past Lk; K1 and K3 also B=2 with the last tiles at the
+   batch boundary, and their row statistics against the plain softmax's
+   there and at an odd Lk with a fully masked row), and K1 at the A and M
+   train steps' shapes and at
    the M trainer's (B=1, L=2565, the key-padding bias of an interleave
    row); SDPA
    on pre-rotated inputs beside K2 and K4 as a yardstick for their
@@ -303,31 +316,38 @@ def phase_build() -> None:
         report = f.read()
     for line in report.splitlines():
         if "entry function" in line or "registers" in line \
-                or "spill" in line or "setmaxnreg" in line:
+                or "spill" in line or "setmaxnreg" in line \
+                or "wgmma" in line:
             log(f"[build] ptxas: {line.strip()}")
-    passes = bwd_ptxas(report)
-    log("[build] backward passes (ptxas -v): " + "; ".join(
+    passes = ptxas_entries(report)
+    missing = [(D, bias) for D in (64, 128) for bias in (False, True)
+               if ("fwd", D, bias) not in passes]
+    if missing:
+        raise AssertionError(f"the forward body attention_ws_kernel was not "
+                             f"compiled for (D, bias) {missing}")
+    log("[build] warp-specialised passes (ptxas -v): " + "; ".join(
         f"{name} D={D}{' bias' if bias else ''} {regs} registers, "
         f"{stores}/{loads} bytes spill stores/loads"
         for (name, D, bias), (regs, stores, loads) in sorted(passes.items())))
 
 
-def bwd_ptxas(report: str) -> dict:
+def ptxas_entries(report: str) -> dict:
     """``{(pass, D, bias): (registers, spill store bytes, spill load
-    bytes)}`` of the backward's dK/dV and dQ kernels, from the ``-Xptxas
-    -v`` report ``ops/_cuda.build()`` keeps beside the library.  The
-    registers are the launch's (the consumers raise theirs with
-    ``setmaxnreg``)."""
+    bytes)}`` of the warp-specialised kernels (the forward body ``fwd``,
+    the backward's ``dkdv`` and ``dq`` passes), from the ``-Xptxas -v``
+    report ``ops/_cuda.build()`` keeps beside the library.  The registers
+    are the launch's (the consumers raise theirs with ``setmaxnreg``)."""
     import re
-    entry = re.compile(r"Compiling entry function '\S*attention_bwd_"
-                       r"(dkdv|dq)_kernelILi(\d+)ELb([01])E")
+    entry = re.compile(r"Compiling entry function '\S*?attention_"
+                       r"(bwd_dkdv|bwd_dq|ws)_kernelILi(\d+)ELb([01])E")
     spill = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
     used = re.compile(r"Used (\d+) registers")
+    names = {"bwd_dkdv": "dkdv", "bwd_dq": "dq", "ws": "fwd"}
     out, key, spills = {}, None, (0, 0)
     for line in report.splitlines():
         m = entry.search(line)
         if m:
-            key = (m.group(1), int(m.group(2)), m.group(3) == "1")
+            key = (names[m.group(1)], int(m.group(2)), m.group(3) == "1")
             spills = (0, 0)
             continue
         if key is None:
@@ -430,9 +450,15 @@ def _compare(name: str, desc: str, kernel, plain, tol, timed: bool,
     if timed:
         rec["ms"], rec["plain_ms"] = time_ms(kernel), time_ms(plain)
         rec["bound_ms"], rec["bound_by"] = _bound(*work, dtype)
-        times = (f" kernel {rec['ms']:.3f} ms plain {rec['plain_ms']:.3f} ms"
-                 f" bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
-                 f"{100 * rec['bound_ms'] / rec['ms']:.1f} % of bound")
+        # the device time of one call's kernels (profiler on): ms less the
+        # host's launch path, which a caller with work queued ahead hides
+        rec["device_ms"] = sum(_device_kernels(kernel, name).values()) / 1e3
+        times = (f" kernel {rec['ms']:.3f} ms (device {rec['device_ms']:.3f}"
+                 f" ms) plain {rec['plain_ms']:.3f} ms bound "
+                 f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+                 f"{100 * rec['bound_ms'] / rec['ms']:.1f} % of bound "
+                 f"({100 * rec['bound_ms'] / rec['device_ms']:.1f} % by device"
+                 f" time)")
     log(f"[kernel] {name}: {desc} max|err| {max_err:.3e} tol {tol}{times}")
     return rec
 
@@ -473,12 +499,81 @@ def _desc(B, Lq, Lk, H, KV, D, dtype) -> str:
             f"{str(dtype).split('.')[-1]}")
 
 
-def _kernel_case(name, B, Lq, Lk, H, KV, D, dtype, tol, gen, *,
-                 bias=None, per_row_pos=None, timed=False) -> dict:
-    """K1 vs plain on one shape."""
+# The row statistics of a bf16 forward against the plain softmax's on the
+# same (rotated) inputs, at the tolerance of tests/test_torch_attention_bwd.py
+# ::test_stats_are_the_softmax: f32 scores summed in another order and the
+# SFU's 2^x.
+STATS_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _check_stats(name: str, got, want) -> None:
+    """``got`` (the kernel's ``(m, log2 l)``, f32 ``[B, H, Lq, 2]``) within
+    ``STATS_TOL`` of ``want`` (``attention_stats_reference``)."""
+    err = (got - want).abs()
+    if not bool((err <= STATS_TOL["atol"]
+                 + STATS_TOL["rtol"] * want.abs()).all()):
+        raise AssertionError(f"{name}: the statistics differ from the plain "
+                             f"softmax's, max |err| {float(err.max()):.3e} "
+                             f"({STATS_TOL})")
+    log(f"[kernel] {name}: statistics (m, log2 l) equal the plain softmax's,"
+        f" max |err| m {float(err[..., 0].max()):.3e} log2 l "
+        f"{float(err[..., 1].max()):.3e} (tol {STATS_TOL})")
+
+
+def _repeat_bitwise(name: str, fn) -> None:
+    """Two calls of ``fn`` (-> (out, stats)) give the same bits."""
+    import torch
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"{name}: two launches differ")
+    log(f"[kernel] {name}: two launches bit for bit equal (output and "
+        f"statistics)")
+
+
+def _same_as_old_body(name: str, q4, k4, v4, bias, out, stats) -> None:
+    """``out`` and ``stats`` (a bf16 K1 or K3 call on the BLHD inputs
+    ``q4``, ``k4``, ``v4`` after any rotation) equal, bit for bit, those of
+    the tensor-core body K1 and K3 ran before the warp-specialised one:
+    ``attention_mma.cuh``, reached through K2's unsplit path with identity
+    rotation tables (cos 1, sin 0: the pre-pass copies q exactly)."""
     import torch
     from mmada_parallel_torch.ops.rope_attention import (
-        flash_attention_rope, flash_attention_rope_reference)
+        _sm_count, flash_attention_rope_qonly, plan_splits)
+    B, Lq, H, D = q4.shape
+    Lk, KV = k4.shape[1], k4.shape[2]
+    if plan_splits(B, H, Lq, Lk, _sm_count(q4.device)) != 1:
+        raise AssertionError(f"{name}: K2 would split at this shape")
+    cos = torch.ones(Lq, D, device=q4.device)
+    old, old_stats = flash_attention_rope_qonly(
+        q4.reshape(B, Lq, H * D), k4.reshape(B, Lk, KV * D),
+        v4.reshape(B, Lk, KV * D), torch.zeros_like(cos), cos, bias,
+        n_heads=H, n_kv_heads=KV, with_stats=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(out.reshape(old.shape), old)
+            and torch.equal(stats, old_stats)):
+        raise AssertionError(f"{name}: the warp-specialised body differs "
+                             f"from attention_mma.cuh's")
+    log(f"[kernel] {name}: output and statistics equal those of the "
+        f"previous body (attention_mma.cuh, through K2's unsplit path) bit "
+        f"for bit")
+
+
+def _kernel_case(name, B, Lq, Lk, H, KV, D, dtype, tol, gen, *,
+                 bias=None, per_row_pos=None, timed=False, body=False,
+                 repeat=False, stats=False, sdpa=False) -> dict:
+    """K1 vs plain on one shape.  bf16 only: ``body`` checks the device
+    kernels are the pre-pass and the warp-specialised body and that its
+    output equals the previous body's bit for bit, ``repeat`` that two
+    launches are bitwise equal, ``stats`` the row statistics against the
+    plain softmax's; ``sdpa`` times one SDPA call on K1's pre-rotated q/k
+    (``sdpa_ms``: the body's yardstick, not the same function)."""
+    import torch
+    from mmada_parallel_torch.ops.attention_bwd import (
+        attention_stats_reference)
+    from mmada_parallel_torch.ops.rope_attention import (
+        _split_tables, flash_attention_rope, flash_attention_rope_reference,
+        rope_tensor)
     dev = torch.device("cuda")
     q = torch.randn(B, Lq, H * D, generator=gen, device=dev).to(dtype)
     k = torch.randn(B, Lk, KV * D, generator=gen, device=dev).to(dtype)
@@ -490,12 +585,35 @@ def _kernel_case(name, B, Lq, Lk, H, KV, D, dtype, tol, gen, *,
     desc = (_desc(B, Lq, Lk, H, KV, D, dtype)
             + (" per-row tables" if per_row_pos is not None else "")
             + (" bias" if bias is not None else ""))
-    return _compare(
-        f"K1 {name}", desc,
-        lambda: flash_attention_rope(q, k, v, sin, cos, bias, **kw),
+
+    def call(with_stats=False):
+        return flash_attention_rope(q, k, v, sin, cos, bias, **kw,
+                                    with_stats=with_stats)
+
+    rec = _compare(
+        f"K1 {name}", desc, call,
         lambda: flash_attention_rope_reference(q, k, v, sin, cos, bias,
                                                **kw), tol, timed,
         _work(q, k, v, H, bias, sin, cos), dtype)
+    if body or stats or sdpa:
+        sq, cq, sk, ck = _split_tables(sin, cos, Lq, Lk)
+        q4 = rope_tensor(q.view(B, Lq, H, D), sq, cq, True)
+        k4 = rope_tensor(k.view(B, Lk, KV, D), sk, ck, True)
+    if body:
+        _check_tensor_core_body(f"K1 {name}", call, "attention_ws_kernel")
+        _same_as_old_body(f"K1 {name}", q4, k4, v.view(B, Lk, KV, D), bias,
+                          *call(with_stats=True))
+    if repeat:
+        _repeat_bitwise(f"K1 {name}", lambda: call(with_stats=True))
+    if stats:
+        _check_stats(f"K1 {name}", call(with_stats=True)[1],
+                     attention_stats_reference(q4, k4, bias))
+    if sdpa:
+        rec["sdpa_ms"] = _sdpa_ms(
+            f"K1 {name}", q4, k4, v.view(B, Lk, KV, D), bias,
+            what="on K1's pre-rotated q/k: the body's yardstick, not the "
+                 "same function (no rotation)")
+    return rec
 
 
 def _ragged(B: int, L: int, lengths, device):
@@ -555,9 +673,12 @@ def phase_kernel() -> dict:
     bf16, f32 = torch.bfloat16, torch.float32
     L, H, D = EDIT_L, EDIT_H, EDIT_D
     dev = torch.device("cuda")
-    # (a) the solo edit: shared tables, no bias, B=1 (cond) and B=2 (uncond)
+    # (a) the solo edit: shared tables, no bias, B=1 (cond) and B=2 (uncond);
+    # B=1 also through the warp-specialised body's device kernels, equal to
+    # the previous body's bit for bit and on a repeat, and beside SDPA on
+    # its pre-rotated q/k
     a1 = _kernel_case("a/B1", 1, L, L, H, H, D, bf16, BF16_TOL, gen,
-                      timed=True)
+                      timed=True, body=True, repeat=True, sdpa=True)
     a2 = _kernel_case("a/B2", 2, L, L, H, H, D, bf16, BF16_TOL, gen,
                       timed=True)
     recs = [a1, a2]
@@ -597,7 +718,11 @@ def phase_kernel() -> dict:
     pos3, b3 = _ragged(2, 301, (301, 173), dev)
     recs.append(_kernel_case("g/odd-Lk bias D64", 2, 301, 301, 4, 2, 64,
                              bf16, BF16_TOL, gen, bias=b3,
-                             per_row_pos=pos3))
+                             per_row_pos=pos3, stats=True))
+    # B=2 with Lq and Lk off the 128-row and 128-key tiles: the last tiles'
+    # rows meet the batch boundary (the tensor maps' zero fill)
+    recs.append(_kernel_case("g/B2-boundary", 2, 1000, 1000, 8, 8, D, bf16,
+                             BF16_TOL, gen, stats=True))
     # (h) the [t2i-m] server batch: 2 text prompts left-padded to their
     # bucket, cond and uncond rows (B=4), shared tables, the padding bias;
     # (i) the [mmu] server batch: 2 prompts right-padded to their bucket,
@@ -619,10 +744,11 @@ def phase_kernel() -> dict:
     m_mask = _m_cli_mask(dev)
     Lc = m_mask.shape[1]
     j = _kernel_case("j/M-trainer", 1, Lc, Lc, H, H, D, bf16, BF16_TOL, gen,
-                     bias=_mask_bias(m_mask), timed=True)
+                     bias=_mask_bias(m_mask), timed=True, body=True)
     recs.append(j)
     log(f"[kernel] K1 edit shape B=1: kernel {a1['ms']:.3f} ms plain "
-        f"{a1['plain_ms']:.3f} ms; B=2: kernel {a2['ms']:.3f} ms plain "
+        f"{a1['plain_ms']:.3f} ms (SDPA on its pre-rotated q/k "
+        f"{a1['sdpa_ms']:.3f} ms, not the same function); B=2: kernel {a2['ms']:.3f} ms plain "
         f"{a2['plain_ms']:.3f} ms; A-train B=1 L={TRAIN_L}: kernel "
         f"{e['ms']:.3f} ms plain {e['plain_ms']:.3f} ms; M-train B=3 L={Lm}: "
         f"kernel {f['ms']:.3f} ms plain {f['plain_ms']:.3f} ms; t2i-server "
@@ -759,17 +885,20 @@ def _short_kernel(name: str) -> str:
             .removeprefix("void ").replace("tc::", ""))
 
 
-def _check_tensor_core_body(name: str, fn) -> None:
-    """A bf16 call of ``fn`` must run the tensor-core body
-    (``attention_mma_kernel``) and no FMA-template ``attention_kernel``;
-    prints each device kernel's time in that call (profiler on)."""
+def _check_tensor_core_body(name: str, fn,
+                            body: str = "attention_mma_kernel") -> None:
+    """A bf16 call of ``fn`` must run the tensor-core body ``body`` (K2 and
+    K4 ``attention_mma_kernel``, K1 and K3 the warp-specialised
+    ``attention_ws_kernel``), no other body and no FMA-template
+    ``attention_kernel``; prints each device kernel's time in that call
+    (profiler on)."""
     names = _device_kernels(fn, name)
-    body = [n for n in names if "attention_mma_kernel" in n]
+    bodies = [n for n in names
+              if "attention_mma_kernel" in n or "attention_ws_kernel" in n]
     fma = [n for n in names if "::attention_kernel<" in n]
-    if not body or fma:
+    if not bodies or any(body not in n for n in bodies) or fma:
         raise AssertionError(f"{name}: bf16 device kernels {list(names)}, "
-                             f"expected the tensor-core body and no FMA "
-                             f"template")
+                             f"expected {body} and no FMA template")
     short = [f"{_short_kernel(n)} {us:.1f} us" for n, us in names.items()]
     log(f"[kernel] {name} bf16 device kernels: {short}")
 
@@ -1002,19 +1131,24 @@ def _sdpa_ms(label: str, q, k, v, bias=None, *, is_causal=False,
         want = _xla_attention(q, k, v, bias)
     err = float((call().float() - want.float()).abs().max())
     ms = time_ms(call)
-    names = sorted(_device_kernels(call, f"{label} yardstick"))
+    kernels = _device_kernels(call, f"{label} yardstick")
     log(f"[kernel] {label} yardstick: scaled_dot_product_attention "
-        f"{ms:.3f} ms ({what}), max |err| against the plain version "
-        f"{err:.3e}, device kernels {[n[:80] for n in names]}")
+        f"{ms:.3f} ms (device {sum(kernels.values()) / 1e3:.3f} ms; {what})"
+        f", max |err| against the plain version {err:.3e}, device kernels "
+        f"{[n[:80] for n in sorted(kernels)]}")
     return ms
 
 
 def _blhd_case(name, B, Lq, Lk, H, KV, D, dtype, tol, gen, *, bias=None,
-               timed=False, library=False) -> dict:
+               timed=False, library=False, body=False, repeat=False,
+               stats=False) -> dict:
     """K3 vs plain (``_xla_attention``) on BLHD inputs; with ``library``,
-    also one SDPA call on the same inputs."""
+    also one SDPA call on the same inputs; ``body``, ``repeat`` and
+    ``stats`` as for K1 (``_kernel_case``)."""
     import torch
     from mmada_parallel_torch.ops.attention import _xla_attention
+    from mmada_parallel_torch.ops.attention_bwd import (
+        attention_stats_reference)
     from mmada_parallel_torch.ops.flash_attention import flash_attention
     dev = torch.device("cuda")
     q = torch.randn(B, Lq, H, D, generator=gen, device=dev).to(dtype)
@@ -1022,10 +1156,22 @@ def _blhd_case(name, B, Lq, Lk, H, KV, D, dtype, tol, gen, *, bias=None,
     v = torch.randn(B, Lk, KV, D, generator=gen, device=dev).to(dtype)
     desc = (f"{_desc(B, Lq, Lk, H, KV, D, dtype)}"
             f"{' bias' if bias is not None else ''}")
-    rec = _compare(f"K3 {name}", desc,
-                   lambda: flash_attention(q, k, v, bias),
+
+    def call(with_stats=False):
+        return flash_attention(q, k, v, bias, with_stats=with_stats)
+
+    rec = _compare(f"K3 {name}", desc, call,
                    lambda: _xla_attention(q, k, v, bias), tol, timed,
                    _work(q, k, v, H, bias), dtype)
+    if body:
+        _check_tensor_core_body(f"K3 {name}", call, "attention_ws_kernel")
+        _same_as_old_body(f"K3 {name}", q, k, v, bias,
+                          *call(with_stats=True))
+    if repeat:
+        _repeat_bitwise(f"K3 {name}", lambda: call(with_stats=True))
+    if stats:
+        _check_stats(f"K3 {name}", call(with_stats=True)[1],
+                     attention_stats_reference(q, k, bias))
     rec["library_ms"] = _sdpa_ms(f"K3 {name}", q, k, v, bias) \
         if library else None
     return rec
@@ -1040,7 +1186,7 @@ def phase_kernel_blhd() -> dict:
     L, H, D = EDIT_L, EDIT_H, EDIT_D
     dev = torch.device("cuda")
     a1 = _blhd_case("a/B1", 1, L, L, H, H, D, bf16, BF16_TOL, gen,
-                    timed=True, library=True)
+                    timed=True, library=True, body=True, repeat=True)
     recs = [a1, _blhd_case("a/B2", 2, L, L, H, H, D, bf16, BF16_TOL, gen,
                            timed=True, library=True)]
     # padding bias (rows of 2000 and 1500) and one real row fully masked
@@ -1064,7 +1210,11 @@ def phase_kernel_blhd() -> dict:
     b5 = _pad_bias([301, 250], 190, 301, dev)
     b5[0, 0, 7, :] = -1e30
     recs.append(_blhd_case("e/odd-Lk bias", 2, 190, 301, 4, 2, 64, bf16,
-                           BF16_TOL, gen, bias=b5.contiguous()))
+                           BF16_TOL, gen, bias=b5.contiguous(), stats=True))
+    # B=2 with Lq and Lk off the 128-row and 128-key tiles: the last tiles'
+    # rows meet the batch boundary (the tensor maps' zero fill)
+    recs.append(_blhd_case("e/B2-boundary", 2, 1000, 1000, 8, 8, D, bf16,
+                           BF16_TOL, gen, stats=True))
     return dict(a1, max_abs_err=max(r["max_abs_err"] for r in recs))
 
 
@@ -2723,6 +2873,7 @@ def phase_small_eval() -> None:
 # tensor-core GEMM (``nvjet``, other ``gemm``) takes bf16 operands.
 _KERNEL_CLASSES = (
     ("attention kernels K1-K4", ("attention_kernel", "attention_mma_kernel",
+                                 "attention_ws_kernel",
                                  "split_combine_kernel",
                                  "rope_rotate_kernel")),
     ("attention backward kernels", ("attention_bwd_", "bwd_delta_kernel",
@@ -2734,6 +2885,14 @@ _KERNEL_CLASSES = (
     ("reductions", ("reduce",)),
     ("elementwise, copies, other", ("",)),
 )
+
+
+def _kernel_class(name: str) -> str:
+    """The class of ``_KERNEL_CLASSES`` a device kernel's name falls in (the
+    first whose keys it contains, lower case)."""
+    low = name.lower()
+    return next(cls for cls, keys in _KERNEL_CLASSES
+                if any(k in low for k in keys))
 
 
 def _profile(phase: str, fn, top: int = 6, ranges=()) -> dict:
@@ -2763,10 +2922,7 @@ def _profile(phase: str, fn, top: int = 6, ranges=()) -> dict:
     per_kernel = {}
     for e in kernels:
         us = e.time_range.end - e.time_range.start
-        low = e.name.lower()
-        cls = next(name for name, keys in _KERNEL_CLASSES
-                   if any(k in low for k in keys))
-        per_class[cls] += us / 1e3
+        per_class[_kernel_class(e.name)] += us / 1e3
         n, t = per_kernel.get(e.name, (0, 0.0))
         per_kernel[e.name] = (n + 1, t + us / 1e3)
     total = sum(per_class.values())

@@ -1,12 +1,12 @@
 // Packed bidirectional flash attention on Hopper's tensor cores (sm_90a),
-// bf16 only, head dim D in {64, 128}.  The bf16 body of all four attention
-// kernels; their f32 paths stay on the FMA template of attention_kernel.cuh
-// (tensor cores would compute f32 in TF32).
+// bf16 only, head dim D in {64, 128}.  The bf16 body of K2 and K4; their
+// f32 paths stay on the FMA template of attention_kernel.cuh (tensor cores
+// would compute f32 in TF32).  K1 and K3 run the warp-specialised body of
+// attention_ws.cuh, which keeps this contract and reuses this header's
+// layouts and wgmma wrappers.
 //
-//   flash_attention.cu               K3  q, k, v as stored
-//   flash_attention_rope.cu          K1  q and k rotated once per call by the
-//                                        pre-pass (rope_rotate.cuh)
-//   flash_attention_rope_qonly.cu    K2  q rotated by the pre-pass, k/v the
+//   flash_attention_rope_qonly.cu    K2  q rotated by the pre-pass
+//                                        (rope_rotate.cuh), k/v the
 //                                        pre-rotated caches; kSplit (split-K
 //                                        grid) when the grid is small
 //   flash_attention_rope_prefix.cu   K4  q and k rotated by the pre-pass;
@@ -22,7 +22,7 @@
 //   out[b, i, h*D:(h+1)*D] = softmax(q_h . k_g^T * scale + bias) . v_g,
 //   g = h / (H / KV) (any GQA ratio).
 //
-// Two compile-time flags, both off for K1 and K3:
+// Two compile-time flags, both off for K2 when it does not split:
 //
 //   kPrefix  (K4) int32 bounds kv_hi [B, Lq] in place of a bias: row i
 //            attends to keys kv < clamp(kv_hi[b, i], 1, Lk) (rows >= Lq to
@@ -266,6 +266,43 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// The bias of one key tile in the accumulator's layout (below): for n8
+// block jn of kNb, bz[4 jn + e] is the bias of row (e >> 1 ? hi : lo) at
+// key k0 + 8 jn + 2 tig + (e & 1), 0 at keys >= Lk.  float2 loads when Lk
+// is even (the row starts and the key are even, so the pair is aligned and
+// key + 1 < Lk with key), scalar loads of the same positions when it is odd.
+template <int kNb>
+__device__ __forceinline__ void load_bias(float (&bz)[kNb * 4],
+                                          const float* lo_row,
+                                          const float* hi_row, int k0,
+                                          int tig, int Lk) {
+  const bool vec = (Lk & 1) == 0;
+#pragma unroll
+  for (int jn = 0; jn < kNb; ++jn) {
+    const int col = k0 + jn * 8 + 2 * tig;
+    float2 lo = make_float2(0.f, 0.f), hi = make_float2(0.f, 0.f);
+    if (vec) {
+      if (col < Lk) {
+        lo = *reinterpret_cast<const float2*>(lo_row + col);
+        hi = *reinterpret_cast<const float2*>(hi_row + col);
+      }
+    } else {
+      if (col < Lk) {
+        lo.x = lo_row[col];
+        hi.x = hi_row[col];
+      }
+      if (col + 1 < Lk) {
+        lo.y = lo_row[col + 1];
+        hi.y = hi_row[col + 1];
+      }
+    }
+    bz[4 * jn] = lo.x;
+    bz[4 * jn + 1] = lo.y;
+    bz[4 * jn + 2] = hi.x;
+    bz[4 * jn + 3] = hi.y;
+  }
+}
+
 // Accumulator layout of wgmma m64nN (and of mma.m16n8 per n8 block): for
 // warp w of the warpgroup and lane = 4 * gid + tig, d[4 * j + e] sits at row
 // 16 * w + gid + 8 * (e >> 1), column 8 * j + 2 * tig + (e & 1).
@@ -376,7 +413,6 @@ attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bias_lo = bias + ((long long)b * Lq + min(row_lo, Lq - 1)) * Lk;
     bias_hi = bias + ((long long)b * Lq + min(row_hi, Lq - 1)) * Lk;
   }
-  const bool bias_vec = (Lk & 1) == 0;
   const float scale_log2 = scale * kLog2e;
 
   uint32_t qf[D / 16][4];
@@ -423,32 +459,7 @@ attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // the bias of this tile in the accumulator's layout, issued first so
     // that its latency hides behind the barrier and the next S
     float bz[kN * 4];
-    if constexpr (kBias) {
-#pragma unroll
-      for (int jn = 0; jn < kN; ++jn) {
-        const int col = k0 + jn * 8 + 2 * tig;
-        float2 lo = make_float2(0.f, 0.f), hi = make_float2(0.f, 0.f);
-        if (bias_vec) {
-          if (col < Lk) {  // Lk even and col even: col + 1 < Lk as well
-            lo = *reinterpret_cast<const float2*>(bias_lo + col);
-            hi = *reinterpret_cast<const float2*>(bias_hi + col);
-          }
-        } else {
-          if (col < Lk) {
-            lo.x = bias_lo[col];
-            hi.x = bias_hi[col];
-          }
-          if (col + 1 < Lk) {
-            lo.y = bias_lo[col + 1];
-            hi.y = bias_hi[col + 1];
-          }
-        }
-        bz[4 * jn] = lo.x;
-        bz[4 * jn + 1] = lo.y;
-        bz[4 * jn + 2] = hi.x;
-        bz[4 * jn + 3] = hi.y;
-      }
-    }
+    if constexpr (kBias) load_bias<kN>(bz, bias_lo, bias_hi, k0, tig, Lk);
 
     // Tile j+1 has landed (its group is the newest); after the barrier
     // every warp is done with tile j-1, whose stage takes tile j+2.
@@ -688,16 +699,6 @@ int run(const Args& a, int D, cudaStream_t stream) {
   if (D == 128) return (int)launch_bias<128, kPrefix, kSplit>(a, stream);
   if (D == 64) return (int)launch_bias<64, kPrefix, kSplit>(a, stream);
   return (int)cudaErrorInvalidValue;
-}
-
-// K1 and K3: no bounds, no split; lse may be null.
-inline int dispatch(const void* q, const void* k, const void* v,
-                    const float* bias, void* out, float* lse, int B, int Lq,
-                    int Lk, int H, int KV, int D, float scale,
-                    cudaStream_t stream) {
-  const Args a{q, k, v, bias, nullptr, out, nullptr, nullptr, lse,
-               B, Lq, Lk, H, KV, 1, scale};
-  return run(a, D, stream);
 }
 
 }  // namespace tc

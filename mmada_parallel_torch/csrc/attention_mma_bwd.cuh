@@ -62,7 +62,8 @@
 // in both passes:
 //
 // * 384 threads: two consumer warpgroups (warps 0-7) run the wgmmas and the
-//   softmax; the producer warpgroup (warps 8-11) keeps the ring full.
+//   softmax; the producer warpgroup (warps 8-11) keeps the ring full (the
+//   pieces are hopper_pipeline.cuh's, shared with the forward body).
 //   setmaxnreg gives the consumers 232 registers a thread and the
 //   producer 40.  A consumer's gain comes only from what the producer gives
 //   back of the launch's 168 a thread: 128 x (168 - 40) = 256 x (232 -
@@ -141,20 +142,11 @@
 
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums; the driver library is not
-                   // linked: cuTensorMapEncodeTiled comes through the
-                   // runtime's cudaGetDriverEntryPoint
-
-#include "attention_mma.cuh"
+#include "hopper_pipeline.cuh"
 
 namespace {
 namespace tc {
 
-constexpr int kBwdThreads = 3 * 128;  // 2 consumer warpgroups + the producer
-constexpr int kConsumerRegs = 232;
-constexpr int kProducerRegs = 40;
-constexpr int kSmemMax = 232448;      // dynamic shared memory a block may use
-constexpr int kMaxStages = 4;
 constexpr int kBiasTileBytes = 64 * 128 * 4;  // [64 q][128 keys] or [128][64]
 constexpr int kStatsBytes = 64 * 12;          // 64 rows' (m, log2 l), delta
 
@@ -187,85 +179,6 @@ static_assert(bwd_smem<128, true, true>(bwd_stages<128, true, true>()) <=
                   kSmemMax,
               "a backward pass's ring does not fit in shared memory");
 
-#define TC_F8(i)                                                      \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),         \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d[64 x 64] += A[64 x 16] . B[16 x 64], both from shared memory through
-// their descriptors, both K-major.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : TC_F8(0), TC_F8(8), TC_F8(16), TC_F8(24)
-      : "l"(da), "l"(db));
-}
-
-#undef TC_F8
-
-// Descriptor of the 16-wide k step kk of a [64][D] tile read as a K-major
-// operand (rows are M or N, columns the contraction), and of the 16-row k
-// step kk of one read as an MN-major operand (rows are the contraction).
-__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
-  return desc_sw128(tile + (kk >> 2) * kBlockBytes + (kk & 3) * 32, 0, 1024);
-}
-
-__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kk) {
-  return desc_sw128(tile + kk * 2048, kBlockBytes, 1024);
-}
-
-__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
-
-// ---- mbarriers, TMA, named barriers, register reallocation ----
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile(
-      "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
-          bar)
-      : "memory");
-}
-
-// this thread's arrival, and `bytes` more to come from TMA in this phase
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "{\n.reg .b64 st;\n"
-      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
-          bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
 // an arrival on `bar` once this thread's earlier cp.async copies have
 // landed (counted in the barrier's expected arrivals)
 __device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
@@ -285,38 +198,6 @@ __device__ __forceinline__ void cp_async_n(uint32_t dst, const void* src,
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
                "l"(src), "n"(N), "r"(valid ? N : 0)
                : "memory");
-}
-
-// one box of a 3-D tensor map at coordinates (c0 innermost, c1, c2) into
-// shared memory at dst, completing its bytes on bar
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
-// the consumer warpgroups' turn-taking (ids 1 and 2; 0 is __syncthreads)
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
-}
-
-__device__ __forceinline__ void named_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // Byte offset of f32 element (row r, key c) of a staged bias tile: boxes of
@@ -383,7 +264,7 @@ bwd_delta_kernel(const bf16* __restrict__ out, const bf16* __restrict__ dout,
 // + 8 * (e >> 1) (a key of this warpgroup's 64) and column 8 * j + 2 * tig +
 // (e & 1) (a q row of the tile, or a dim of dK/dV).
 template <int D, bool kBias>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kWsThreads, 1)
 attention_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_do,
                           const __grid_constant__ CUtensorMap tm_k,
@@ -622,7 +503,7 @@ attention_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
 // The dQ pass: accumulator rows are this warpgroup's q rows, columns keys
 // of the tile (S, dP) or dims (dQ).
 template <int D, bool kBias>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kWsThreads, 1)
 attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_do,
                         const __grid_constant__ CUtensorMap tm_k,
@@ -857,49 +738,6 @@ struct BwdArgs {
   float scale;
 };
 
-// cuTensorMapEncodeTiled from the driver, through the runtime (the library
-// links no libcuda); null when the driver does not have it
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// A 3-D map over a contiguous [batch, rows, cols] tensor (cols innermost)
-// of elem-byte elements: boxes of box_cols x box_rows x 1, 128-byte swizzle,
-// zeros past every edge.  False if it cannot be encoded.
-inline bool encode_3d(CUtensorMap* map, const void* base,
-                      CUtensorMapDataType type, int elem, long long cols,
-                      long long rows, long long batch, int box_cols,
-                      int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
-                              (cuuint64_t)batch};
-  const cuuint64_t strides[2] = {(cuuint64_t)(cols * elem),
-                                 (cuuint64_t)(rows * cols * elem)};
-  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D, bool kBias>
 cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   const long long n_rows = (long long)a.B * a.Lq * a.H;
@@ -940,7 +778,7 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
                              smem_kv);
   if (err != cudaSuccess) return err;
   attention_bwd_dkdv_kernel<D, kBias>
-      <<<dim3(a.KV, (a.Lk + kRows - 1) / kRows, a.B), kBwdThreads, smem_kv,
+      <<<dim3(a.KV, (a.Lk + kRows - 1) / kRows, a.B), kWsThreads, smem_kv,
          stream>>>(tm_q, tm_do, tm_k, tm_v, tm_bkv, a.bias, bias_tma, lse,
                    a.delta, static_cast<bf16*>(a.dk),
                    static_cast<bf16*>(a.dv), a.Lq, a.Lk, a.H, a.KV, a.scale);
@@ -953,7 +791,7 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
                              smem_q);
   if (err != cudaSuccess) return err;
   attention_bwd_dq_kernel<D, kBias>
-      <<<dim3(a.H, (a.Lq + kRows - 1) / kRows, a.B), kBwdThreads, smem_q,
+      <<<dim3(a.H, (a.Lq + kRows - 1) / kRows, a.B), kWsThreads, smem_q,
          stream>>>(tm_q, tm_do, tm_k, tm_v, tm_bq, a.bias, bias_tma, lse,
                    a.delta, static_cast<bf16*>(a.dq), a.Lq, a.Lk, a.H, a.KV,
                    a.scale);

@@ -3,8 +3,8 @@
 // Replaces the TPU kernel mmada_parallel_tpu/ops/flash_attention.py ::
 // flash_attention / _kernel: q [B, Lq, H, D], k/v [B, Lk, KV, D], optional f32
 // bias [B, 1, Lq, Lk], GQA.  A contiguous BLHD tensor is the packed
-// [B, L, H*D] layout.  bf16 runs the tensor-core body (attention_mma.cuh);
-// f32 runs the FMA template with both rotation flags off
+// [B, L, H*D] layout.  bf16 runs the warp-specialised tensor-core body
+// (attention_ws.cuh); f32 runs the FMA template with both rotation flags off
 // (attention_kernel.cuh), since tensor cores would compute it in TF32.  One
 // difference from the Pallas kernel: it pads keys to its block size with
 // -1e30 and returns zeros only when the row sum is 0, so a fully masked row
@@ -13,7 +13,7 @@
 // (_xla_attention) gives.
 
 #include "attention_kernel.cuh"
-#include "attention_mma.cuh"
+#include "attention_ws.cuh"
 
 // C entry point, bound with ctypes.  dtype: 0 = float32, 1 = bfloat16.  bias
 // may be null.  lse (bf16 only, may be null): f32 [B, H, Lq, 2] row

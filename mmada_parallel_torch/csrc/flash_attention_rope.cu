@@ -7,8 +7,8 @@
 //
 // bf16: the rotation is done once per call, not once per q tile.  A pre-pass
 // (rope_rotate_kernel, rope_rotate.cuh) rotates q and k into bf16 scratch
-// tensors that the caller allocates, then the tensor-core body
-// (attention_mma.cuh) runs on them.  The rotated k is read from L2/HBM by
+// tensors that the caller allocates, then the warp-specialised tensor-core
+// body (attention_ws.cuh) runs on them.  The rotated k is read from L2/HBM by
 // every q tile instead of being recomputed from two f32 tables per tile;
 // the pre-pass moves ~2x the bytes of q and k once (memory bound, a few
 // percent of the attention's time).
@@ -18,7 +18,7 @@
 #include <stdint.h>
 
 #include "attention_kernel.cuh"
-#include "attention_mma.cuh"
+#include "attention_ws.cuh"
 #include "rope_rotate.cuh"
 
 // The bf16 pre-pass alone (K1 runs it inside mmada_flash_attention_rope): x

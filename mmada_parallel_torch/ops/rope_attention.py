@@ -9,9 +9,9 @@ kernels are ported as hand-written CUDA kernels:
   wrapper and :func:`flash_attention_rope_reference` its plain PyTorch
   version (reshape -> fp32 RoPE -> eager softmax attention -> reshape).  In
   bf16 it rotates q and k once per call into scratch tensors
-  (:func:`rope_rotate` runs that pre-pass alone) and runs the tensor-core
-  body ``csrc/attention_mma.cuh``; in f32 it rotates on load in the FMA
-  template ``csrc/attention_kernel.cuh``;
+  (:func:`rope_rotate` runs that pre-pass alone) and runs the
+  warp-specialised tensor-core body ``csrc/attention_ws.cuh``; in f32 it
+  rotates on load in the FMA template ``csrc/attention_kernel.cuh``;
 * ``flash_attention_rope_qonly`` (K2, q rotated, k a pre-rotated cache) as
   ``csrc/flash_attention_rope_qonly.cu``; :func:`flash_attention_rope_qonly`
   and :func:`flash_attention_rope_qonly_reference`.  In bf16 it rotates q
@@ -26,8 +26,10 @@ kernels are ported as hand-written CUDA kernels:
   :func:`flash_attention_rope_prefix_reference`.  In bf16 it rotates q and
   k once, as K1, and runs the tensor-core body with the bounds.
 
-All four kernels run the tensor-core body ``csrc/attention_mma.cuh`` in
-bf16 and the FMA template ``csrc/attention_kernel.cuh`` in f32.
+In bf16 K1 (and K3, ``ops/flash_attention.py``) run the warp-specialised
+body ``csrc/attention_ws.cuh``, K2 and K4 the tensor-core body
+``csrc/attention_mma.cuh``; in f32 all four run the FMA template
+``csrc/attention_kernel.cuh``.
 
 The raw launchers return tensors with no autograd history; they raise when
 grad is enabled and an input requires grad, so that gradients go through
@@ -56,7 +58,7 @@ __all__ = ["rope_tensor", "apply_rope", "rope_rotate", "plan_splits",
 NEG_INF = -1e30
 _KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the tensor-core body's tiles (csrc/attention_mma.cuh kRows, kKeys)
+# K2's tensor-core body's tiles (csrc/attention_mma.cuh kRows, kKeys)
 Q_TILE, K_TILE = 128, 64
 
 

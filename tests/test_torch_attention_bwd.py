@@ -219,11 +219,11 @@ ptxas info    : Used 168 registers, used 3 barriers
 
 
 def test_bwd_ptxas_report_reads_each_pass():
-    """``chip_smoke.bwd_ptxas`` takes each backward pass's registers and
+    """``chip_smoke.ptxas_entries`` takes each backward pass's registers and
     spill bytes from the ``-Xptxas -v`` report the build keeps, by pass, D
     and bias, and nothing of the other kernels."""
     import chip_smoke
-    assert chip_smoke.bwd_ptxas(PTXAS_LOG) == {
+    assert chip_smoke.ptxas_entries(PTXAS_LOG) == {
         ("dkdv", 128, True): (168, 44, 64), ("dq", 64, False): (168, 0, 0)}
 
 

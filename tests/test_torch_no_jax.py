@@ -9,8 +9,8 @@ reports what got imported.  The paths: the exact and the cached
 ``TI2TIPipeline`` edit, and the exact and the cached ``InterleavePipeline``
 with an array already at the resolution; and a tiny variant-A train step
 (with remat, masking, the M forward and the task bounds); and the imports
-of ``chip_smoke.py`` and of the A trainer's CLI, data pipeline and
-logging; and the evaluation slice (a jsonl ParaBench export with
+of ``chip_smoke.py``, ``chip_ab.py`` and of the A trainer's CLI, data
+pipeline and logging; and the evaluation slice (a jsonl ParaBench export with
 ``datasets`` blocked too, the edit sweep dense and W8A8, the cached
 interleave sweep, a ParaRL rollout and update, the eval and ParaRL CLIs);
 and the M trainer's slice (the CLI, the data layer with its native tar
@@ -187,6 +187,7 @@ class Block(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, Block())
 
 import chip_smoke
+import chip_ab
 from mmada_parallel_torch.cli import train_a
 # what train_a.main() imports before it reads its data
 from mmada_parallel_torch.data import AItemProcessor, MetaDataset

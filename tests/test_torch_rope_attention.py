@@ -199,8 +199,8 @@ def test_kernel_matches_plain_on_cuda(cuda_device):
         torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
-# The bf16 tensor-core body's edges (csrc/attention_mma.cuh): D=64; Lq and
-# Lk that are not multiples of the 128-row q tile or the 64-key tile, and
+# The bf16 tensor-core body's edges (csrc/attention_ws.cuh): D=64; Lq and
+# Lk that are not multiples of the 128-row q tile or the key tile, and
 # Lq != Lk; GQA; per-row tables with a padding bias and a fully masked row;
 # an odd Lk with a bias (scalar bias loads).  (B, Lq, Lk, H, KV, D, ragged)
 BF16_EDGES = [(2, 333, 333, 8, 8, 64, False), (1, 197, 517, 8, 2, 128, False),
@@ -243,6 +243,43 @@ def test_tensor_core_body_edges_on_cuda(cuda_device, B, Lq, Lk, H, KV, D,
     assert TR.flash_attention_rope.launches == before + 1
     want = TR.flash_attention_rope_reference(q, k, v, s, c, bias, **kw)
     torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Lq,Lk,H,KV,D,ragged",
+                         BF16_EDGES + [(2, 1000, 1000, 8, 8, 128, False),
+                                       (2, 1000, 1000, 32, 8, 128, True)])
+def test_ws_body_stats_and_repeat_on_cuda(cuda_device, B, Lq, Lk, H, KV, D,
+                                          ragged):
+    """K1's bf16 path (pre-pass + the warp-specialised body,
+    ``csrc/attention_ws.cuh``): its row statistics against the plain
+    softmax's on the rotated inputs (``packed_stats_reference``, at
+    ``test_stats_are_the_softmax``'s tolerance), output and statistics bit
+    for bit on a second launch.  B=2 at Lq = Lk = 1000 puts the last q and
+    key tiles at the batch boundary."""
+    from mmada_parallel_torch.models.llada import _rope_sin_cos
+    from mmada_parallel_torch.ops.attention_bwd import packed_stats_reference
+    g = torch.Generator(device=cuda_device).manual_seed(Lq + Lk)
+    q, k, v = (torch.randn(B, n, h * D, generator=g, device=cuda_device
+                           ).bfloat16() for n, h in ((Lq, H), (Lk, KV),
+                                                     (Lk, KV)))
+    s, c = _rope_sin_cos(max(Lq, Lk), D, 10000.0, cuda_device)
+    bias = None
+    if ragged:
+        pos, bias = _ragged_inputs(B, Lq, D, cuda_device, (Lq, Lq // 2 + 3))
+        s, c = s[pos].contiguous(), c[pos].contiguous()
+    kw = dict(n_heads=H, n_kv_heads=KV)
+    got, stats = TR.flash_attention_rope(q, k, v, s, c, bias, **kw,
+                                         with_stats=True)
+    again, stats_again = TR.flash_attention_rope(q, k, v, s, c, bias, **kw,
+                                                 with_stats=True)
+    assert torch.equal(got, again) and torch.equal(stats, stats_again)
+    want = TR.flash_attention_rope_reference(q, k, v, s, c, bias, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    tables = TR._split_tables(s, c, Lq, Lk)
+    torch.testing.assert_close(
+        stats, packed_stats_reference(q, k, *tables, bias, H, KV),
+        atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.cuda
