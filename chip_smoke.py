@@ -17,9 +17,10 @@ Phases (each prints its own lines; any failure exits non-zero):
    NCCL is available, torch/CUDA versions, TF32 off;
 1. build: one ``nvcc`` per ``mmada_parallel_torch/csrc/*.cu`` for sm_90a,
    all at once, then one link; one line with the registers and spill
-   bytes of the warp-specialised kernels, the forward body and the
-   backward's dK/dV and dQ passes, at D=64 and 128 with and without a bias
-   (ptxas; a forward entry missing fails);
+   bytes of the warp-specialised kernels, the forward body (plain, split,
+   one-warpgroup and prefix instances) and the backward's dK/dV and dQ
+   passes, at D=64 and 128 with and without a bias (ptxas; a forward entry
+   missing, or any entry spilling, fails);
 2. the four attention kernels against their plain PyTorch versions on the
    card, timed with CUDA events against them and against their bound (the
    larger of FLOPs over the 989 TFLOP/s bf16 peak and bytes over 3.35 TB/s),
@@ -27,19 +28,18 @@ Phases (each prints its own lines; any failure exits non-zero):
    K1's bf16 rotation pre-pass bitwise against ``rope_tensor``; K1 fused
    RoPE at the edit's shapes (bf16: pre-pass + the warp-specialised body;
    at B=1 and at the M trainer's shape its device kernels checked to be
-   those two and its output and statistics to be the previous body's
-   (``attention_mma.cuh``, through K2's unsplit path) bit for bit; at B=1
-   two launches bit for bit, and one SDPA call on its pre-rotated q/k
+   those two; at B=1 two launches bit for bit, and one SDPA call on its pre-rotated q/k
    beside it as the body's yardstick, not the same function), K2
    q-only RoPE at the cached samplers' partial and full shapes (bf16:
-   pre-pass + the tensor-core body, split-K with its combine kernel where
-   the planner splits; each case prints its split count), K3 BLHD at the
-   edit shape (bf16: the warp-specialised body, its device kernel checked,
-   the previous body's output bit for bit, two launches bit for bit) with
+   pre-pass + the warp-specialised body, split-K with its combine kernel
+   where the planner splits; each case prints its split count, and the
+   split sweeps each count's device time beside the planner's choice), K3
+   BLHD at the edit shape (bf16: the warp-specialised body, its device
+   kernel checked, two launches bit for bit) with
    one
    ``scaled_dot_product_attention`` call beside it as the library yardstick,
    K4 prefix bounds at the A-train shape and a mixed task batch (bf16:
-   pre-pass + the tensor-core body with the bounds; with K1 on the
+   pre-pass + the warp-specialised body with the bounds; with K1 on the
    equivalent dense bias beside it at 2424 and 5120, the crossover
    ``rope_attention_prefix``'s ``auto`` would want, and ``auto``'s choice at
    both lengths checked by launch counts), each at small f32 shapes, every
@@ -53,8 +53,8 @@ Phases (each prints its own lines; any failure exits non-zero):
    row); SDPA
    on pre-rotated inputs beside K2 and K4 as a yardstick for their
    attention part (not the same function: no rotation); the device kernel
-   names of one K2 and one K4 bf16 call (the tensor-core body, not the FMA
-   template); the backward kernels of K1, K2 and K3
+   names of K2's split and unsplit and one K4 bf16 call (the
+   warp-specialised body, not the FMA template); the backward kernels of K1, K2 and K3
    (``csrc/attention_bwd.cu``) against their plain versions in bf16 at the
    body's edges (forced K2 splits, the bias staged by TMA and by cp.async,
    one q tile, G = 4, B = 2 off the tiles), two launches bit for bit,
@@ -320,26 +320,38 @@ def phase_build() -> None:
                 or "wgmma" in line:
             log(f"[build] ptxas: {line.strip()}")
     passes = ptxas_entries(report)
-    missing = [(D, bias) for D in (64, 128) for bias in (False, True)
-               if ("fwd", D, bias) not in passes]
+    missing = [(body, D, bias) for D in (64, 128)
+               for body, biases in (("fwd", (False, True)),
+                                    ("fwd-split", (False, True)),
+                                    ("fwd-solo", (False, True)),
+                                    ("fwd-split-solo", (False, True)),
+                                    ("fwd-prefix", (False,)))
+               for bias in biases if (body, D, bias) not in passes]
     if missing:
         raise AssertionError(f"the forward body attention_ws_kernel was not "
-                             f"compiled for (D, bias) {missing}")
+                             f"compiled for (flags, D, bias) {missing}")
     log("[build] warp-specialised passes (ptxas -v): " + "; ".join(
         f"{name} D={D}{' bias' if bias else ''} {regs} registers, "
         f"{stores}/{loads} bytes spill stores/loads"
         for (name, D, bias), (regs, stores, loads) in sorted(passes.items())))
+    spilled = [key for key, (_, stores, loads) in passes.items()
+               if stores or loads]
+    if spilled:
+        raise AssertionError(f"warp-specialised entries spill: {spilled}")
 
 
 def ptxas_entries(report: str) -> dict:
     """``{(pass, D, bias): (registers, spill store bytes, spill load
     bytes)}`` of the warp-specialised kernels (the forward body ``fwd``,
-    the backward's ``dkdv`` and ``dq`` passes), from the ``-Xptxas -v``
+    with ``-split`` (K2's split-K), ``-prefix`` (K4's bounds) or ``-solo``
+    (K2 at Lq <= 64 on one consumer warpgroup) for its flags; the
+    backward's ``dkdv`` and ``dq`` passes), from the ``-Xptxas -v``
     report ``ops/_cuda.build()`` keeps beside the library.  The registers
     are the launch's (the consumers raise theirs with ``setmaxnreg``)."""
     import re
     entry = re.compile(r"Compiling entry function '\S*?attention_"
-                       r"(bwd_dkdv|bwd_dq|ws)_kernelILi(\d+)ELb([01])E")
+                       r"(bwd_dkdv|bwd_dq|ws)_kernelILi(\d+)ELb([01])E"
+                       r"(?:Lb([01])ELb([01])E(?:Lb([01])E)?)?")
     spill = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
     used = re.compile(r"Used (\d+) registers")
     names = {"bwd_dkdv": "dkdv", "bwd_dq": "dq", "ws": "fwd"}
@@ -347,7 +359,10 @@ def ptxas_entries(report: str) -> dict:
     for line in report.splitlines():
         m = entry.search(line)
         if m:
-            key = (names[m.group(1)], int(m.group(2)), m.group(3) == "1")
+            name = names[m.group(1)] + "".join(
+                f"-{flag}" for flag, on in zip(("split", "prefix", "solo"),
+                                               m.groups()[3:]) if on == "1")
+            key = (name, int(m.group(2)), m.group(3) == "1")
             spills = (0, 0)
             continue
         if key is None:
@@ -531,40 +546,11 @@ def _repeat_bitwise(name: str, fn) -> None:
         f"statistics)")
 
 
-def _same_as_old_body(name: str, q4, k4, v4, bias, out, stats) -> None:
-    """``out`` and ``stats`` (a bf16 K1 or K3 call on the BLHD inputs
-    ``q4``, ``k4``, ``v4`` after any rotation) equal, bit for bit, those of
-    the tensor-core body K1 and K3 ran before the warp-specialised one:
-    ``attention_mma.cuh``, reached through K2's unsplit path with identity
-    rotation tables (cos 1, sin 0: the pre-pass copies q exactly)."""
-    import torch
-    from mmada_parallel_torch.ops.rope_attention import (
-        _sm_count, flash_attention_rope_qonly, plan_splits)
-    B, Lq, H, D = q4.shape
-    Lk, KV = k4.shape[1], k4.shape[2]
-    if plan_splits(B, H, Lq, Lk, _sm_count(q4.device)) != 1:
-        raise AssertionError(f"{name}: K2 would split at this shape")
-    cos = torch.ones(Lq, D, device=q4.device)
-    old, old_stats = flash_attention_rope_qonly(
-        q4.reshape(B, Lq, H * D), k4.reshape(B, Lk, KV * D),
-        v4.reshape(B, Lk, KV * D), torch.zeros_like(cos), cos, bias,
-        n_heads=H, n_kv_heads=KV, with_stats=True)
-    torch.cuda.synchronize()
-    if not (torch.equal(out.reshape(old.shape), old)
-            and torch.equal(stats, old_stats)):
-        raise AssertionError(f"{name}: the warp-specialised body differs "
-                             f"from attention_mma.cuh's")
-    log(f"[kernel] {name}: output and statistics equal those of the "
-        f"previous body (attention_mma.cuh, through K2's unsplit path) bit "
-        f"for bit")
-
-
 def _kernel_case(name, B, Lq, Lk, H, KV, D, dtype, tol, gen, *,
                  bias=None, per_row_pos=None, timed=False, body=False,
                  repeat=False, stats=False, sdpa=False) -> dict:
     """K1 vs plain on one shape.  bf16 only: ``body`` checks the device
-    kernels are the pre-pass and the warp-specialised body and that its
-    output equals the previous body's bit for bit, ``repeat`` that two
+    kernels are the pre-pass and the warp-specialised body, ``repeat`` that two
     launches are bitwise equal, ``stats`` the row statistics against the
     plain softmax's; ``sdpa`` times one SDPA call on K1's pre-rotated q/k
     (``sdpa_ms``: the body's yardstick, not the same function)."""
@@ -595,14 +581,12 @@ def _kernel_case(name, B, Lq, Lk, H, KV, D, dtype, tol, gen, *,
         lambda: flash_attention_rope_reference(q, k, v, sin, cos, bias,
                                                **kw), tol, timed,
         _work(q, k, v, H, bias, sin, cos), dtype)
-    if body or stats or sdpa:
+    if stats or sdpa:
         sq, cq, sk, ck = _split_tables(sin, cos, Lq, Lk)
         q4 = rope_tensor(q.view(B, Lq, H, D), sq, cq, True)
         k4 = rope_tensor(k.view(B, Lk, KV, D), sk, ck, True)
     if body:
-        _check_tensor_core_body(f"K1 {name}", call, "attention_ws_kernel")
-        _same_as_old_body(f"K1 {name}", q4, k4, v.view(B, Lk, KV, D), bias,
-                          *call(with_stats=True))
+        _check_tensor_core_body(f"K1 {name}", call)
     if repeat:
         _repeat_bitwise(f"K1 {name}", lambda: call(with_stats=True))
     if stats:
@@ -790,7 +774,7 @@ def _qonly_case(name, B, Lq, Lk, H, KV, D, dtype, tol, gen, *,
         sin, cos = sin[:Lq].contiguous(), cos[:Lq].contiguous()
     kw = dict(n_heads=H, n_kv_heads=KV)
     splits = 1 if dtype == torch.float32 else (
-        n_split or plan_splits(B, H, Lq, Lk, _sm_count(dev)))
+        n_split or plan_splits(B, H, Lq, Lk, _sm_count(dev), D, KV))
     desc = (f"{_desc(B, Lq, Lk, H, KV, D, dtype)} "
             f"{'per-row' if per_row else 'shared'}"
             f"{' sigma-gathered' if positions is not None else ''} tables"
@@ -885,28 +869,25 @@ def _short_kernel(name: str) -> str:
             .removeprefix("void ").replace("tc::", ""))
 
 
-def _check_tensor_core_body(name: str, fn,
-                            body: str = "attention_mma_kernel") -> None:
-    """A bf16 call of ``fn`` must run the tensor-core body ``body`` (K2 and
-    K4 ``attention_mma_kernel``, K1 and K3 the warp-specialised
-    ``attention_ws_kernel``), no other body and no FMA-template
-    ``attention_kernel``; prints each device kernel's time in that call
-    (profiler on)."""
+def _check_tensor_core_body(name: str, fn) -> None:
+    """A bf16 call of ``fn`` (K1-K4) must run the warp-specialised body
+    ``attention_ws_kernel`` and no FMA-template ``attention_kernel``; prints
+    each device kernel's time in that call (profiler on)."""
     names = _device_kernels(fn, name)
-    bodies = [n for n in names
-              if "attention_mma_kernel" in n or "attention_ws_kernel" in n]
     fma = [n for n in names if "::attention_kernel<" in n]
-    if not bodies or any(body not in n for n in bodies) or fma:
+    if not any("attention_ws_kernel" in n for n in names) or fma:
         raise AssertionError(f"{name}: bf16 device kernels {list(names)}, "
-                             f"expected {body} and no FMA template")
+                             f"expected attention_ws_kernel and no FMA "
+                             f"template")
     short = [f"{_short_kernel(n)} {us:.1f} us" for n, us in names.items()]
     log(f"[kernel] {name} bf16 device kernels: {short}")
 
 
-def _split_sweep(B, Lq, Lk, H, D, counts) -> None:
-    """K2 in bf16 at one shape with its split count forced to each of
-    ``counts``: the device time of one call (all its kernels, profiler on),
-    beside the planner's choice."""
+def _split_sweep(B, Lq, Lk, H, D, counts) -> dict:
+    """K2 in bf16 at one shape (KV = H, shared tables) with its split count
+    forced to each of ``counts`` and to the planner's: the device time of
+    one call (all its kernels, profiler on), the planner's choice beside the
+    fastest count.  Returns ``{count: device us}``."""
     import torch
     from mmada_parallel_torch.ops.rope_attention import (
         _sm_count, flash_attention_rope_qonly, plan_splits)
@@ -915,8 +896,9 @@ def _split_sweep(B, Lq, Lk, H, D, counts) -> None:
     k, v = (torch.randn(B, Lk, H * D, device=dev).to(torch.bfloat16)
             for _ in range(2))
     sin, cos = (t[:Lq].contiguous() for t in _rope_tables(Lk, D, dev))
+    plan = plan_splits(B, H, Lq, Lk, _sm_count(dev), D, H)
     us = {}
-    for n in counts:
+    for n in sorted({*counts, plan}):
         with _forced_splits(n):
             def call():
                 return flash_attention_rope_qonly(q, k, v, sin, cos,
@@ -924,9 +906,12 @@ def _split_sweep(B, Lq, Lk, H, D, counts) -> None:
             call()
             us[n] = sum(_device_kernels(
                 call, f"K2 split sweep {n}").values())
-    log(f"[kernel] K2 split sweep B={B} Lq={Lq} Lk={Lk}: device us by "
-        f"split count {{{', '.join(f'{n}: {t:.1f}' for n, t in us.items())}}}"
-        f"; planner {plan_splits(B, H, Lq, Lk, _sm_count(dev))}")
+    best = min(us, key=us.get)
+    log(f"[kernel] K2 split sweep B={B} Lq={Lq} Lk={Lk} H=KV={H}: device us "
+        f"by split count {{{', '.join(f'{n}: {t:.1f}' for n, t in us.items())}}}"
+        f"; planner {plan} ({us[plan]:.1f} us), fastest {best} "
+        f"({us[best]:.1f} us)")
+    return us
 
 
 def _m_sequence_length() -> int:
@@ -1058,14 +1043,20 @@ def phase_kernel_qonly() -> dict:
         bias=_pad_bias([300, 250], 40, 300, dev).contiguous()))
     recs.append(_qonly_case("e/f32-D64", 1, 100, 260, 4, 4, 64, f32,
                             F32_TOL, gen))
-    # (g) the tensor-core body's bf16 edges: one q row; 65 rows (one row
-    # into the second warpgroup); a forced split with a padding bias and a
+    # (g) the bf16 body's edges: one q row; 64 rows (warpgroup 0 alone) and
+    # 65 (one row into the second warpgroup); a last q tile of 22 rows
+    # (warpgroup 0 alone there, both in the first) in a persistent walk of
+    # 384 split items at B=2; a forced split with a padding bias and a
     # row masked on every key (mean(v) across splits, and splits masked for
     # every row of batch row 1); GQA 32/8 split by the planner; D=64 split;
     # a forced split of ragged Lq/Lk with GQA
     recs.append(_qonly_case("g/Lq1", 1, 1, L, H, H, D, bf16, BF16_TOL, gen))
+    recs.append(_qonly_case("g/Lq64", 1, 64, L, H, H, D, bf16, BF16_TOL,
+                            gen))
     recs.append(_qonly_case("g/Lq65", 1, 65, L, H, H, D, bf16, BF16_TOL,
                             gen))
+    recs.append(_qonly_case("g/solo-tail", 2, 150, 517, H, 8, D, bf16,
+                            BF16_TOL, gen, n_split=3))
     b7 = _pad_bias([300, 170], 40, 300, dev)
     b7[0, 0, 7, :] = -1e30
     recs.append(_qonly_case("g/split-masked", 2, 40, 300, 4, 2, D, bf16,
@@ -1082,21 +1073,21 @@ def phase_kernel_qonly() -> dict:
                        H, D, bf16, BF16_TOL, gen, timed=True)
            for Lk in sorted(set(_t2i_a_lengths()))]
     recs += t2i
-    # the device kernels of a split and of an unsplit bf16 call
+    # the device kernels of the planned, an unsplit and a split bf16 call
     q, k = (torch.randn(1, n, H * D, device=dev).to(bf16) for n in (16, L))
     sin, cos = _rope_tables(16, D, dev)
-    for n_split in (None, 1):
+    for n_split in (None, 1, 4):
         with _forced_splits(n_split):
             _check_tensor_core_body(
                 f"K2 Lq=16 Lk={L} split "
-                f"{'planned' if n_split is None else 1}",
+                f"{'planned' if n_split is None else n_split}",
                 lambda: flash_attention_rope_qonly(q, k, k, sin, cos,
                                                    n_heads=H))
     # the planner's choice against other split counts, by device time
-    for B, Lq, Lk, counts in ((1, 16, L, (1, 2, 4, 5, 8, 12, 19, 38)),
-                              (2, 308, Lm, (1, 2, 3, 4)),
+    for B, Lq, Lk, counts in ((1, 16, L, (1, 2, 3, 4, 5, 8, 38)),
+                              (2, 308, Lm, (1, 2, 3)),
                               (1, T2I_A_PARTIAL, max(_t2i_a_lengths()),
-                               (1, 2, 3, 5, 9, 18))):
+                               (1, 2, 3, 4, 6, 18))):
         _split_sweep(B, Lq, Lk, H, D, counts)
     log(f"[kernel] K2 A-partial B=1 Lq=16 (split {a['splits']}): "
         f"{a['ms']:.3f} ms; A-full B=1 L={L}: {full['ms']:.3f} ms; "
@@ -1164,9 +1155,7 @@ def _blhd_case(name, B, Lq, Lk, H, KV, D, dtype, tol, gen, *, bias=None,
                    lambda: _xla_attention(q, k, v, bias), tol, timed,
                    _work(q, k, v, H, bias), dtype)
     if body:
-        _check_tensor_core_body(f"K3 {name}", call, "attention_ws_kernel")
-        _same_as_old_body(f"K3 {name}", q, k, v, bias,
-                          *call(with_stats=True))
+        _check_tensor_core_body(f"K3 {name}", call)
     if repeat:
         _repeat_bitwise(f"K3 {name}", lambda: call(with_stats=True))
     if stats:
@@ -1298,14 +1287,18 @@ def phase_kernel_prefix() -> dict:
     hi[1, :7] = 10_000
     recs.append(_prefix_case("e/edge bounds", 2, 200, 260, 4, 4, 128, f32,
                              F32_TOL, gen, hi.to(torch.int32)))
-    # (f) the tensor-core body's bf16 edges: D=64 causal with GQA 8/2 at an
-    # Lq that is no multiple of the 128-row q tile; bounds 0, negative and
-    # past Lk with Lq != Lk; a mixed batch at D=64
+    # (f) the bf16 body's edges: D=64 causal with GQA 8/2 at an Lq that is
+    # no multiple of the 128-row q tile; bounds 0, negative and past Lk
+    # with Lq != Lk; a last q tile of 22 rows (warpgroup 0 alone) in a walk
+    # of 192 items; a mixed batch at D=64
     recs.append(_prefix_case("f/D64-causal-gqa", 2, 333, 333, 8, 2, 64,
                              bf16, BF16_TOL, gen, _causal_bounds(2, 333,
                                                                  dev)))
     recs.append(_prefix_case("f/edge bounds", 2, 200, 260, 4, 4, 128, bf16,
                              BF16_TOL, gen, hi.to(torch.int32)))
+    recs.append(_prefix_case("f/solo-tail causal", 3, 150, 150, H, 8, D,
+                             bf16, BF16_TOL, gen,
+                             _causal_bounds(3, 150, dev)))
     recs.append(_prefix_case(
         "f/mixed-D64", 3, 300, 300, 4, 2, 64, bf16, BF16_TOL, gen,
         mixed_prefix_bounds(300, 1, 1, 1, ((20, 140),), 60,
@@ -2872,8 +2865,7 @@ def phase_small_eval() -> None:
 # so an f32 GEMM runs on the FMA pipes (``sgemm``, ``f32f32`` kernels) and a
 # tensor-core GEMM (``nvjet``, other ``gemm``) takes bf16 operands.
 _KERNEL_CLASSES = (
-    ("attention kernels K1-K4", ("attention_kernel", "attention_mma_kernel",
-                                 "attention_ws_kernel",
+    ("attention kernels K1-K4", ("attention_kernel", "attention_ws_kernel",
                                  "split_combine_kernel",
                                  "rope_rotate_kernel")),
     ("attention backward kernels", ("attention_bwd_", "bwd_delta_kernel",
@@ -4805,7 +4797,7 @@ def phase_kernel_ring() -> tuple:
     small = _ring_qonly_case("ring/f32", 2, 96, 2, 64, torch.float32,
                              F32_TOL, gen)
     _split_sweep(1, EDIT_L // (2 * RING_G), EDIT_L, H, EDIT_D,
-                 (1, 2, 4, 8, 19, 38))
+                 (1, 2, 3, 4, 6, 38))
     log(f"[kernel] K2 at the ring's chunk, g={RING_G}: B=1 Lq="
         f"{EDIT_L // (2 * RING_G)} Lk={EDIT_L} H=KV={H} (split "
         f"{one['splits']}): {one['ms']:.3f} ms, bound {one['bound_ms']:.4f} "
@@ -4818,6 +4810,8 @@ def phase_kernel_ring() -> tuple:
         EDIT_D, torch.bfloat16, BF16_TOL, gen, timed=True,
         positions=sigma_positions(2, EDIT_L // 2, 1)[EDIT_L // 4:
                                                      EDIT_L // 2])
+    _split_sweep(1, EDIT_L // 4, EDIT_L, EDIT_H // 2, EDIT_D,
+                 (1, 2, 3, 4, 13))
     log(f"[kernel] K2 at the ring's training chunk, g=2: B=1 Lq="
         f"{EDIT_L // 4} Lk={EDIT_L} H=KV={EDIT_H // 2} (split "
         f"{train['splits']}): {train['ms']:.3f} ms, bound "

@@ -1,7 +1,7 @@
 // Packed bidirectional flash attention for Hopper (sm_90a) in f32 on the
 // FMA pipes: the f32 path of the four attention kernels of the port (their
-// bf16 path is the tensor-core body of attention_mma.cuh; tensor cores
-// would compute f32 in TF32).  One template, three compile-time flags:
+// bf16 path is the warp-specialised tensor-core body of attention_ws.cuh;
+// tensor cores would compute f32 in TF32).  One template, three compile-time flags:
 //
 //   kRopeQ    rotate q on load (f32 Neox RoPE from sin_q/cos_q tables);
 //   kRopeK    rotate k on load (from sin_k/cos_k tables);

@@ -1,4 +1,4 @@
-// The gradient of the bf16 tensor-core attention (attention_mma.cuh) on
+// The gradient of the bf16 tensor-core attention (attention_ws.cuh) on
 // Hopper's tensor cores (sm_90a), head dim D in {64, 128}.  K1, K2 and K3's
 // backward (attention_bwd.cu); K1 and K2 first rotate q (and K1 k) with the
 // forward's pre-pass and afterwards send dq (and dk) back through the
@@ -9,7 +9,7 @@
 // _packed_qonly_diff_fn), which recompute the plain chain and leave it to
 // XLA to fuse.  For out = softmax(q.k^T * scale + bias).v with GQA
 // (g = h / (H / KV)), given dout, the forward's out and its row statistics
-// (m, log2 l) (attention_mma.cuh's lse), it computes
+// (m, log2 l) (attention_ws.cuh's lse), it computes
 //
 //   delta = rowsum(dout o out)                          (f32; bwd_delta_kernel)
 //   P     = 2^((x - m) - log2 l),  x the forward's base-2 score

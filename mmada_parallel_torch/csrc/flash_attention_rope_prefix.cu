@@ -12,16 +12,16 @@
 // q tile's highest bound; a causal mask at the A-train shape (L = 5120,
 // H = 32, D = 128) needs about half of K1's 4*H*L*L*D flops, with no [L, L]
 // bias read from memory.  What its design does about it: bf16 rotates q and
-// k once with the pre-pass (rope_rotate.cuh), then runs the tensor-core body
-// (attention_mma.cuh) with kPrefix: each block clamps its rows' bounds,
-// takes their maximum and loops over 64-key tiles only up to it (the Pallas
-// kernel's chunk skip); inside a tile, columns at or past a row's bound get
-// p = 0; the longest (last) q tiles are issued first.  f32 runs the FMA
+// k once with the pre-pass (rope_rotate.cuh), then runs the warp-specialised
+// tensor-core body (attention_ws.cuh) with kPrefix: each work item clamps
+// its rows' bounds, takes their maximum and loops over 64-key tiles only up
+// to it (the Pallas kernel's chunk skip); inside a tile, columns at or past
+// a row's bound get p = 0; the longest (last) q tiles are walked first.  f32 runs the FMA
 // template (attention_kernel.cuh, kRopeQ = kRopeK = kPrefix = true), since
 // tensor cores would compute f32 in TF32.
 
 #include "attention_kernel.cuh"
-#include "attention_mma.cuh"
+#include "attention_ws.cuh"
 #include "rope_rotate.cuh"
 
 // C entry point, bound with ctypes.  dtype: 0 = float32, 1 = bfloat16.
@@ -49,5 +49,5 @@ extern "C" int mmada_flash_attention_rope_prefix(
   if (err != cudaSuccess) return (int)err;
   const tc::Args a{q_rot, k_rot, v, nullptr, kv_hi, out, nullptr, nullptr,
                    nullptr, B, Lq, Lk, H, KV, 1, scale};
-  return tc::run<true, false>(a, D, s);
+  return tc::run<false, true>(a, D, s);
 }

@@ -10,16 +10,17 @@
 // What bounds it: a cached sampler's full refresh (Lq = Lk ~ 2400) is bound
 // by the tensor cores, as K1 is; its partial steps (Lq = 16..308 against
 // Lk ~ 2400) by reading K/V once.  bf16: the pre-pass (rope_rotate.cuh)
-// rotates q once into bf16 scratch, then the tensor-core body
-// (attention_mma.cuh) runs on (q_rot, k, v, bias).  Where B*H*ceil(Lq/128)
-// blocks would leave SMs idle, the caller's planner (rope_attention.py
-// plan_splits) asks for n_split > 1: the body runs split-K into f32 scratch
-// and split_combine_kernel merges the splits.  f32: the FMA template
+// rotates q once into bf16 scratch, then the warp-specialised tensor-core
+// body (attention_ws.cuh) runs on (q_rot, k, v, bias).  Where
+// B*H*ceil(Lq/128) work items would leave SMs idle, the caller's planner
+// (rope_attention.py plan_splits, which weighs the idle SMs against the
+// bytes of the split's partials) asks for n_split > 1: the body runs
+// split-K into f32 scratch and split_combine_kernel merges the splits.  f32: the FMA template
 // (attention_kernel.cuh, kRopeQ = true, kRopeK = false) rotates on load,
 // since tensor cores would compute f32 in TF32.
 
 #include "attention_kernel.cuh"
-#include "attention_mma.cuh"
+#include "attention_ws.cuh"
 #include "rope_rotate.cuh"
 
 // C entry point, bound with ctypes.  dtype: 0 = float32, 1 = bfloat16.
@@ -47,6 +48,5 @@ extern "C" int mmada_flash_attention_rope_qonly(
   if (err != cudaSuccess) return (int)err;
   const tc::Args a{q_rot, k, v, bias, nullptr, out, o_part, ml, lse,
                    B, Lq, Lk, H, KV, n_split, scale};
-  return n_split > 1 ? tc::run<false, true>(a, D, s)
-                     : tc::run<false, false>(a, D, s);
+  return tc::run<true, false>(a, D, s);
 }

@@ -1,6 +1,6 @@
 // The bf16 rotation pre-pass of the tensor-core paths (sm_90a): K1 and K4
 // rotate q and k with it, K2 rotates q, each into bf16 scratch that the
-// caller allocates, once per call; the body (attention_mma.cuh) then reads
+// caller allocates, once per call; the body (attention_ws.cuh) then reads
 // the rotated tensors.  Memory bound: it moves ~2x the bytes of the tensor
 // it rotates, a few percent of the attention's time at the main shapes.
 // The C entry point that runs it alone, mmada_rope_rotate, is defined in

@@ -15,20 +15,20 @@ kernels are ported as hand-written CUDA kernels:
 * ``flash_attention_rope_qonly`` (K2, q rotated, k a pre-rotated cache) as
   ``csrc/flash_attention_rope_qonly.cu``; :func:`flash_attention_rope_qonly`
   and :func:`flash_attention_rope_qonly_reference`.  In bf16 it rotates q
-  once into scratch and runs the tensor-core body; where the grid would
-  leave SMs idle (a cached partial step), :func:`plan_splits` says into how
-  many contiguous ranges the kernel cuts each head's key tiles (split-K);
-  a second kernel combines their partial softmax states;
+  once into scratch and runs the warp-specialised body; where the grid
+  would leave SMs idle (a cached partial step), :func:`plan_splits` says
+  into how many contiguous ranges the kernel cuts each head's key tiles
+  (split-K), weighing the idle SMs against the bytes of the partial
+  softmax states, which a second kernel combines;
 * ``flash_attention_rope_prefix`` (K4, K1 with a per-row prefix mask
   ``kv < kv_hi[b, q]`` in place of a bias, skipping key tiles past a q
   tile's highest bound) as ``csrc/flash_attention_rope_prefix.cu``;
   :func:`flash_attention_rope_prefix` and
   :func:`flash_attention_rope_prefix_reference`.  In bf16 it rotates q and
-  k once, as K1, and runs the tensor-core body with the bounds.
+  k once, as K1, and runs the warp-specialised body with the bounds.
 
-In bf16 K1 (and K3, ``ops/flash_attention.py``) run the warp-specialised
-body ``csrc/attention_ws.cuh``, K2 and K4 the tensor-core body
-``csrc/attention_mma.cuh``; in f32 all four run the FMA template
+In bf16 all four (K3 in ``ops/flash_attention.py``) run the
+warp-specialised body ``csrc/attention_ws.cuh``; in f32 the FMA template
 ``csrc/attention_kernel.cuh``.
 
 The raw launchers return tensors with no autograd history; they raise when
@@ -49,6 +49,7 @@ from typing import Optional, Tuple
 import torch
 
 __all__ = ["rope_tensor", "apply_rope", "rope_rotate", "plan_splits",
+           "split_cost",
            "flash_attention_rope",
            "flash_attention_rope_reference", "flash_attention_rope_qonly",
            "flash_attention_rope_qonly_reference",
@@ -58,7 +59,7 @@ __all__ = ["rope_tensor", "apply_rope", "rope_rotate", "plan_splits",
 NEG_INF = -1e30
 _KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# K2's tensor-core body's tiles (csrc/attention_mma.cuh kRows, kKeys)
+# the bf16 body's tiles (csrc/attention_mma.cuh kRows, kKeys)
 Q_TILE, K_TILE = 128, 64
 
 
@@ -274,29 +275,79 @@ def rope_rotate(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor, *,
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def plan_splits(B: int, H: int, Lq: int, Lk: int, sm_count: int) -> int:
-    """How many key ranges (split-K) K2's bf16 launch cuts each (head, q
-    tile, batch row) into, for a card with ``sm_count`` SMs.
+# K2's split planner's constants: a 64-key tile of an item in us, its rows
+# in one warpgroup (Lq <= 64) or in two; an item's fixed cost in us; the
+# combine's launch in us; bytes a us.  Fitted by ``python3 chip_ab.py
+# --sweep`` on an NVIDIA H100 80GB HBM3 at 700 W (see plan_splits).
+SPLIT_COSTS = {"tile_us": (0.75, 1.05), "item_us": 1.98, "combine_us": 1.87,
+               "bytes_per_us": 5.15e6}
 
-    The body runs one block per (head, 128-row q tile, batch row), one
-    block per SM.  With at least ``sm_count`` such blocks the grid covers
-    the card: 1.  Fewer (a cached partial step: B=1, H=32, Lq=16 gives 32)
-    leave SMs idle, so the key tiles are split (split ``s`` of ``S`` takes
-    tiles ``[s*n//S, (s+1)*n//S)`` of the ``n`` 64-key tiles), at least
-    enough for the grid to cover every SM and at most one tile per split,
-    so no range is empty; among those counts the one with the fewest
-    tile-times (waves of blocks x the longest range) wins, the smallest on
-    a tie.  Cached: a sampler asks for the same few shapes at every
-    step."""
-    blocks = B * H * math.ceil(Lq / Q_TILE)
+
+def split_cost(S: int, B: int, H: int, Lq: int, Lk: int, sm_count: int,
+               D: int = 128, KV: Optional[int] = None,
+               costs: Optional[dict] = None) -> float:
+    """The modelled device time (us) of K2's bf16 body and combine with its
+    key tiles cut into ``S`` ranges, up to a constant: :func:`plan_splits`'s
+    model with the constants ``costs`` (:data:`SPLIT_COSTS` when None)."""
+    c = SPLIT_COSTS if costs is None else costs
+    KV = H if KV is None else KV
+    items = B * H * math.ceil(Lq / Q_TILE)
     n_tiles = math.ceil(Lk / K_TILE)
-    if blocks >= sm_count or n_tiles <= 1:
+    active = min(items * S, sm_count)
+    # a tile's K and V, each kv head's read once from memory (the q heads of
+    # a GQA group share theirs through L2)
+    tile_bytes = 2 * K_TILE * D * 2 * KV / H
+    tile_us = max(c["tile_us"][Lq > Q_TILE // 2],
+                  active * tile_bytes / c["bytes_per_us"])
+    waves = math.ceil(items * S / sm_count)
+    body = waves * (math.ceil(n_tiles / S) * tile_us + c["item_us"])
+    if S == 1:
+        return body
+    return body + c["combine_us"] + (2 * S * B * Lq * H * D * 4
+                                     / c["bytes_per_us"])
+
+
+@functools.lru_cache(maxsize=None)
+def plan_splits(B: int, H: int, Lq: int, Lk: int, sm_count: int,
+                D: int = 128, KV: Optional[int] = None) -> int:
+    """How many key ranges (split-K) K2's bf16 launch cuts each (head, q
+    tile, batch row) into, for a card with ``sm_count`` SMs (head dim
+    ``D``, ``KV`` key/value heads, H when None).
+
+    The body walks (head, 128-row q tile, split, batch row) items on one
+    block per SM.  With at least ``sm_count`` items unsplit the grid covers
+    the card: 1.  Fewer (a cached partial step: B=1, H=32, Lq=16 gives 32)
+    leave SMs idle, so the key tiles may be split (split ``s`` of ``S``
+    takes tiles ``[s*n//S, (s+1)*n//S)`` of the ``n`` 64-key tiles, so no
+    range is empty), at the count of least modelled device time
+    (:func:`split_cost`), the smallest on a tie:
+
+    * the body: the waves of items, ``ceil(B*H*ceil(Lq/128)*S / sm_count)``,
+      times an item's longest range in tiles plus its fixed cost.  A tile
+      takes its compute time (less when warpgroup 1 holds no row, Lq <= 64)
+      or, if longer, the time the active items take to read their tiles'
+      K and V bytes (``2*64*D*2*KV/H`` a tile) at the memory rate;
+    * split, the combine: its launch and its traffic, the f32 partials
+      written by the body and read back, ``2*S*B*Lq*H*D*4`` bytes.
+
+    The constants (:data:`SPLIT_COSTS`) are a least-squares fit of the
+    model's relative error to K2's device time by forced split count at 10
+    shapes, 86 counts (``python3 chip_ab.py --sweep`` on an NVIDIA H100
+    80GB HBM3 at 700 W: relative error 0.059 rms; a second run refit them
+    within 6 % and its fit picked the same counts).  The sweep reads the
+    same K/V on every call, so they sit in the 50 MB L2 and the fitted rate
+    (5.15 TB/s) is above the device memory's 3.35.  In both runs the model
+    picks the fastest count at the cached edit's partial step (Lq=16: 4),
+    the cached A text-to-image's (Lq=103, Lk=1109: 4), the ring's serving
+    chunk (Lq=303, H=8: 5) and its training chunk (Lq=606, H=16: 3).
+    Cached: a sampler asks for the same few shapes at every step."""
+    items = B * H * math.ceil(Lq / Q_TILE)
+    n_tiles = math.ceil(Lk / K_TILE)
+    if items >= sm_count or n_tiles <= 1:
         return 1
-    least = min(math.ceil(sm_count / blocks), n_tiles)
-    return min(range(least, n_tiles + 1),
-               key=lambda S: (math.ceil(blocks * S / sm_count)
-                              * math.ceil(n_tiles / S), S))
+    return min(range(1, n_tiles + 1),
+               key=lambda S: (split_cost(S, B, H, Lq, Lk, sm_count, D, KV),
+                              S))
 
 
 @functools.lru_cache(maxsize=None)
@@ -321,7 +372,7 @@ def _launch_qonly(q, k, v, sin_q, cos_q, bias, H: int, KV: int,
         check_aligned("flash_attention_rope_qonly", 16, q, k, v, sin_q,
                       cos_q)
         check_aligned("flash_attention_rope_qonly", 8, bias)
-        n_split = plan_splits(B, H, Lq, Lk, _sm_count(q.device))
+        n_split = plan_splits(B, H, Lq, Lk, _sm_count(q.device), D, KV)
         q_rot = torch.empty_like(q)
         if n_split > 1:
             rows = n_split * B * Lq * H

@@ -117,10 +117,11 @@ def test_ws_body_stats_and_repeat_on_cuda(cuda_device, B, Lq, Lk, H, KV, D,
 @pytest.mark.parametrize("B,Lq,Lk,H,KV,D,bias", WS_CASES[-2:])
 def test_ws_body_equals_the_previous_body_on_cuda(cuda_device, B, Lq, Lk, H,
                                                   KV, D, bias):
-    """The warp-specialised body computes what the previous body
-    (``csrc/attention_mma.cuh``, still K2's) computed, bit for bit: K2's
-    unsplit path (512 blocks, no split on a 132-SM card) on the same q, k,
-    v with identity rotation tables."""
+    """K3 and K2's unsplit path (512 work items, no split on a 132-SM card)
+    with identity rotation tables run the same warp-specialised body on the
+    same q, k, v and give the same output and statistics bit for bit (the
+    body's equality with the cp.async body before it is recorded by
+    ``chip_ab.py --against``)."""
     from mmada_parallel_torch.ops import rope_attention as TR
     g = torch.Generator(device=cuda_device).manual_seed(Lq + Lk + 1)
     q, k, v = (torch.randn(B, n, h, D, generator=g, device=cuda_device
@@ -128,7 +129,8 @@ def test_ws_body_equals_the_previous_body_on_cuda(cuda_device, B, Lq, Lk, H,
                                                      (Lk, KV)))
     b = torch.tensor(_bias(B, Lq, Lk), device=cuda_device) if bias \
         else None
-    assert TR.plan_splits(B, H, Lq, Lk, TR._sm_count(cuda_device)) == 1
+    assert TR.plan_splits(B, H, Lq, Lk, TR._sm_count(cuda_device), D,
+                          KV) == 1
     got, stats = TF.flash_attention(q, k, v, b, with_stats=True)
     cos = torch.ones(Lq, D, device=cuda_device)
     old, old_stats = TR.flash_attention_rope_qonly(
@@ -151,16 +153,33 @@ ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__b4e1a1c2_18_flash_att
 ptxas info    : Function properties for _ZN48_GLOBAL__N__b4e1a1c2_18_flash_attention_cu_5f2f1a6e2tc19attention_ws_kernelILi64ELb1EEEv14CUtensorMap_stS2_S2_PKfP13__nv_bfloat16P6float2iiiif
     8 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
 ptxas info    : Used 168 registers, used 3 barriers, 8 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__0c2d6f7a_26_flash_attention_rope_qonly_cu_3e0a1b2c2tc19attention_ws_kernelILi128ELb1ELb1ELb0ELb1EEEv14CUtensorMap_stS2_S2_PKfPKiP13__nv_bfloat16PfP6float2SC_iiiiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN48_GLOBAL__N__0c2d6f7a_26_flash_attention_rope_qonly_cu_3e0a1b2c2tc19attention_ws_kernelILi128ELb1ELb1ELb0ELb1EEEv14CUtensorMap_stS2_S2_PKfPKiP13__nv_bfloat16PfP6float2SC_iiiiiif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 3 barriers
+ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__5d1e9c3b_27_flash_attention_rope_prefix_cu_7a4f2e1d2tc19attention_ws_kernelILi64ELb0ELb0ELb1ELb0EEEv14CUtensorMap_stS2_S2_PKfPKiP13__nv_bfloat16PfP6float2SC_iiiiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN48_GLOBAL__N__5d1e9c3b_27_flash_attention_rope_prefix_cu_7a4f2e1d2tc19attention_ws_kernelILi64ELb0ELb0ELb1ELb0EEEv14CUtensorMap_stS2_S2_PKfPKiP13__nv_bfloat16PfP6float2SC_iiiiiif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 3 barriers
+ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__5d1e9c3b_20_flash_attention_cu_7a4f2e1d2tc19attention_ws_kernelILi128ELb1ELb0ELb0ELb0EEEv14CUtensorMap_stS2_S2_PKfPKiP13__nv_bfloat16PfP6float2SC_iiiiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN48_GLOBAL__N__5d1e9c3b_20_flash_attention_cu_7a4f2e1d2tc19attention_ws_kernelILi128ELb1ELb0ELb0ELb0EEEv14CUtensorMap_stS2_S2_PKfPKiP13__nv_bfloat16PfP6float2SC_iiiiiif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 3 barriers
 """
 
 
 def test_ptxas_report_reads_the_forward_body():
     """``chip_smoke.ptxas_entries`` takes the warp-specialised forward
-    body's registers and spill bytes by D and bias, and nothing of the
-    other bodies (the K2/K4 ``attention_mma_kernel``)."""
+    body's registers and spill bytes by its flags (split-K, prefix bounds,
+    one consumer warpgroup), D and bias, from names with and without the
+    flags, and nothing of
+    another body (the retired ``attention_mma_kernel``)."""
     import chip_smoke
     assert chip_smoke.ptxas_entries(FWD_PTXAS_LOG) == {
-        ("fwd", 128, False): (168, 0, 0), ("fwd", 64, True): (168, 8, 12)}
+        ("fwd", 128, False): (168, 0, 0), ("fwd", 64, True): (168, 8, 12),
+        ("fwd-split-solo", 128, True): (168, 0, 0),
+        ("fwd-prefix", 64, False): (168, 0, 0),
+        ("fwd", 128, True): (168, 0, 0)}
 
 
 def test_ab_variants_apply_to_the_forward_body():
@@ -182,17 +201,15 @@ def test_ab_variants_apply_to_the_forward_body():
 
 
 def test_profile_classes_the_attention_bodies():
-    """``chip_smoke._profile`` counts the warp-specialised body (K1, K3)
-    with the attention kernels, as it counts K2's and K4's body, the f32
-    template, the pre-pass and the combine, and the backward apart."""
+    """``chip_smoke._profile`` counts the warp-specialised body (K1-K4)
+    with the attention kernels, as it counts the f32 template, the pre-pass
+    and the combine, and the backward apart."""
     import chip_smoke
     fwd = "attention kernels K1-K4"
     for name, cls in (
             ("void (anonymous namespace)::tc::attention_ws_kernel<128, false>"
              "(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float const*)",
              fwd),
-            ("void (anonymous namespace)::tc::attention_mma_kernel<128, false,"
-             " false, false>(__nv_bfloat16 const*)", fwd),
             ("void (anonymous namespace)::attention_kernel<128, true, true>()",
              fwd),
             ("void (anonymous namespace)::rope_rotate_kernel<128>()", fwd),

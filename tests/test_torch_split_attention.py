@@ -2,13 +2,14 @@
 arithmetic of the kernel written out in plain PyTorch.
 
 * ``plan_splits`` (``ops/rope_attention.py``) with ``split_ranges`` (the
-  kernel's cut, ``csrc/attention_mma.cuh`` kSplit): the ranges partition
+  kernel's cut, ``csrc/attention_ws.cuh`` kSplit): the ranges partition
   the key tiles ``[0, ceil(Lk/64))`` into contiguous,
   non-empty pieces, no split starts at or past Lk, a grid that already
-  covers the SMs is not split, and a cached partial step's grid is split
-  until it covers them.
+  covers the SMs is not split, the count is the least of the planner's
+  modelled device time (``split_cost``), and at the shapes swept on an
+  H100 it is the card's fastest count (PERF.md).
 * ``split_combine``: per split, the unnormalised ``o`` and the row's max
-  ``m`` and sum ``l`` in base 2 (as ``csrc/attention_mma.cuh`` keeps them),
+  ``m`` and sum ``l`` in base 2 (as ``csrc/attention_ws.cuh`` keeps them),
   then ``out = sum_s 2^(m_s - m*) o_s / sum_s 2^(m_s - m*) l_s``.  It equals
   ``flash_attention_rope_qonly_reference`` at atol = rtol = 1e-5 in f32 (the
   same math up to summation order and one rescale per split), and JAX's
@@ -74,16 +75,50 @@ def test_planner_partitions_key_tiles(B, H, Lq, Lk, sms):
         assert lo * TR.K_TILE < Lk            # no split starts past Lk
     if blocks >= sms:
         assert S == 1
-    elif n_tiles >= math.ceil(sms / blocks):
-        assert blocks * S >= sms
+    else:                                     # the least modelled time
+        cost = TR.split_cost(S, B, H, Lq, Lk, sms)
+        assert all(cost <= TR.split_cost(n, B, H, Lq, Lk, sms)
+                   for n in range(1, n_tiles + 1))
 
 
 def test_planner_covers_the_card_at_the_partial_step():
-    """B=1, Lq=16, Lk=2424, H=32: 32 blocks unsplit; the split grid
-    reaches at least the H100's 132 SMs."""
+    """B=1, Lq=16, Lk=2424, H=32: 32 items unsplit; the split grid runs in
+    one wave on at least 90 % of the H100's 132 SMs (4 splits, 128 items:
+    a fifth split would start a second wave); a card of 32 SMs is covered
+    unsplit."""
     S = TR.plan_splits(1, 32, 16, 2424, H100_SMS)
-    assert 32 * S >= H100_SMS
+    assert 0.9 * H100_SMS <= 32 * S <= H100_SMS
     assert TR.plan_splits(1, 32, 16, 2424, 32) == 1
+
+
+# K2's device time by forced split count on an NVIDIA H100 80GB HBM3 at
+# 700 W (chip_ab.py --sweep; PERF.md section 6): each swept shape's fastest
+# count, and any count within 3 % of it
+SWEPT_FASTEST = {
+    (1, 32, 16, 2424): {4},      # the cached A edit's partial step
+    (1, 32, 103, 1109): {4},     # the cached A text-to-image's
+    (1, 8, 303, 2424): {4, 5},   # the ring's serving chunk (g = 4)
+    (1, 16, 606, 2424): {3},     # the ring's training chunk (g = 2)
+}
+
+
+@pytest.mark.parametrize("shape", sorted(SWEPT_FASTEST))
+def test_planner_picks_the_cards_fastest_count(shape):
+    B, H, Lq, Lk = shape
+    assert TR.plan_splits(B, H, Lq, Lk, H100_SMS, 128, H) in \
+        SWEPT_FASTEST[shape]
+
+
+@pytest.mark.parametrize("B,H,Lq,Lk,KV", [
+    (1, 32, 2424, 2424, 32),          # the cached A edit's full refresh
+    (2, 32, 2360, 2360, 32),          # the M full refresh
+    (2, 32, 308, 2360, 32),           # the M partial step: 192 items
+    (2, 32, 308, 2360, 8),
+    (1, 32, 606, 2424, 32),           # 160 items
+    (5, 32, 16, 2424, 32),
+])
+def test_planner_does_not_split_a_covered_card(B, H, Lq, Lk, KV):
+    assert TR.plan_splits(B, H, Lq, Lk, H100_SMS, 128, KV) == 1
 
 
 def split_combine(q, k, v, sin_q, cos_q, bias, H, KV, n_split):
