@@ -438,37 +438,39 @@ def assemble_batch(group, get_code, tokenizer, up, generator, cfg, device):
     from mmada_parallel_torch.data.prompting import encode_output_texts
     from mmada_parallel_torch.tokens import TOKENS_M
     from mmada_parallel_torch.training.masking import interleave_noising
+    from mmada_parallel_torch.utils.spans import span
 
-    tr = cfg.training
-    msl = cfg.dataset.preprocessing.max_seq_length
-    px_in = np.concatenate([np.asarray(g["pixels_in"]) for g in group])
-    px_out = np.concatenate([np.asarray(g["pixels_out"]) for g in group])
-    codes_in = get_code(px_in).cpu().numpy() + TOKENS_M.vq_offset
-    codes_out = get_code(px_out).to(device) + TOKENS_M.vq_offset
-    texts_in = [g["instruction"] for g in group]
-    out_text_ids, out_text_lens = encode_output_texts(
-        tokenizer, [g["output_text"] for g in group], msl)
-    noisy_img, img_lab, noisy_txt, txt_lab, t = interleave_noising(
-        generator, codes_out, torch.as_tensor(out_text_ids, device=device),
-        eps=tr.min_masking_rate, mask_token=TOKENS_M.mask)
-    noisy_img, img_lab, noisy_txt, txt_lab = (
-        x.cpu().numpy() for x in (noisy_img, img_lab, noisy_txt, txt_lab))
-    if up is not None:
-        seq, labels, mask = up.interleave(
-            codes_in, texts_in, noisy_img, noisy_txt, txt_lab,
-            cond_dropout_prob=tr.cond_dropout_prob,
-            output_image_labels=img_lab,
-            output_text_lengths=out_text_lens,
-            is_text_only=[g["is_text_only"] for g in group])
-    else:  # tiny debug path without a tokenizer
-        seq = np.concatenate([codes_in, noisy_img, noisy_txt], 1)
-        labels = np.concatenate(
-            [np.full_like(codes_in, -100), img_lab, txt_lab], 1)
-        mask = np.ones_like(seq)
-    return (torch.as_tensor(seq, dtype=torch.long, device=device),
-            torch.as_tensor(labels, dtype=torch.long, device=device),
-            torch.as_tensor(mask, dtype=torch.long, device=device),
-            t.float())
+    with span("train_m.assemble"):
+        tr = cfg.training
+        msl = cfg.dataset.preprocessing.max_seq_length
+        px_in = np.concatenate([np.asarray(g["pixels_in"]) for g in group])
+        px_out = np.concatenate([np.asarray(g["pixels_out"]) for g in group])
+        codes_in = get_code(px_in).cpu().numpy() + TOKENS_M.vq_offset
+        codes_out = get_code(px_out).to(device) + TOKENS_M.vq_offset
+        texts_in = [g["instruction"] for g in group]
+        out_text_ids, out_text_lens = encode_output_texts(
+            tokenizer, [g["output_text"] for g in group], msl)
+        noisy_img, img_lab, noisy_txt, txt_lab, t = interleave_noising(
+            generator, codes_out, torch.as_tensor(out_text_ids, device=device),
+            eps=tr.min_masking_rate, mask_token=TOKENS_M.mask)
+        noisy_img, img_lab, noisy_txt, txt_lab = (
+            x.cpu().numpy() for x in (noisy_img, img_lab, noisy_txt, txt_lab))
+        if up is not None:
+            seq, labels, mask = up.interleave(
+                codes_in, texts_in, noisy_img, noisy_txt, txt_lab,
+                cond_dropout_prob=tr.cond_dropout_prob,
+                output_image_labels=img_lab,
+                output_text_lengths=out_text_lens,
+                is_text_only=[g["is_text_only"] for g in group])
+        else:  # tiny debug path without a tokenizer
+            seq = np.concatenate([codes_in, noisy_img, noisy_txt], 1)
+            labels = np.concatenate(
+                [np.full_like(codes_in, -100), img_lab, txt_lab], 1)
+            mask = np.ones_like(seq)
+        return (torch.as_tensor(seq, dtype=torch.long, device=device),
+                torch.as_tensor(labels, dtype=torch.long, device=device),
+                torch.as_tensor(mask, dtype=torch.long, device=device),
+                t.float())
 
 
 def _groups(samples, size: int):
@@ -493,6 +495,7 @@ def train_loop(cfg, state, step, samples, models: Models, sched,
     scalars of each step."""
     from mmada_parallel_torch.data.prompting import UniversalPrompting
     from mmada_parallel_torch.utils.logging import MetricLogger
+    from mmada_parallel_torch.utils.spans import span
 
     import torch.distributed as dist
     tr = cfg.training
@@ -524,17 +527,18 @@ def train_loop(cfg, state, step, samples, models: Models, sched,
                                    generator, cfg, device)
             state, metrics = step(state, batch)
             global_step += 1
-            scalars = {k: float(v) for k, v in metrics.items()}
-            scalars["lr"] = float(sched(global_step))
-            scalars["batch_time"] = time.time() - t_end
-            t_end = time.time()
-            logger.update(**scalars)
-            history.append(scalars)
-            if global_step % tr.log_every == 0:
-                if writer is not None:
-                    writer.write(global_step, scalars)
-                if is_main:
-                    print(f"step {global_step}: {logger}")
+            with span("train_m.log"):
+                scalars = {k: float(v) for k, v in metrics.items()}
+                scalars["lr"] = float(sched(global_step))
+                scalars["batch_time"] = time.time() - t_end
+                t_end = time.time()
+                logger.update(**scalars)
+                history.append(scalars)
+                if global_step % tr.log_every == 0:
+                    if writer is not None:
+                        writer.write(global_step, scalars)
+                    if is_main:
+                        print(f"step {global_step}: {logger}")
             if mngr is not None and global_step % tr.save_every == 0:
                 mngr.save(global_step, state, {"step": global_step})
             if (tr.generate_every and tokenizer is not None

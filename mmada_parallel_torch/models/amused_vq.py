@@ -16,6 +16,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from mmada_parallel_torch.models import vqgan_common as C
+from mmada_parallel_torch.utils.spans import span
 
 __all__ = ["AmusedVQConfig", "init_amused_vq_params", "amused_encode",
            "amused_quantize", "amused_decode_code", "amused_img_span"]
@@ -122,16 +123,17 @@ def amused_encode(params: Dict[str, Any], cfg: AmusedVQConfig,
     ``[B, h, w, embed_dim]`` (encoder + ``quant_conv``)."""
     g, e = cfg.norm_num_groups, cfg.eps
     p = params["encoder"]
-    h = C.conv2d(p["conv_in"], pixels.permute(0, 3, 1, 2))
-    for level in p["down"]:
-        for bp in level["block"]:
-            h = C.resnet_block(bp, h, g, e)
-        if "downsample" in level:
-            h = C.downsample(level["downsample"], h)
-    h = _mid(p["mid"], h, g, e)
-    h = C.swish(C.group_norm(p["norm_out"], h, g, e))
-    h = C.conv2d(p["conv_out"], h)
-    return C.conv2d(params["quant"]["quant_conv"], h).permute(0, 2, 3, 1)
+    with span("vq.encode"):
+        h = C.conv2d(p["conv_in"], pixels.permute(0, 3, 1, 2))
+        for level in p["down"]:
+            for bp in level["block"]:
+                h = C.resnet_block(bp, h, g, e)
+            if "downsample" in level:
+                h = C.downsample(level["downsample"], h)
+        h = _mid(p["mid"], h, g, e)
+        h = C.swish(C.group_norm(p["norm_out"], h, g, e))
+        h = C.conv2d(p["conv_out"], h)
+        return C.conv2d(params["quant"]["quant_conv"], h).permute(0, 2, 3, 1)
 
 
 def amused_quantize(params: Dict[str, Any], cfg: AmusedVQConfig,
@@ -161,21 +163,23 @@ def amused_decode_code(params: Dict[str, Any], cfg: AmusedVQConfig,
     emb = params["quant"]["embedding"]
     if int(indices.min()) < 0 or int(indices.max()) >= emb.shape[0]:
         raise ValueError(f"codes must be in [0, {emb.shape[0]})")
-    z_q = emb[indices.reshape(-1).long()].reshape(B, h, w, -1)
     g, e = cfg.norm_num_groups, cfg.eps
-    x = C.conv2d(params["quant"]["post_quant_conv"], z_q.permute(0, 3, 1, 2))
-    p = params["decoder"]
-    x = C.conv2d(p["conv_in"], x)
-    x = _mid(p["mid"], x, g, e)
-    for i in reversed(range(len(p["up"]))):
-        level = p["up"][i]
-        for bp in level["block"]:
-            x = C.resnet_block(bp, x, g, e)
-        if "upsample" in level:
-            x = C.upsample(level["upsample"], x)
-    x = C.swish(C.group_norm(p["norm_out"], x, g, e))
-    x = C.conv2d(p["conv_out"], x)
-    return x.clamp(0.0, 1.0).permute(0, 2, 3, 1)
+    with span("vq.decode"):
+        z_q = emb[indices.reshape(-1).long()].reshape(B, h, w, -1)
+        x = C.conv2d(params["quant"]["post_quant_conv"],
+                     z_q.permute(0, 3, 1, 2))
+        p = params["decoder"]
+        x = C.conv2d(p["conv_in"], x)
+        x = _mid(p["mid"], x, g, e)
+        for i in reversed(range(len(p["up"]))):
+            level = p["up"][i]
+            for bp in level["block"]:
+                x = C.resnet_block(bp, x, g, e)
+            if "upsample" in level:
+                x = C.upsample(level["upsample"], x)
+        x = C.swish(C.group_norm(p["norm_out"], x, g, e))
+        x = C.conv2d(p["conv_out"], x)
+        return x.clamp(0.0, 1.0).permute(0, 2, 3, 1)
 
 
 def amused_img_span(encode_fn, cfg: AmusedVQConfig, pixels, tokens):

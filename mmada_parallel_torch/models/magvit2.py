@@ -19,6 +19,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from mmada_parallel_torch.models import vqgan_common as C
+from mmada_parallel_torch.utils.spans import span
 
 __all__ = ["MagvitConfig", "init_magvit_params", "magvit_encode",
            "magvit_get_code", "magvit_decode_code", "lfq_quantize",
@@ -232,7 +233,8 @@ def magvit_encode(params: Dict[str, Any], cfg: MagvitConfig,
 def magvit_get_code(params: Dict[str, Any], cfg: MagvitConfig,
                     pixels: torch.Tensor) -> torch.Tensor:
     """``MAGVITv2.get_code``: pixels -> indices ``[B, h*w]``."""
-    return magvit_encode(params, cfg, pixels)[1]
+    with span("vq.encode"):
+        return magvit_encode(params, cfg, pixels)[1]
 
 
 def magvit_decode_code(params: Dict[str, Any], cfg: MagvitConfig,
@@ -241,7 +243,8 @@ def magvit_decode_code(params: Dict[str, Any], cfg: MagvitConfig,
                        ) -> torch.Tensor:
     """Indices ``[B, N]`` -> pixels ``[B, H, W, 3]`` (about [-1, 1],
     unclipped, as the JAX function returns them)."""
-    z_q = lfq_codebook_entry(indices, cfg.z_channels, shape)
-    dt = params["decoder"]["conv_in"]["w"].dtype
-    x = _decoder(params["decoder"], cfg, z_q.to(dt).permute(0, 3, 1, 2))
-    return x.permute(0, 2, 3, 1)
+    with span("vq.decode"):
+        z_q = lfq_codebook_entry(indices, cfg.z_channels, shape)
+        dt = params["decoder"]["conv_in"]["w"].dtype
+        x = _decoder(params["decoder"], cfg, z_q.to(dt).permute(0, 3, 1, 2))
+        return x.permute(0, 2, 3, 1)

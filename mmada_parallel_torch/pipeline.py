@@ -32,6 +32,7 @@ from mmada_parallel_torch.samplers.interleave import (
     InterleaveOptions, interleave_generate, interleave_generate_cached)
 from mmada_parallel_torch.samplers.parallel_ti2ti import (
     TI2TIOptions, decode_text, generate_ti2ti, generate_ti2ti_cached)
+from mmada_parallel_torch.utils.spans import span
 
 __all__ = ["TI2TIPipeline", "InterleavePipeline"]
 
@@ -117,54 +118,64 @@ class TI2TIPipeline:
         array input.  ``use_cache=True`` samples through the opt-in
         :func:`generate_ti2ti_cached` approximation."""
         T = self.tokens
-        cond_txt, uncond_txt = tk.make_ti2ti_prompt(prompt, system_prompt)
-        prompt_ids = self.tokenizer(cond_txt)["input_ids"]
-        uncond_ids = self.tokenizer(uncond_txt)["input_ids"]
+        with span("edit"):
+            with span("edit.encode"):
+                cond_txt, uncond_txt = tk.make_ti2ti_prompt(prompt,
+                                                            system_prompt)
+                prompt_ids = self.tokenizer(cond_txt)["input_ids"]
+                uncond_ids = self.tokenizer(uncond_txt)["input_ids"]
 
-        if isinstance(image, str):
-            from mmada_parallel_torch.utils import image as IM
-            image = IM.preprocess_image(image)
-        input_img_token = self.encode_img_with_breaks(image)
-        con_input = prompt_ids[:-1] + input_img_token + prompt_ids[-1:]
-        uncon_text = np.asarray(
-            uncond_ids[:-1] + input_img_token + uncond_ids[-1:], np.int64)
-        uncon_image = np.asarray(prompt_ids, np.int64)
+                if isinstance(image, str):
+                    from mmada_parallel_torch.utils import image as IM
+                    image = IM.preprocess_image(image)
+                input_img_token = self.encode_img_with_breaks(image)
+                con_input = (prompt_ids[:-1] + input_img_token
+                             + prompt_ids[-1:])
+                uncon_text = np.asarray(
+                    uncond_ids[:-1] + input_img_token + uncond_ids[-1:],
+                    np.int64)
+                uncon_image = np.asarray(prompt_ids, np.int64)
 
-        _, _, gh, gw = tk.calculate_vq_params(height, width, self.vq_cfg.scale)
-        end_ids = self.tokenizer("</answer>",
-                                 add_special_tokens=False)["input_ids"]
-        span = None
-        if painting_mode:
-            span = self.encode_img_with_paint(image, mask_h_ratio,
-                                              mask_w_ratio, painting_mode)
-        ids, layout = tk.assemble_ti2ti_sequence(
-            con_input, text_gen_length, gh, gw, end_ids,
-            image_span_tokens=span, tokens=T)
+                _, _, gh, gw = tk.calculate_vq_params(height, width,
+                                                      self.vq_cfg.scale)
+                end_ids = self.tokenizer(
+                    "</answer>", add_special_tokens=False)["input_ids"]
+                span_ids = None
+                if painting_mode:
+                    span_ids = self.encode_img_with_paint(
+                        image, mask_h_ratio, mask_w_ratio, painting_mode)
+                ids, layout = tk.assemble_ti2ti_sequence(
+                    con_input, text_gen_length, gh, gw, end_ids,
+                    image_span_tokens=span_ids, tokens=T)
 
-        # seed=0 draws an OS-random seed (the reference's unseeded runs);
-        # temperature-0 runs are deterministic regardless
-        dev = self.device
-        gen = torch.Generator(device=dev).manual_seed(
-            seed if seed else int(np.random.randint(1, 2 ** 31)))
-        sampler = generate_ti2ti_cached if use_cache else generate_ti2ti
-        t0 = time.time()
-        fin, codes = sampler(
-            self.llada_params, self.llada_cfg,
-            torch.as_tensor(ids, device=dev)[None], layout, opts,
-            uncond_text_prefix=uncon_text if opts.cfg_scale else None,
-            uncond_image_prefix=uncon_image if opts.cfg_img else None,
-            generator=gen)
-        codes = codes.cpu().numpy()
-        elapsed = time.time() - t0
+            # seed=0 draws an OS-random seed (the reference's unseeded
+            # runs); temperature-0 runs are deterministic regardless
+            dev = self.device
+            gen = torch.Generator(device=dev).manual_seed(
+                seed if seed else int(np.random.randint(1, 2 ** 31)))
+            sampler = generate_ti2ti_cached if use_cache else generate_ti2ti
+            t0 = time.time()
+            with span("edit.sample"):
+                fin, codes = sampler(
+                    self.llada_params, self.llada_cfg,
+                    torch.as_tensor(ids, device=dev)[None], layout, opts,
+                    uncond_text_prefix=uncon_text if opts.cfg_scale else None,
+                    uncond_image_prefix=(uncon_image if opts.cfg_img
+                                         else None),
+                    generator=gen)
+                codes = codes.cpu().numpy()
+            elapsed = time.time() - t0
 
-        text = decode_text(fin, layout, opts, self.tokenizer)
-        pixels = self.decode_vq_to_pixels(codes, height, width)
-        out_img = None
-        if not isinstance(image, np.ndarray):
-            from mmada_parallel_torch.utils import image as IM
-            out_img = IM.array_to_image(pixels)
+            with span("edit.decode"):
+                text = decode_text(fin, layout, opts, self.tokenizer)
+                pixels = self.decode_vq_to_pixels(codes, height, width)
+                out_img = None
+                if not isinstance(image, np.ndarray):
+                    from mmada_parallel_torch.utils import image as IM
+                    out_img = IM.array_to_image(pixels)
+                ids = fin.cpu().numpy()
         return out_img, text, {"elapsed": elapsed, "layout": layout,
-                               "codes": codes, "ids": fin.cpu().numpy(),
+                               "codes": codes, "ids": ids,
                                "pixels": pixels}
 
 
@@ -261,34 +272,40 @@ class InterleavePipeline:
         :func:`interleave_generate_cached` approximation (``cache_kw``
         passes ``cache_ratio``/``refresh_interval``/``warmup_ratio``/
         ``refresh_on_image_steps``); the default is the exact path."""
-        ids, un_ids, layout = self.build_sequences(instruction, image)
-        dev = self.device
-        # seed=0 draws an OS-random seed (the reference's unseeded runs);
-        # temperature-0 runs are deterministic regardless
-        gen = torch.Generator(device=dev).manual_seed(
-            seed if seed else int(np.random.randint(1, 2 ** 31)))
-        args = (self.llada_params, self.llada_cfg,
-                torch.as_tensor(ids, device=dev)[None],
-                torch.as_tensor(un_ids, device=dev)[None], layout, opts)
-        t0 = time.time()
-        if use_cache:
-            fin, codes = interleave_generate_cached(
-                *args, generator=gen, **(cache_kw or {}))
-        else:
-            fin, codes = interleave_generate(*args, generator=gen)
-        codes = codes.cpu().numpy()
-        elapsed = time.time() - t0
+        with span("edit"):
+            with span("edit.encode"):
+                ids, un_ids, layout = self.build_sequences(instruction,
+                                                           image)
+            dev = self.device
+            # seed=0 draws an OS-random seed (the reference's unseeded
+            # runs); temperature-0 runs are deterministic regardless
+            gen = torch.Generator(device=dev).manual_seed(
+                seed if seed else int(np.random.randint(1, 2 ** 31)))
+            args = (self.llada_params, self.llada_cfg,
+                    torch.as_tensor(ids, device=dev)[None],
+                    torch.as_tensor(un_ids, device=dev)[None], layout, opts)
+            t0 = time.time()
+            with span("edit.sample"):
+                if use_cache:
+                    fin, codes = interleave_generate_cached(
+                        *args, generator=gen, **(cache_kw or {}))
+                else:
+                    fin, codes = interleave_generate(*args, generator=gen)
+                codes = codes.cpu().numpy()
+            elapsed = time.time() - t0
 
-        fin = fin.cpu().numpy()
-        text_ids = [int(t) for t in fin[0][layout.text_start:]
-                    if int(t) != self.tokens.mask]
-        text = (self.tokenizer.decode(text_ids, skip_special_tokens=True)
-                if hasattr(self.tokenizer, "decode") else text_ids)
-        pixels = self.decode_codes_to_pixels(codes)
-        out_img = None
-        if not isinstance(image, np.ndarray):
-            from mmada_parallel_torch.utils import image as IM
-            out_img = IM.array_to_image(pixels)
+            with span("edit.decode"):
+                fin = fin.cpu().numpy()
+                text_ids = [int(t) for t in fin[0][layout.text_start:]
+                            if int(t) != self.tokens.mask]
+                text = (self.tokenizer.decode(text_ids,
+                                              skip_special_tokens=True)
+                        if hasattr(self.tokenizer, "decode") else text_ids)
+                pixels = self.decode_codes_to_pixels(codes)
+                out_img = None
+                if not isinstance(image, np.ndarray):
+                    from mmada_parallel_torch.utils import image as IM
+                    out_img = IM.array_to_image(pixels)
         return out_img, text, {"elapsed": elapsed, "layout": layout,
                                "codes": codes, "ids": fin,
                                "pixels": pixels}

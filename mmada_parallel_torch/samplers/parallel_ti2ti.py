@@ -32,6 +32,7 @@ from mmada_parallel_torch.models.llada import (LLaDAConfig, llada_head,
                                                llada_hidden_with_cache)
 from mmada_parallel_torch.ops import sampling as S
 from mmada_parallel_torch.ops.masks import ragged_positions
+from mmada_parallel_torch.utils.spans import span
 
 __all__ = ["TI2TIOptions", "generate_ti2ti", "generate_ti2ti_cached",
            "cached_refresh_schedule", "make_ti2ti_step", "decode_text"]
@@ -211,20 +212,26 @@ def make_ti2ti_step(
 
     def step(ids: torch.Tensor, step_idx: int, budget: torch.Tensor,
              generator: Optional[torch.Generator]) -> torch.Tensor:
-        hidden = hidden_fn(params, cfg, ids, attn_mask, pos_ids)
-        text_logits = llada_head(params, cfg, hidden[:, ts:te])
-        cond_vq = llada_head(params, cfg, hidden[:, img_pos],
-                             vocab_slice=(tvs, cb))
-        del hidden
-        ids = _text_update(ids, text_logits, budget, opts, layout, generator)
-        if img_step[step_idx]:
-            ut_vq, ui_vq = _uncond_vq(params, cfg, ids, cond_vq, plan,
-                                      img_pos, tvs, cb, attn_mask, pos_ids,
-                                      hidden_fn)
-            ids = _image_update(ids, cond_vq, ut_vq, ui_vq, img_pos,
-                                mask_ratios[step_idx], img_temps[step_idx],
-                                opts, generator)
-        return ids
+        with span("ti2ti.step"):
+            with span("ti2ti.cond"):
+                hidden = hidden_fn(params, cfg, ids, attn_mask, pos_ids)
+                text_logits = llada_head(params, cfg, hidden[:, ts:te])
+                cond_vq = llada_head(params, cfg, hidden[:, img_pos],
+                                     vocab_slice=(tvs, cb))
+                del hidden
+            with span("ti2ti.text_update"):
+                ids = _text_update(ids, text_logits, budget, opts, layout,
+                                   generator)
+            if img_step[step_idx]:
+                with span("ti2ti.uncond"):
+                    ut_vq, ui_vq = _uncond_vq(params, cfg, ids, cond_vq,
+                                              plan, img_pos, tvs, cb,
+                                              attn_mask, pos_ids, hidden_fn)
+                with span("ti2ti.image_update"):
+                    ids = _image_update(ids, cond_vq, ut_vq, ui_vq, img_pos,
+                                        mask_ratios[step_idx],
+                                        img_temps[step_idx], opts, generator)
+            return ids
 
     return step
 

@@ -44,6 +44,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from mmada_parallel_torch.utils import spans
+
 __all__ = ["OptimizerConfig", "Optimizer", "make_optimizer",
            "make_train_step", "TrainState", "tree_map", "tree_leaves",
            "create_sharded_state", "state_shardings",
@@ -106,6 +108,7 @@ class Optimizer:
             raise ValueError(cfg.name)
         self.cfg = cfg
         self.decay = tree_leaves(_decay_mask(params))
+        self.update_bytes = None    # this rank's, at the first update
 
     def init(self, params: Any) -> Dict[str, Any]:
         state = {"count": 0, "mu": tree_map(torch.zeros_like, params)}
@@ -125,10 +128,14 @@ class Optimizer:
         count = state["count"] + 1
         clip = (cfg.grad_clip is not None
                 and not bool(grad_norm < cfg.grad_clip))
+        leaves = tree_leaves(params)
         mus = tree_leaves(state["mu"])
         nus = tree_leaves(state["nu"]) if cfg.name == "adamw" else mus
-        for p, g, mu, nu, decay in zip(tree_leaves(params), grads, mus, nus,
-                                       self.decay):
+        if self.update_bytes is None:
+            self.update_bytes = _update_bytes(cfg.name, leaves, grads, mus,
+                                              nus)
+        spans.count("train.update_bytes", self.update_bytes)
+        for p, g, mu, nu, decay in zip(leaves, grads, mus, nus, self.decay):
             if clip:
                 g = (g / grad_norm) * cfg.grad_clip
             if cfg.name == "adamw":
@@ -143,6 +150,20 @@ class Optimizer:
                 u.add_(p, alpha=cfg.weight_decay)
             p.add_(u.to(p.dtype), alpha=-lr)
         state["count"] = count
+
+
+def _update_bytes(name: str, params, grads, mus, nus) -> int:
+    """The bytes an update must move at the least, at each tensor's own
+    dtype: a read and a write of each parameter and moment, a read of each
+    gradient (AdamW: 28 bytes an f32 parameter; Lion, with one moment,
+    20)."""
+    total = 0
+    for p, g, mu, nu in zip(params, grads, mus, nus):
+        moments = 2 * mu.element_size() + (
+            2 * nu.element_size() if name == "adamw" else 0)
+        total += p.numel() * (2 * p.element_size() + g.element_size()
+                              + moments)
+    return total
 
 
 def make_optimizer(cfg: OptimizerConfig, params: Any) -> Optimizer:
@@ -177,10 +198,11 @@ def _accumulate(loss_fn, params, batch, generator, accum_steps: int):
     loss_sum, metrics_sum = None, None
     with torch.enable_grad():
         for i in range(accum_steps):
-            mb = batch if accum_steps == 1 else _microbatch(
-                batch, i, accum_steps)
-            loss, metrics = loss_fn(params, mb, generator)
-            loss.backward()
+            with spans.span("train.microbatch"):
+                mb = batch if accum_steps == 1 else _microbatch(
+                    batch, i, accum_steps)
+                loss, metrics = loss_fn(params, mb, generator)
+                loss.backward()
             loss = loss.detach()
             metrics = {k: v.detach() for k, v in metrics.items()}
             if loss_sum is None:
@@ -204,9 +226,10 @@ def _accumulate(loss_fn, params, batch, generator, accum_steps: int):
 
 def _finish(state, loss, metrics, grad_norm, apply) -> Dict:
     """The non-finite guard, the update (``apply()``) and the metrics."""
-    finite = bool(torch.isfinite(loss) & torch.isfinite(grad_norm))
-    if finite:
-        apply()
+    with spans.span("train.update"):
+        finite = bool(torch.isfinite(loss) & torch.isfinite(grad_norm))
+        if finite:
+            apply()
     metrics = dict(metrics)
     metrics["grad_norm"] = grad_norm
     metrics["loss"] = loss
@@ -229,14 +252,17 @@ def make_train_step(
 
     def step(state: TrainState, batch: Any,
              generator: Optional[torch.Generator] = None):
-        loss, metrics, grads = _accumulate(loss_fn, state.params, batch,
-                                           generator, accum_steps)
-        grad_norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
-        metrics = _finish(state, loss, metrics, grad_norm,
-                          lambda: optimizer.update(state.params, grads,
-                                                   state.opt_state,
-                                                   grad_norm))
-        del grads
+        with spans.span("train.step"):
+            loss, metrics, grads = _accumulate(loss_fn, state.params, batch,
+                                               generator, accum_steps)
+            with spans.span("train.grad_norm"):
+                grad_norm = torch.sqrt(sum(g.float().square().sum()
+                                           for g in grads))
+            metrics = _finish(state, loss, metrics, grad_norm,
+                              lambda: optimizer.update(state.params, grads,
+                                                       state.opt_state,
+                                                       grad_norm))
+            del grads
         return state, metrics
 
     return step
@@ -395,11 +421,13 @@ def sharded_value_and_grad(loss_fn: Callable, params: Any, batch: Any, mesh,
             () if ring else ("data", "fsdp"), groups)
         loss = scalars[0]
         metrics = {k: scalars[1 + i] for i, k in enumerate(keys)}
-        sq: Dict[tuple, torch.Tensor] = {}
-        for g, sync in zip(grads, syncs):
-            sq[sync.norm] = sq.get(sync.norm, 0) + g.float().square().sum()
-        grad_norm = torch.sqrt(sum(_reduce(v, axes, groups)
-                                   for axes, v in sorted(sq.items())))
+        with spans.span("train.grad_norm"):
+            sq: Dict[tuple, torch.Tensor] = {}
+            for g, sync in zip(grads, syncs):
+                sq[sync.norm] = sq.get(sync.norm, 0) + \
+                    g.float().square().sum()
+            grad_norm = torch.sqrt(sum(_reduce(v, axes, groups)
+                                       for axes, v in sorted(sq.items())))
     return loss, metrics, grads, grad_norm, syncs
 
 
@@ -438,26 +466,28 @@ def make_sharded_train_step(loss_fn: Callable, optimizer: Optimizer, mesh,
 
     def step(state: TrainState, batch: Any,
              generator: Optional[torch.Generator] = None):
-        leaves = tree_leaves(state.params)
-        loss, metrics, grads, grad_norm, syncs = sharded_value_and_grad(
-            loss_fn, state.params, batch, mesh, p_specs, o_specs,
-            accum_steps, ring, generator)
+        with spans.span("train.step"):
+            leaves = tree_leaves(state.params)
+            loss, metrics, grads, grad_norm, syncs = sharded_value_and_grad(
+                loss_fn, state.params, batch, mesh, p_specs, o_specs,
+                accum_steps, ring, generator)
 
-        def apply():
-            targets = [p if sync.scatter_dim is None or "fsdp" not in groups
-                       else _local_view(p, _fsdp_only(o_spec), mesh)
-                       for p, sync, o_spec in zip(
-                           leaves, syncs, _spec_leaves(o_specs,
-                                                       state.params))]
-            optimizer.update(targets, grads, state.opt_state, grad_norm)
-            with torch.no_grad():
-                for p, t, sync in zip(leaves, targets, syncs):
-                    if t is not p:
-                        p.copy_(all_gather_dim(t, sync.scatter_dim,
-                                               groups["fsdp"]))
+            def apply():
+                targets = [p if sync.scatter_dim is None
+                           or "fsdp" not in groups
+                           else _local_view(p, _fsdp_only(o_spec), mesh)
+                           for p, sync, o_spec in zip(
+                               leaves, syncs, _spec_leaves(o_specs,
+                                                           state.params))]
+                optimizer.update(targets, grads, state.opt_state, grad_norm)
+                with torch.no_grad():
+                    for p, t, sync in zip(leaves, targets, syncs):
+                        if t is not p:
+                            p.copy_(all_gather_dim(t, sync.scatter_dim,
+                                                   groups["fsdp"]))
 
-        metrics = _finish(state, loss, metrics, grad_norm, apply)
-        del grads
-        return state, metrics
+            metrics = _finish(state, loss, metrics, grad_norm, apply)
+            del grads
+            return state, metrics
 
     return step
