@@ -73,7 +73,14 @@ Phases (each prints its own lines; any failure exits non-zero):
    Lq = 303 sigma-ordered queries against 2424 keys with sigma-gathered
    tables, B=1 and B=2 bf16, timed with its bound and split count, and a
    small f32 case); K1 and K2 at a ``tensor`` rank's 16 heads (``tp/H16``:
-   K1 B=1 L=2424, bound 0.0487 ms; K2 Lq=16 of 2424);
+   K1 B=1 L=2424, bound 0.0487 ms; K2 Lq=16 of 2424); the tokenizers'
+   fused GroupNorm + swish (``csrc/group_norm.cu``) against its plain
+   chain at MagViT-v2's and Amused-VQ's shapes (f32 with and without the
+   swish, bf16, ragged groups), contiguous and channels-last, timed
+   against its bound, the plain chain and ``F.silu(F.group_norm(...))``
+   (its launches are held, and its routes logged, in the exact edit, the
+   exact interleave and the M trainer's first batch assembly: one launch a
+   fused call of the tokenizers, counted on the meta device);
 3. small f32 models (head_dim 64): the kernel path gives the same tokens as
    the plain attention at temperature 0 on the exact edit, the cached edit,
    the exact and cached interleave, the exact edit with bf16-style
@@ -210,7 +217,9 @@ device, or outside the repository, the script fails and prints no result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
 import json
 import math
 import os
@@ -396,7 +405,8 @@ def _launch_counters():
 
 
 def reset_launches() -> None:
-    for fn in _launch_counters().values():
+    from mmada_parallel_torch.ops.group_norm import group_norm_swish
+    for fn in (*_launch_counters().values(), group_norm_swish):
         fn.launches = 0
 
 
@@ -412,6 +422,99 @@ def check_launches(phase: str, expected: dict) -> dict:
     if got != want:
         raise AssertionError(f"{phase}: kernel launches {got}, expected "
                              f"{want}")
+    return got
+
+
+# The tokenizers' fused norm (csrc/group_norm.cu) is counted apart from the
+# attention kernels above, whose counts every phase holds exactly: it is
+# held in the main path's phases that encode or decode (the edit, the
+# interleave, the M trainer's batch assembly), against the number of fused
+# calls an encode or a decode makes, counted on the meta device.
+@functools.lru_cache(maxsize=None)
+def vq_norm_calls() -> dict:
+    """Fused norm calls of one 512x512 encode and one decode of each
+    tokenizer: ``{"amused": (encode, decode), "magvit": (encode,
+    decode)}``, traced on the meta device."""
+    import torch
+    from mmada_parallel_torch.models import amused_vq as AVQ
+    from mmada_parallel_torch.models import magvit2 as MVQ
+    from mmada_parallel_torch.models import vqgan_common as C
+    calls = [0]
+
+    def counted(x, *args, **kw):
+        calls[0] += 1
+        return x
+
+    def n(fn, *args):
+        calls[0] = 0
+        fn(*args)
+        return calls[0]
+
+    real, C.group_norm_swish = C.group_norm_swish, counted
+    try:
+        g = torch.Generator()
+        m = MVQ.MagvitConfig()
+        mp = MVQ.init_magvit_params(m, g, device="meta")
+        a = AVQ.AmusedVQConfig()
+        ap = AVQ.init_amused_vq_params(a, g, device="meta")
+        return {"magvit": (
+                    n(MVQ._encoder, mp["encoder"], m,
+                      torch.empty(1, 3, 512, 512, device="meta")),
+                    n(MVQ._decoder, mp["decoder"], m,
+                      torch.empty(1, m.z_channels, 32, 32, device="meta"))),
+                "amused": (
+                    n(AVQ.amused_encode, ap, a,
+                      torch.empty(1, 512, 512, 3, device="meta")),
+                    n(AVQ.amused_decode_code, ap, a,
+                      torch.zeros(1, 1024, dtype=torch.long), (32, 32)))}
+    finally:
+        C.group_norm_swish = real
+
+
+@contextlib.contextmanager
+def norm_routes(routes: collections.Counter):
+    """Counts each fused norm launch's route ("nchw" or "cl") and input
+    shape in ``routes`` while the context is open."""
+    from mmada_parallel_torch.ops import group_norm as GN
+    real = GN._launch_nchw, GN._launch_cl
+
+    def nchw(x, *args):
+        routes["nchw", tuple(x.shape)] += 1
+        return real[0](x, *args)
+
+    def cl(x, *args):
+        routes["cl", tuple(x.shape)] += 1
+        return real[1](x, *args)
+
+    GN._launch_nchw, GN._launch_cl = nchw, cl
+    try:
+        yield routes
+    finally:
+        GN._launch_nchw, GN._launch_cl = real
+
+
+# the fused norm's launches and routes in the main path's phases, for the
+# kernels line: phase -> (launches, routes)
+NORM_RUNS = {}
+
+
+def check_norm_launches(phase: str, expected: int,
+                        routes: collections.Counter) -> int:
+    """The fused norm's launches since the last reset must equal
+    ``expected`` (one a fused call: no PyTorch chain stands in); logs the
+    split of its routes."""
+    from mmada_parallel_torch.ops.group_norm import group_norm_swish
+    got = group_norm_swish.launches
+    if got != expected or sum(routes.values()) != got:
+        raise AssertionError(f"{phase}: group_norm_swish launches {got} "
+                             f"({sum(routes.values())} by route), expected "
+                             f"{expected}")
+    split = {r: sum(n for (rr, _), n in routes.items() if rr == r)
+             for r in ("nchw", "cl")}
+    log(f"[norm] {phase}: group_norm_swish {got} launches, by route "
+        f"{split}; by (route, shape) "
+        f"{ {f'{r} {list(sh)}': n for (r, sh), n in sorted(routes.items())} }")
+    NORM_RUNS[phase] = (got, routes)
     return got
 
 
@@ -856,8 +959,9 @@ def _device_kernels(fn, what: str = "device kernels") -> dict:
     import torch
     events, _ = _captured(what, fn)
     us = {}
-    for e in events:
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+    for e in events:               # kernels, not the spans' device ranges
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not e.is_user_annotation:
             us[e.name] = us.get(e.name, 0.0) + (e.time_range.end
                                                 - e.time_range.start)
     return us
@@ -1711,6 +1815,109 @@ GRAD_ROUTES = {"K1 rope_attention": ("flash_attention_rope",
                                             "flash_attention_bwd"),
                "K4 rope_attention_prefix": ("flash_attention_rope_prefix",
                                             None)}
+
+
+# GroupNorm + swish (csrc/group_norm.cu) at the tokenizers' shapes: the
+# MagViT-v2 encoder's levels 0, 1 (its first block's norm1 and the rest) and
+# 3 at the M trainer's batch of 4, and Amused-VQ decode shapes at B=1;
+# contiguous and channels-last ("cl": the layout the tokenizers' residual
+# stream has after the NHWC pixels' permute, which the norm keeps; the
+# main path's phases log which route each shape takes)
+GN_CASES = (("magvit/L0", (4, 128, 512, 512), False),
+            ("magvit/L0-cl", (4, 128, 512, 512), True),
+            ("magvit/L1-norm1-cl", (4, 128, 256, 256), True),
+            ("magvit/L1", (4, 256, 256, 256), False),
+            ("magvit/L1-cl", (4, 256, 256, 256), True),
+            ("magvit/L3", (4, 512, 64, 64), False),
+            ("magvit/L3-cl", (4, 512, 64, 64), True),
+            ("amused-dec/L0-norm1-cl", (1, 256, 512, 512), True),
+            ("amused-dec/L0-norm1", (1, 256, 512, 512), False),
+            ("amused-dec/L0", (1, 128, 512, 512), False),
+            ("amused-dec/L2-norm1-cl", (1, 512, 128, 128), True),
+            ("amused-dec/L2-norm1", (1, 512, 128, 128), False))
+GN_F32_TOL = dict(atol=1e-5, rtol=1e-5)
+# one bf16 ulp, and the f32 tolerance near 0, where the two f32 values
+# before the rounding differ by more than an ulp (the statistics' rounding)
+GN_BF16_TOL = dict(atol=1e-5, rtol=2.0 ** -7)
+
+
+def _gn_inputs(shape, dtype, gen, offset=0.5, cl=False):
+    import torch
+    B, C = shape[:2]
+    x = torch.randn(*shape, generator=gen, device="cuda") * 2.0 + offset
+    fmt = torch.channels_last if cl else torch.contiguous_format
+    return (x.to(dtype=dtype, memory_format=fmt),
+            torch.rand(C, generator=gen, device="cuda") + 0.5,
+            torch.rand(C, generator=gen, device="cuda") - 0.5)
+
+
+def phase_kernel_group_norm() -> dict:
+    """The fused GroupNorm + swish against its plain chain at the
+    tokenizers' shapes, contiguous and channels-last (f32 with and without
+    the swish, bf16 without it), timed against the plain chain, its bound
+    (2 x input bytes at 3.35 TB/s) and ``F.silu(F.group_norm(...))`` as the
+    library yardstick; and ragged groups.  Returns the timed records by
+    case name."""
+    import torch
+    import torch.nn.functional as F
+    from mmada_parallel_torch.ops import group_norm as GN
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    f32, bf16 = torch.float32, torch.bfloat16
+    records = {}
+    before = GN.group_norm_swish.launches
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, shape, cl in GN_CASES:
+        x, sc, bi = _gn_inputs(shape, f32, gen, cl=cl)
+        B, C, H, W = shape
+        plan = (GN.channels_last_plan(B, C, H * W, 32, 4, sms) if cl
+                else GN.plan_group_norm(B, C, H * W, 32, 4, sms))
+        desc = f"B={B} C={C} {H}x{W} f32 swish, {plan}"
+        rec = _compare(f"group_norm {name}", desc,
+                       lambda: GN.group_norm_swish(x, sc, bi),
+                       lambda: GN.group_norm_swish_reference(x, sc, bi, 32,
+                                                             1e-6),
+                       GN_F32_TOL, True, (8 * x.numel(), 2 * x.numel() * 4),
+                       f32)
+        lib = lambda: F.silu(F.group_norm(x, 32, sc, bi, 1e-6))
+        rec["library_ms"] = time_ms(lib)
+        rec["library_device_ms"] = sum(
+            _device_kernels(lib, f"library {name}").values()) / 1e3
+        rec["kernels_us"] = {_short_kernel(n): us for n, us in
+                             _device_kernels(lambda: GN.group_norm_swish(
+                                 x, sc, bi), f"group_norm {name}").items()}
+        log(f"[kernel] group_norm {name}: device kernels "
+            f"{ {k: round(v, 1) for k, v in rec['kernels_us'].items()} }; "
+            f"F.silu(F.group_norm) {rec['library_ms']:.3f} ms (device "
+            f"{rec['library_device_ms']:.3f} ms)")
+        _compare(f"group_norm {name}", "f32 no swish",
+                 lambda: GN.group_norm_swish(x, sc, bi, swish=False),
+                 lambda: GN.group_norm_swish_reference(x, sc, bi, 32, 1e-6,
+                                                       False),
+                 GN_F32_TOL, False)
+        xb = x.to(bf16)
+        _compare(f"group_norm {name}", "bf16 no swish",
+                 lambda: GN.group_norm_swish(xb, sc, bi, swish=False),
+                 lambda: GN.group_norm_swish_reference(xb, sc, bi, 32, 1e-6,
+                                                       False),
+                 GN_BF16_TOL, False)
+        a = GN.group_norm_swish(x, sc, bi)
+        if not torch.equal(a, GN.group_norm_swish(x, sc, bi)):
+            raise AssertionError(f"group_norm {name}: not bitwise equal on "
+                                 f"a repeat")
+        records[name] = rec
+        del x, xb, a
+    # ragged groups: 3 channels of 601 x 601 (1 083 603 elements), and 3 of
+    # 7 x 7, whose channels of 49 elements cross the 16-byte vectors
+    for shape, groups in (((1, 96, 601, 601), 32), ((2, 6, 7, 7), 2)):
+        x, sc, bi = _gn_inputs(shape, f32, gen)
+        _compare("group_norm ragged", f"{list(shape)} G={groups} f32",
+                 lambda: GN.group_norm_swish(x, sc, bi, groups),
+                 lambda: GN.group_norm_swish_reference(x, sc, bi, groups,
+                                                       1e-6),
+                 GN_F32_TOL, False)
+    calls = GN.group_norm_swish.launches - before
+    log(f"[kernel] group_norm: {calls} kernel calls in the checks")
+    return records
 
 
 def _function_grads(fn, xs, w, runs) -> dict:
@@ -3012,11 +3219,13 @@ def phase_edit(full) -> int:
     opts = TI2TIOptions(text_steps=16, timesteps=8, temperature=1.0,
                         text_temperature=0.7, cfg_scale=2.5, cfg_img=4.0)
     n_img = int(S.image_step_mask(opts.text_steps, opts.timesteps).sum())
-    (_, text, info), wall, peak = _timed_run(lambda: _a_pipe(full)(
-        "make the sky purple", _edit_image(512), 512, 512, opts,
-        text_gen_length=256, seed=1))
+    with norm_routes(collections.Counter()) as routes:
+        (_, text, info), wall, peak = _timed_run(lambda: _a_pipe(full)(
+            "make the sky purple", _edit_image(512), 512, 512, opts,
+            text_gen_length=256, seed=1))
     expected = cfg.n_layers * (opts.text_steps + n_img)
     launches = check_launches("edit", {"flash_attention_rope": expected})
+    check_norm_launches("edit", sum(vq_norm_calls()["amused"]), routes)
     _check_image("edit", info["codes"], info["pixels"])
     forwards = opts.text_steps + n_img
     codes = info["codes"]
@@ -3104,18 +3313,20 @@ def _interleave(full, use_cache: bool):
                               full["mparams"], StandInTokenizer(),
                               num_vq_tokens=1024, max_seq_length=256,
                               resolution=512)
-    out, wall, peak = _timed_run(lambda: pipe(
-        "make the sky purple", _edit_image(512), opts, seed=1,
-        use_cache=use_cache))
-    return opts, out, wall, peak
+    with norm_routes(collections.Counter()) as routes:
+        out, wall, peak = _timed_run(lambda: pipe(
+            "make the sky purple", _edit_image(512), opts, seed=1,
+            use_cache=use_cache))
+    return opts, out, wall, peak, routes
 
 
 def phase_interleave(full) -> int:
     """The exact M interleave at full width; returns K1's launch count."""
     cfg = full["cfg"]
-    opts, (_, text, info), wall, peak = _interleave(full, False)
+    opts, (_, text, info), wall, peak, routes = _interleave(full, False)
     launches = check_launches("interleave", {
         "flash_attention_rope": cfg.n_layers * opts.text_steps})
+    check_norm_launches("interleave", sum(vq_norm_calls()["magvit"]), routes)
     _check_image("interleave", info["codes"], info["pixels"])
     log(f"[interleave] 512x512, seq {info['layout'].total_len}, text_steps "
         f"{opts.text_steps}, image steps {opts.image_steps}, B=2 (cond + "
@@ -3132,7 +3343,7 @@ def phase_cached_interleave(full) -> int:
     from mmada_parallel_torch.samplers.interleave import (
         interleave_refresh_schedule)
     cfg = full["cfg"]
-    opts, (_, text, info), wall, peak = _interleave(full, True)
+    opts, (_, text, info), wall, peak, _ = _interleave(full, True)
     n_partial = int((~interleave_refresh_schedule(
         opts.text_steps, opts.image_steps)).sum())
     if n_partial < 1:
@@ -4169,11 +4380,17 @@ def phase_train_m_cli() -> None:
         mcfg = _train_cfg("auto")
         m = TM.Models(mcfg, _train_params(mcfg), tok, vcfg, vparams)
         n_params = count_params(m.params)
-        # the loop's first batch: a fresh prompting rng, the seed-19 noise
-        first = TM.assemble_batch(samples, m.get_code, tok,
-                                  UniversalPrompting(tok, max_text_len=msl),
-                                  torch.Generator(device="cuda").manual_seed(
-                                      19), cfg, torch.device("cuda"))
+        # the loop's first batch: a fresh prompting rng, the seed-19 noise;
+        # two encodes of the step's images
+        reset_launches()
+        with norm_routes(collections.Counter()) as routes:
+            first = TM.assemble_batch(
+                samples, m.get_code, tok,
+                UniversalPrompting(tok, max_text_len=msl),
+                torch.Generator(device="cuda").manual_seed(19), cfg,
+                torch.device("cuda"))
+        check_norm_launches("train-m-cli assembly",
+                            2 * vq_norm_calls()["magvit"][0], routes)
         L = first[0].shape[1]
         if L != 2565:
             raise AssertionError(f"train-m-cli: sequence length {L}, "
@@ -6500,6 +6717,7 @@ def main() -> int:
     prefix_launches = phase_prefix_crossover()
     records.update(phase_kernel_bwd())
     phase_kernel_grads()
+    gn_records = phase_kernel_group_norm()
     mark("phase 2 (kernels)")
     phase_small_slice()
     phase_small_new_paths()
@@ -6607,6 +6825,22 @@ def main() -> int:
                         "source": src, "replaces": replaces,
                         "launches": tp_launches[name],
                         **{f: record[f] for f in fields}})
+    # the fused norm: its launches in a main-path phase, with the timed
+    # case at that phase's largest norm, in the layout that phase gave it
+    for name, phase in (("group_norm_swish", "train-m-cli assembly"),
+                        ("group_norm_swish/edit", "edit")):
+        n, routes = NORM_RUNS[phase]
+        route, shape = max(routes, key=lambda k: (math.prod(k[1]),
+                                                  routes[k]))
+        case = next((c for c, sh, cl in GN_CASES
+                     if sh == shape and cl == (route == "cl")), None)
+        kernels.append({"name": name, "route": "cuda",
+                        "source": CSRC + "group_norm.cu",
+                        "replaces": "none (XLA fuses the JAX package's "
+                                    "vqgan_common.group_norm and swish)",
+                        "launches": n, "case": case or f"{route} {shape}",
+                        **{f: gn_records[case][f] if case else None
+                           for f in fields}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

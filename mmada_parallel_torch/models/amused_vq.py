@@ -131,7 +131,7 @@ def amused_encode(params: Dict[str, Any], cfg: AmusedVQConfig,
             if "downsample" in level:
                 h = C.downsample(level["downsample"], h)
         h = _mid(p["mid"], h, g, e)
-        h = C.swish(C.group_norm(p["norm_out"], h, g, e))
+        h = C.norm_swish(p["norm_out"], h, g, e)
         h = C.conv2d(p["conv_out"], h)
         return C.conv2d(params["quant"]["quant_conv"], h).permute(0, 2, 3, 1)
 
@@ -177,7 +177,7 @@ def amused_decode_code(params: Dict[str, Any], cfg: AmusedVQConfig,
                 x = C.resnet_block(bp, x, g, e)
             if "upsample" in level:
                 x = C.upsample(level["upsample"], x)
-        x = C.swish(C.group_norm(p["norm_out"], x, g, e))
+        x = C.norm_swish(p["norm_out"], x, g, e)
         x = C.conv2d(p["conv_out"], x)
         return x.clamp(0.0, 1.0).permute(0, 2, 3, 1)
 

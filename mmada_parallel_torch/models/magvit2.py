@@ -199,7 +199,7 @@ def _encoder(p: Dict[str, Any], cfg: MagvitConfig,
         if "downsample" in level:
             h = C.downsample(level["downsample"], h)
     h = _mid(p["mid"], h, g, e)
-    h = C.swish(C.group_norm(p["norm_out"], h, g, e))
+    h = C.norm_swish(p["norm_out"], h, g, e)
     h = C.conv2d(p["conv_out"], h)
     return C.conv2d(p["quant_conv"], h)
 
@@ -217,7 +217,7 @@ def _decoder(p: Dict[str, Any], cfg: MagvitConfig,
             h = C.resnet_block(bp, h, g, e)
         if "upsample" in level:
             h = C.upsample(level["upsample"], h)
-    h = C.swish(C.group_norm(p["norm_out"], h, g, e))
+    h = C.norm_swish(p["norm_out"], h, g, e)
     return C.conv2d(p["conv_out"], h)
 
 

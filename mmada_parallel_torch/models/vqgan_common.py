@@ -15,8 +15,12 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
-__all__ = ["conv2d", "group_norm", "swish", "resnet_block", "attn_block",
-           "downsample", "upsample", "ParamInit", "vq_precision"]
+from mmada_parallel_torch.ops.group_norm import group_norm_swish
+from mmada_parallel_torch.utils.spans import count, span
+
+__all__ = ["conv2d", "group_norm", "swish", "norm_swish", "resnet_block",
+           "attn_block", "downsample", "upsample", "ParamInit",
+           "vq_precision"]
 
 
 @contextlib.contextmanager
@@ -102,13 +106,25 @@ def group_norm(p: Dict[str, torch.Tensor], x: torch.Tensor, groups: int = 32,
     return (xf * scale + bias).to(og)
 
 
+def norm_swish(p: Dict[str, torch.Tensor], x: torch.Tensor, groups: int = 32,
+               eps: float = 1e-6, act: bool = True) -> torch.Tensor:
+    """``swish(group_norm(p, x))`` (the bare norm with ``act=False``) in one
+    call of :func:`~mmada_parallel_torch.ops.group_norm.group_norm_swish`:
+    the fused CUDA kernel on a card, this chain on the CPU.  Each call is a
+    ``vq.norm`` span that adds its least bytes (one read of ``x`` and one
+    write of the output) to the ``vq.norm_bytes`` counter."""
+    with span("vq.norm"):
+        count("vq.norm_bytes", 2 * x.numel() * x.element_size())
+        return group_norm_swish(x, p["scale"], p["bias"], groups, eps, act)
+
+
 def resnet_block(p: Dict[str, Any], x: torch.Tensor, groups: int = 32,
                  eps: float = 1e-6) -> torch.Tensor:
     """``x + conv2(swish(norm2(conv1(swish(norm1(x))))))`` with a 1x1
     ``nin_shortcut`` when channels change."""
-    h = swish(group_norm(p["norm1"], x, groups, eps))
+    h = norm_swish(p["norm1"], x, groups, eps)
     h = conv2d(p["conv1"], h)
-    h = swish(group_norm(p["norm2"], h, groups, eps))
+    h = norm_swish(p["norm2"], h, groups, eps)
     h = conv2d(p["conv2"], h)
     if "nin_shortcut" in p:
         x = conv2d(p["nin_shortcut"], x)
@@ -119,7 +135,7 @@ def attn_block(p: Dict[str, Any], x: torch.Tensor, groups: int = 32,
                eps: float = 1e-6) -> torch.Tensor:
     """Single-head conv attention over the H*W positions (fp32 scores)."""
     B, C, H, W = x.shape
-    h = group_norm(p["norm"], x, groups, eps)
+    h = norm_swish(p["norm"], x, groups, eps, act=False)
     q = conv2d(p["q"], h).reshape(B, C, H * W)
     k = conv2d(p["k"], h).reshape(B, C, H * W)
     v = conv2d(p["v"], h).reshape(B, C, H * W)

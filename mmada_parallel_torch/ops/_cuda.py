@@ -21,11 +21,16 @@ import shutil
 import subprocess
 import tempfile
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# the entry points' dtype codes
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
@@ -48,7 +53,18 @@ _SIGNATURES = {
         [_P] * 17 + [_I] * 6 + [_LL, _LL, _F, _P], _I),
     "mmada_flash_attention_rope_qonly_bwd": (
         [_P] * 14 + [_I] * 6 + [_LL, _F, _P], _I),
+    # the tokenizers' GroupNorm + swish (csrc/group_norm.cu)
+    "mmada_group_norm": ([_P] * 5 + [_I] * 4 + [_F] + [_I] * 3
+                         + [_LL, _P], _I),
+    "mmada_group_norm_cl": ([_P] * 6 + [_I] * 4 + [_F] + [_I] * 5 + [_P],
+                            _I),
 }
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's SMs, which the kernels' planners fill."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _nvcc() -> str:

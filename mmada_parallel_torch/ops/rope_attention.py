@@ -48,6 +48,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from mmada_parallel_torch.ops._cuda import KERNEL_DTYPES as _KERNEL_DTYPES
+from mmada_parallel_torch.ops._cuda import sm_count as _sm_count
+
 __all__ = ["rope_tensor", "apply_rope", "rope_rotate", "plan_splits",
            "split_cost",
            "flash_attention_rope",
@@ -58,7 +61,6 @@ __all__ = ["rope_tensor", "apply_rope", "rope_rotate", "plan_splits",
 
 NEG_INF = -1e30
 _KERNEL_HEAD_DIMS = (64, 128)
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the bf16 body's tiles (csrc/attention_mma.cuh kRows, kKeys)
 Q_TILE, K_TILE = 128, 64
 
@@ -348,11 +350,6 @@ def plan_splits(B: int, H: int, Lq: int, Lk: int, sm_count: int,
     return min(range(1, n_tiles + 1),
                key=lambda S: (split_cost(S, B, H, Lq, Lk, sm_count, D, KV),
                               S))
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _launch_qonly(q, k, v, sin_q, cos_q, bias, H: int, KV: int,

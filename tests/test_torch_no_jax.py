@@ -19,7 +19,8 @@ reader and token store, ``lfq_losses``, the utils, and two steps of
 ``mmada_parallel_torch.examples`` module, the checkpoint export, the
 conversation item processor, and two steps of the A demo run as
 ``python -m``); and the ring tensor parallelism (``parallel/`` and the
-serve CLI, and a two-rank ring forward in two processes)."""
+serve CLI, and a two-rank ring forward in two processes); and the
+tokenizers' fused GroupNorm + swish (``ops/group_norm.py``)."""
 
 import json
 import os
@@ -835,3 +836,41 @@ def test_tensor_parallel_entry_points_import_no_jax(tmp_path):
     assert res[0]["m_specs"] == ["blocks", "head", "ln_f", "wte"]
     assert len(res[0]["sweep_codes"]) == 4
     assert (tmp_path / "rl" / "ckpt" / "1").exists()
+
+
+GROUP_NORM_SCRIPT = r"""
+import importlib.abc, json, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "mmada_parallel_tpu"):
+            raise ImportError(f"{name} is blocked here")
+        return None
+
+sys.meta_path.insert(0, Block())
+
+import torch
+from mmada_parallel_torch.ops import group_norm as GN
+from mmada_parallel_torch.models import vqgan_common as C
+x = torch.randn(2, 8, 4, 4, generator=torch.Generator().manual_seed(0))
+p = {"scale": torch.ones(8), "bias": torch.zeros(8)}
+y = GN.group_norm_swish(x, p["scale"], p["bias"], 4)
+print(json.dumps({
+    "jax": sorted(m for m in sys.modules if m.split(".")[0] in
+                  ("jax", "jaxlib", "mmada_parallel_tpu")),
+    "equal": bool(torch.equal(y, C.swish(C.group_norm(p, x, 4)))),
+    "plan": list(GN.plan_group_norm(4, 128, 512 * 512, 32, 4, 132))}))
+"""
+
+
+def test_fused_group_norm_imports_no_jax():
+    """The tokenizers' fused GroupNorm + swish (``ops/group_norm.py``):
+    imported and run on the CPU, where it is the plain chain."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", GROUP_NORM_SCRIPT],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["jax"] == [] and res["equal"]
+    assert res["plan"] == [64, 16384]
