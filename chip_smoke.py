@@ -80,7 +80,13 @@ Phases (each prints its own lines; any failure exits non-zero):
    against its bound, the plain chain and ``F.silu(F.group_norm(...))``
    (its launches are held, and its routes logged, in the exact edit, the
    exact interleave and the M trainer's first batch assembly: one launch a
-   fused call of the tokenizers, counted on the meta device);
+   fused call of the tokenizers, counted on the meta device); the mixture
+   of experts' grouped GEMM (``csrc/moe_grouped_gemm.cu``) at
+   SDAR-30B-A3B's widths, at the block sampler's decode shape (64 tokens,
+   16-row tiles) and its prefill's (65,536 tokens, 128-row tiles): both
+   launches against ``grouped_gemm_reference``, the layer against the f32
+   loop over experts, a bitwise repeat, the device kernels, timed against
+   the bound, the plain loop and ``torch._grouped_mm``;
 3. small f32 models (head_dim 64): the kernel path gives the same tokens as
    the plain attention at temperature 0 on the exact edit, the cached edit,
    the exact and cached interleave, the exact edit with bf16-style
@@ -114,7 +120,17 @@ Phases (each prints its own lines; any failure exits non-zero):
    0) and at ``data=2`` (temperature 1: a row's noise does not depend on
    the split) equal to the one-rank sweep; ``[pararl-mesh]``: ``cli/train_pararl``'s rollout and
    update under JAX's ``MeshConfig()`` on 2 ranks equal to one rank's;
-4. at the full width of the 8B backbone (all 32 layers, one set of random
+4. ``[sdar]``: SDAR-30B-A3B at its published widths, 2 of its 48 layers
+   (random bf16 weights), through ``mmu_generate_fast`` on the
+   block-causal route (16 prompts of 4096, 8 new tokens in blocks of 4):
+   a call that captures the decode graphs, then one with every launch
+   count at 0 before it (the host launches only the prefill: K4 once a
+   layer, the grouped kernel twice; every decode forward a graph replay),
+   then one under the profiler that counts the device's launches of the
+   attention body and of the grouped kernel at each tile size; the first
+   row's step logits against the plain f32 reference's full forwards
+   (``benchmark/reference/sdar.py``); then
+   at the full width of the 8B backbone (all 32 layers, one set of random
    bf16 weights from a seed) with the full-size tokenizers: the exact edit
    (K1), the exact edit with non-fp32 RoPE (K3), the cached edit (K2 and
    K1), the exact interleave (K1) and the cached interleave (K2); the vocab
@@ -251,6 +267,10 @@ KERNELS = {          # name -> (source, TPU kernel it replaces)
         CSRC + "attention_bwd.cu", "mmada_parallel_tpu/ops/attention.py:334"),
     "flash_attention_bwd": (
         CSRC + "attention_bwd.cu", "mmada_parallel_tpu/ops/attention.py:68"),
+    # the mixture of experts' grouped GEMM (SDAR-30B-A3B)
+    "moe_grouped_gemm": (
+        CSRC + "moe_grouped_gemm.cu",
+        "none (the JAX package has no mixture of experts)"),
 }
 BWD = ("flash_attention_rope_bwd", "flash_attention_rope_qonly_bwd",
        "flash_attention_bwd")
@@ -393,6 +413,7 @@ def ptxas_entries(report: str) -> dict:
 
 def _launch_counters():
     from mmada_parallel_torch.ops import attention_bwd as B
+    from mmada_parallel_torch.ops.moe import grouped_gemm
     from mmada_parallel_torch.ops.flash_attention import flash_attention
     from mmada_parallel_torch.ops.rope_attention import (
         flash_attention_rope, flash_attention_rope_prefix,
@@ -401,7 +422,8 @@ def _launch_counters():
             "flash_attention_rope_qonly": flash_attention_rope_qonly,
             "flash_attention": flash_attention,
             "flash_attention_rope_prefix": flash_attention_rope_prefix,
-            **{name: getattr(B, name) for name in BWD}}
+            **{name: getattr(B, name) for name in BWD},
+            "moe_grouped_gemm": grouped_gemm}
 
 
 def reset_launches() -> None:
@@ -1920,6 +1942,150 @@ def phase_kernel_group_norm() -> dict:
     return records
 
 
+# The mixture of experts' grouped GEMM (csrc/moe_grouped_gemm.cu) at
+# SDAR-30B-A3B's widths: d 2048, 128 experts of 768, top-8; at the block
+# sampler's decode forward (16 rows x a block of 4 = 64 tokens, 16-row
+# tiles) and at its prefill (16 prompts of 4096 = 65,536 tokens, 128-row
+# tiles)
+MOE_D, MOE_M, MOE_E, MOE_K = 2048, 768, 128, 8
+MOE_CASES = (("decode", 64), ("prefill", 65536))
+# bf16 tolerances, relative to the largest magnitude of the plain result:
+# the gate/up launch rounds its SwiGLU rows to bf16 once (2^-8 relative,
+# with room for f32 summation order); the down launch writes f32 rows of the
+# same bf16 operands, apart only in summation order; the whole layer
+# against the f32 loop of the same operands within twice the bf16 loop's
+# own distance from it (at least 4e-3: the layer rounds its rows twice)
+MOE_GLU_REL, MOE_DOWN_REL, MOE_LAYER_FLOOR = 8e-3, 1e-4, 4e-3
+
+
+def _rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def _moe_case(case: str, T: int, gen) -> dict:
+    """Both grouped launches at ``T`` tokens against
+    ``grouped_gemm_reference`` (f32 products of the same bf16 operands),
+    the layer (``moe_mlp``) against the plain loop over experts in f32, a
+    bitwise repeat; timed by CUDA events against their bound, the plain
+    loop (``experts_reference`` in bf16) and ``torch._grouped_mm`` on the
+    same sorted rows where the build has it."""
+    import torch
+    import torch.nn.functional as F
+    from mmada_parallel_torch.ops import moe as MO
+    bf = torch.bfloat16
+    D, M, E, K = MOE_D, MOE_M, MOE_E, MOE_K
+    gate = torch.randn(E, D, M, device="cuda", generator=gen).mul_(0.02).to(bf)
+    up = torch.randn(E, D, M, device="cuda", generator=gen).mul_(0.02).to(bf)
+    down = (torch.randn(E, M, D, device="cuda", generator=gen)
+            .mul_(0.02 / 96 ** 0.5).to(bf))
+    router = torch.randn(D, E, device="cuda", generator=gen).mul_(0.02).to(bf)
+    x = torch.randn(T, D, device="cuda", generator=gen).to(bf)
+    w, ids = MO.route(x, router, K, True)
+    A = T * K
+    tile = MO.SMALL_TILE if A <= MO.SMALL_ROWS_MAX * E else MO.LARGE_TILE
+    if tile != (MO.SMALL_TILE if case == "decode" else MO.LARGE_TILE):
+        raise AssertionError(f"moe {case}: {tile}-row tiles at {T} tokens")
+    p = MO.plan(ids, E, tile)
+    scale = w.reshape(-1)
+    mid = MO.grouped_gemm(x, p, gate, up, top_k=K, glu=True)
+    ref_mid = MO.grouped_gemm_reference(x, p, gate, up, top_k=K, glu=True)
+    y = MO.grouped_gemm(mid, p, down, scale=scale, top_k=K, glu=False)
+    ref_y = MO.grouped_gemm_reference(mid, p, down, scale=scale, top_k=K,
+                                      glu=False)
+    out = MO.moe_mlp(x, router, gate, up, down, K, True)
+    loop = MO.experts_reference(x, w, ids, gate, up, down)
+    exact = MO.experts_reference(x.float(), w.float(), ids, gate.float(),
+                                 up.float(), down.float())
+    rec = {"tokens": T, "tile_rows": tile,
+           "glu_rel_err": _rel_err(mid, ref_mid),
+           "down_rel_err": _rel_err(y, ref_y),
+           "layer_rel_err": _rel_err(out, exact),
+           "loop_rel_err": _rel_err(loop, exact),
+           "max_abs_err": max(float((mid.float() - ref_mid.float()).abs()
+                                    .max()),
+                              float((y - ref_y).abs().max()))}
+    del exact, loop
+    if rec["glu_rel_err"] > MOE_GLU_REL or rec["down_rel_err"] > MOE_DOWN_REL \
+            or rec["layer_rel_err"] > 2 * max(rec["loop_rel_err"],
+                                              MOE_LAYER_FLOOR):
+        raise AssertionError(f"moe {case}: the grouped launches off their "
+                             f"plain versions: {rec}")
+    if not (torch.equal(mid, MO.grouped_gemm(x, p, gate, up, top_k=K,
+                                             glu=True))
+            and torch.equal(out, MO.moe_mlp(x, router, gate, up, down, K,
+                                            True))):
+        raise AssertionError(f"moe {case}: not bitwise equal on a repeat")
+    touched = int((p.counts > 0).sum())
+    flops = 2 * A * 3 * D * M
+    nbytes = touched * 3 * D * M * 2 + T * D * 2 + 2 * A * M * 2 + A * D * 4
+
+    def launches():
+        h = MO.grouped_gemm(x, p, gate, up, top_k=K, glu=True)
+        return MO.grouped_gemm(h, p, down, scale=scale, top_k=K, glu=False)
+
+    rec.update(experts_touched=touched, flops=flops, bytes=nbytes,
+               ms=time_ms(launches),
+               plain_ms=time_ms(lambda: MO.experts_reference(
+                   x, w, ids, gate, up, down), reps=3, warmup=1),
+               layer_ms=time_ms(lambda: MO.moe_mlp(x, router, gate, up,
+                                                   down, K, True)))
+    rec["bound_ms"], rec["bound_by"] = _bound(flops, nbytes, bf)
+    # the two grouped launches, and the down launch's cast of the bf16
+    # routing weights to f32 (as ``moe_mlp`` passes them)
+    kernels = _device_kernels(launches, f"moe {case}")
+    grouped = [n for n in kernels if "grouped_gemm_kernel" in n]
+    if len(grouped) != 2:
+        raise AssertionError(f"moe {case}: device kernels {list(kernels)}, "
+                             f"expected two grouped launches")
+    rec["device_ms"] = sum(kernels[n] for n in grouped) / 1e3
+    rec["kernels"] = sorted(_short_kernel(n)[:60] for n in kernels)
+    gm = getattr(torch, "_grouped_mm", None)
+    rec["library_ms"] = None
+    if gm is None:
+        rec["library"] = "torch._grouped_mm: not in this build"
+    else:
+        xs = x[p.rows.long() // K]
+        ends = p.offsets[1:].contiguous()
+
+        def library():
+            h = F.silu(gm(xs, gate, offs=ends)) * gm(xs, up, offs=ends)
+            return gm(h, down, offs=ends)
+        try:
+            lib_h = F.silu(gm(xs, gate, offs=ends)) * gm(xs, up, offs=ends)
+            rec["library_rel_err"] = _rel_err(lib_h, ref_mid)
+            rec["library_ms"] = time_ms(library)
+            rec["library"] = "torch._grouped_mm (gate, up, down)"
+        except (RuntimeError, TypeError) as e:
+            rec["library"] = f"torch._grouped_mm refused: {e}"[:300]
+    log(f"[kernel] moe_grouped_gemm {case}: T={T} ({A} assignments, "
+        f"{touched} experts touched, {tile}-row tiles) glu rel err "
+        f"{rec['glu_rel_err']:.2e} down {rec['down_rel_err']:.2e} layer "
+        f"{rec['layer_rel_err']:.2e} (bf16 loop {rec['loop_rel_err']:.2e}); "
+        f"two launches {rec['ms']:.3f} ms (device {rec['device_ms']:.3f} "
+        f"ms), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+        f"{100 * rec['bound_ms'] / rec['ms']:.1f} % of bound; layer "
+        f"{rec['layer_ms']:.3f} ms; plain loop {rec['plain_ms']:.3f} ms; "
+        f"{rec['library']}: {rec['library_ms']} ms; kernels "
+        f"{rec['kernels']}")
+    del gate, up, down, x
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_kernel_moe() -> dict:
+    """The grouped GEMM at the decode and the prefill shape
+    (:func:`_moe_case`).  Returns the records by case."""
+    import torch
+    from mmada_parallel_torch.ops import moe as MO
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    before = MO.grouped_gemm.launches
+    records = {case: _moe_case(case, T, gen) for case, T in MOE_CASES}
+    log(f"[kernel] moe_grouped_gemm: {MO.grouped_gemm.launches - before} "
+        f"kernel calls in the checks")
+    return records
+
+
 def _function_grads(fn, xs, w, runs) -> dict:
     """``{(impl, dtype): (out, [dq, dk, dv], launches)}`` of
     ``(fn(q, k, v, impl).float() * w).sum()`` for each ``(impl, dtype)``
@@ -3153,6 +3319,123 @@ def _profile(phase: str, fn, top: int = 6, ranges=()) -> dict:
 # ---------------------------------------------------------------------------
 # Full width
 # ---------------------------------------------------------------------------
+
+
+# SDAR-30B-A3B at full width through the block sampler, cut to SDAR_LAYERS
+# of its 48 layers: the sdar-blockgen cell's batch (16 prompts of 4096) and
+# SDAR_NEW new tokens in blocks of 4, 4 steps a block
+SDAR_LAYERS, SDAR_B, SDAR_P, SDAR_NEW = 2, 16, 4096, 8
+
+
+def phase_sdar() -> dict:
+    """``mmu_generate_fast`` with ``LLaDAConfig.sdar_30b_a3b`` (bf16, random
+    weights from a seed) on the block-causal route: K4's prefill, then each
+    block's steps and write on the folded K2 and the grouped kernel, the
+    decode forwards as CUDA graphs.  A first call captures the graphs into
+    a kept ``DecodeGraphs``; the second, timed, runs with every launch
+    count at 0 before it: the host launches only the prefill (K4 once a
+    layer, the grouped kernel twice) and every decode forward is a replay.
+    A third call under the profiler counts the device's launches: K4's and
+    K2's bodies once a layer a forward, the grouped kernel twice, the
+    prefill's at 128-row tiles, the decode's at 16.  The first row's step
+    logits against the plain f32 reference's full block-causal forward
+    (``benchmark/reference/sdar.py``) over the ids that entered each step:
+    mean error under 2 % of the logits' spread (a near-tie expert that
+    bf16 flips moves a few positions further), none beyond half of it.
+    Returns the grouped kernel's device launches (decode and prefill) and
+    the timed call's wall."""
+    import torch
+    from benchmark.reference import sdar as RS
+    from mmada_parallel_torch.models.llada import (LLaDAConfig,
+                                                   init_llada_params)
+    from mmada_parallel_torch.samplers import mmu as TM
+    L, B, P, N = SDAR_LAYERS, SDAR_B, SDAR_P, SDAR_NEW
+    bf = torch.bfloat16
+    cfg = LLaDAConfig.sdar_30b_a3b(n_layers=L, param_dtype=bf,
+                                   compute_dtype=bf)
+    bl = cfg.block_length
+    with open(os.path.join(REPO, "benchmark/configs/sdar-30b-a3b.json")) as f:
+        conf = dict(json.load(f), num_hidden_layers=L)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = init_llada_params(cfg, gen)
+    prompts = torch.randint(0, cfg.pad_token_id, (B, P), device="cuda",
+                            generator=gen)
+    opts = TM.MMUOptions(max_new_tokens=N, steps=N, block_length=bl,
+                         mask_token=cfg.mask_token_id)
+    graphs = TM.DecodeGraphs()
+    run = lambda: TM.mmu_generate_fast(params, cfg, prompts, opts,  # noqa
+                                       eot_token=-1, graphs=graphs)
+    first = run()
+    seen, real = [], TM._block_step
+
+    def step(dec, g, block, *a):
+        cur = block[0].clone()
+        new, logits = real(dec, g, block, *a)
+        seen.append((cur, logits[0].float().clone()))
+        return new, logits
+
+    replays = graphs.replays
+    TM._block_step = step
+    try:
+        out, wall, peak = _timed_run(run)
+    finally:
+        TM._block_step = real
+    decode = N + N // bl                        # steps and writes
+    host = check_launches("sdar", {"flash_attention_rope_prefix": L,
+                                   "moe_grouped_gemm": 2 * L})
+    if graphs.replays - replays != decode or not torch.equal(out, first):
+        raise AssertionError(f"sdar: {graphs.replays - replays} replays, "
+                             f"expected {decode}; a replay's tokens equal "
+                             f"the capturing call's: "
+                             f"{torch.equal(out, first)}")
+    names = {}
+    events, _ = _captured("sdar", run)
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not e.is_user_annotation:
+            names[e.name] = names.get(e.name, 0) + 1
+    device = {"attention_ws": sum(n for k, n in names.items()
+                                  if "attention_ws_kernel" in k),
+              "grouped/128": sum(n for k, n in names.items()
+                                 if "grouped_gemm_kernel<128," in k),
+              "grouped/16": sum(n for k, n in names.items()
+                                if "grouped_gemm_kernel<16," in k)}
+    want = {"attention_ws": L * (1 + decode), "grouped/128": 2 * L,
+            "grouped/16": 2 * L * decode}
+    if device != want:
+        raise AssertionError(f"sdar: device launches {device}, expected "
+                             f"{want}")
+    errs, spread, gaps = [], [], []
+    with torch.no_grad():
+        for j, (ids, logits) in enumerate(seen):
+            bs = P + (j // bl) * bl
+            x = out[0].clone()
+            x[bs:bs + bl] = ids
+            h, _ = RS.hidden(params, conf, x[:bs + bl], P, bl)
+            ref = RS.head(params, h[bs:])
+            errs.append(((logits - ref).abs().mean().item(),
+                         (logits - ref).abs().max().item()))
+            spread.append(float(ref.std()))
+            gaps.append(float((ref.max(-1).values - ref.gather(
+                -1, logits.argmax(-1)[:, None])[:, 0]).max()))
+    bad = [j for j, ((mean, top), s) in enumerate(zip(errs, spread))
+           if mean >= 0.02 * s or top > 0.5 * s]
+    if len(seen) != N or bad:
+        raise AssertionError(f"sdar: {len(seen)} steps seen of {N}; steps "
+                             f"{bad} off the reference: errors {errs}, "
+                             f"spreads {spread}")
+    log(f"[sdar] mmu_generate_fast, SDAR-30B-A3B widths at {L} of 48 layers, "
+        f"B={B} prompts of {P}, {N} new tokens in blocks of {bl}: wall "
+        f"{wall:.3f} s (prefill + {decode} decode forwards as graph "
+        f"replays), peak {peak / 2 ** 30:.2f} GiB; host launches {host}; "
+        f"device launches {device}; step logits against the f32 reference: "
+        f"mean |err| <= {max(m for m, _ in errs):.4f}, max "
+        f"{max(t for _, t in errs):.4f}, spread {min(spread):.3f}, greedy "
+        f"gap <= {max(gaps):.4f}")
+    del params, graphs
+    torch.cuda.empty_cache()
+    return {"launches": device["grouped/16"],
+            "prefill_launches": device["grouped/128"], "wall_s": wall}
 
 
 def make_full_width(gen) -> dict:
@@ -6695,6 +6978,21 @@ def _check_pararl_mesh(ranks, want) -> None:
         f"{want['launches'][3]} an update")
 
 
+def moe_prefill_entry(moe_records: dict, sdar_run: dict) -> dict:
+    """The grouped GEMM's record at the prefill shape, for the kernels line
+    (the decode shape's is the KERNELS entry, with the decode forwards'
+    launches in ``[sdar]``): the prefill's launches there, from the device
+    trace."""
+    src, replaces = KERNELS["moe_grouped_gemm"]
+    rec = moe_records["prefill"]
+    return {"name": "moe_grouped_gemm/prefill", "route": "cuda",
+            "source": src, "replaces": replaces,
+            "launches": sdar_run["prefill_launches"],
+            "case": f"T={rec['tokens']}",
+            **{f: rec[f] for f in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}}
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     import torch
@@ -6718,6 +7016,8 @@ def main() -> int:
     records.update(phase_kernel_bwd())
     phase_kernel_grads()
     gn_records = phase_kernel_group_norm()
+    moe_records = phase_kernel_moe()
+    records["moe_grouped_gemm"] = moe_records["decode"]
     mark("phase 2 (kernels)")
     phase_small_slice()
     phase_small_new_paths()
@@ -6730,11 +7030,14 @@ def main() -> int:
     phase_ring_nccl()
     phase_small_mesh()
     mark("phase 3 (small models)")
+    sdar_run = phase_sdar()
+    mark("phase 4 (SDAR)")
     full = make_full_width(torch.Generator(device="cuda").manual_seed(0))
     launches = {"flash_attention_rope": phase_edit(full),
                 "flash_attention": phase_edit_lowprec_rope(full),
                 "flash_attention_rope_qonly": phase_cached_edit(full),
-                "flash_attention_rope_prefix": prefix_launches}
+                "flash_attention_rope_prefix": prefix_launches,
+                "moe_grouped_gemm": sdar_run["launches"]}
     phase_interleave(full)
     phase_cached_interleave(full)
     phase_head(full)
@@ -6841,6 +7144,7 @@ def main() -> int:
                         "launches": n, "case": case or f"{route} {shape}",
                         **{f: gn_records[case][f] if case else None
                            for f in fields}})
+    kernels.append(moe_prefill_entry(moe_records, sdar_run))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

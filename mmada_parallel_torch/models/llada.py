@@ -2,7 +2,13 @@
 
 Counterpart of :mod:`mmada_parallel_tpu.models.llada`: bidirectional
 attention, GQA, Neox RoPE, RMSNorm, SwiGLU-gated MLP, united text+image vocab
-head.  Parameters are a plain dict whose names and shapes map 1:1 to the JAX
+head.  Beyond the JAX package, the same block also runs SDAR-30B-A3B
+(:meth:`LLaDAConfig.sdar_30b_a3b`, Qwen3-MoE's block): a head size apart
+from ``d_model / n_heads``, a per-head q/k RMSNorm before RoPE, a mixture
+of experts in place of the MLP (:mod:`mmada_parallel_torch.ops.moe`), and
+block-causal attention (a row sees the keys up to its block's end: K4's
+per-row bounds in a full forward, a bias on the cache in a partial one).
+Parameters are a plain dict whose names and shapes map 1:1 to the JAX
 pytree: per-layer weights stack on a leading ``[n_layers, ...]`` axis and
 linear weights keep the ``[d_in, d_out]`` layout, applied as ``x @ w``.  The
 layer stack is a Python loop over that axis (the JAX ``lax.scan``).
@@ -31,21 +37,29 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from mmada_parallel_torch.ops.attention import (rope_attention,
+from mmada_parallel_torch.ops.attention import (_prefix_dense_bias,
+                                                 rope_attention,
+                                                 rope_attention_prefix,
                                                  rope_attention_qonly)
 from mmada_parallel_torch.ops.masks import pairwise_padding_mask, to_bias
+from mmada_parallel_torch.ops.moe import moe_mlp
 from mmada_parallel_torch.ops.quant import int8_matmul
 from mmada_parallel_torch.ops.rope_attention import rope_tensor
 
 __all__ = ["LLaDAConfig", "init_llada_params", "llada_hidden", "llada_head",
            "llada_forward", "llada_hidden_with_cache", "llada_hidden_partial",
-           "count_params", "param_shardings"]
+           "block_causal_bounds", "count_params", "param_shardings"]
+
+ATTENTION_MODES = ("bidirectional", "block_causal")
 
 
 @dataclasses.dataclass(frozen=True)
 class LLaDAConfig:
     """Architecture hyperparameters; fields and defaults as the JAX
-    ``LLaDAConfig``, with ``torch.dtype`` execution dtypes."""
+    ``LLaDAConfig``, with ``torch.dtype`` execution dtypes, and the fields
+    the JAX package lacks: ``head_dim`` (``None``: ``d_model // n_heads``,
+    filled in at construction), the mixture of experts (``n_experts > 0``
+    replaces every layer's MLP), and ``attention``."""
 
     d_model: int = 4096
     n_heads: int = 32
@@ -67,13 +81,20 @@ class LLaDAConfig:
     weight_tying: bool = False
     input_emb_norm: bool = False
     scale_logits: bool = False
-    attention_layer_norm: bool = False        # q/k norm (unused by 8B ckpts)
+    attention_layer_norm: bool = False        # per-head q/k RMSNorm
     init_fn: str = "normal"
     init_std: float = 0.02
     init_cutoff_factor: Optional[float] = None
     mask_token_id: int = 126336
     eos_token_id: int = 126081
     pad_token_id: int = 126081
+    head_dim: Optional[int] = None            # None -> d_model // n_heads
+    n_experts: int = 0                        # 0: the dense MLP
+    experts_per_token: int = 0
+    moe_hidden_size: int = 0                  # each expert's SwiGLU width
+    norm_topk_prob: bool = True               # renormalise the top-k to 1
+    attention: str = "bidirectional"          # | "block_causal"
+    block_length: int = 0                     # block_causal's block
     # --- execution policy (not part of the checkpoint contract) ---
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
@@ -84,9 +105,10 @@ class LLaDAConfig:
     def effective_n_kv_heads(self) -> int:
         return self.n_kv_heads if self.n_kv_heads is not None else self.n_heads
 
-    @property
-    def head_dim(self) -> int:
-        return self.d_model // self.n_heads
+    def __post_init__(self):
+        if self.head_dim is None and self.d_model % self.n_heads == 0:
+            object.__setattr__(self, "head_dim",
+                               self.d_model // self.n_heads)
 
     @property
     def hidden_size(self) -> int:
@@ -102,10 +124,26 @@ class LLaDAConfig:
         return 0.5 if self.activation_type == "swiglu" else 1.0
 
     def validate(self) -> None:
-        if self.d_model % self.n_heads:
-            raise ValueError("d_model must be a multiple of n_heads")
+        if self.head_dim is None:
+            raise ValueError("d_model must be a multiple of n_heads where "
+                             "head_dim is not given")
         if self.n_heads % self.effective_n_kv_heads:
             raise ValueError("n_heads must be a multiple of n_kv_heads")
+        if self.attention not in ATTENTION_MODES:
+            raise ValueError(f"attention must be one of {ATTENTION_MODES}")
+        if self.attention == "block_causal" and self.block_length < 1:
+            raise ValueError("block_causal attention needs block_length")
+        if self.n_experts and not (
+                0 < self.experts_per_token <= self.n_experts
+                and self.moe_hidden_size > 0):
+            raise ValueError("a mixture of experts needs 0 < "
+                             "experts_per_token <= n_experts and "
+                             "moe_hidden_size")
+        if (self.n_experts or self.head_dim * self.n_heads != self.d_model
+                or self.attention_layer_norm) and \
+                self.block_type != "llama":
+            raise ValueError("experts, q/k norms and a head size apart "
+                             "from d_model / n_heads need llama blocks")
 
     @classmethod
     def tiny(cls, **overrides) -> "LLaDAConfig":
@@ -127,6 +165,39 @@ class LLaDAConfig:
                     max_sequence_length=8192)
         base.update(overrides)
         return cls(**base)
+
+    @classmethod
+    def sdar_30b_a3b(cls, **overrides) -> "LLaDAConfig":
+        """SDAR-30B-A3B (huggingface.co/JetLM/SDAR-30B-A3B-Chat, Qwen3-MoE's
+        block): d_model 2048, 48 layers, 32 query heads over 4 kv heads of
+        128 with per-head q/k RMSNorm, 128 experts of width 768 in every
+        layer, top-8 renormalised, untied vocab 151936, RoPE 1e6, eps 1e-6,
+        block-causal.  The config does not give the block length (4 here)
+        or the mask id (151669, the first id past the tokenizer's, a
+        reserved row of the embedding)."""
+        base = dict(d_model=2048, n_heads=32, n_kv_heads=4, head_dim=128,
+                    n_layers=48, mlp_hidden_size=6144, vocab_size=151936,
+                    rope_theta=1000000.0, rms_norm_eps=1e-6,
+                    max_sequence_length=32768, attention_layer_norm=True,
+                    n_experts=128, experts_per_token=8, moe_hidden_size=768,
+                    norm_topk_prob=True, attention="block_causal",
+                    block_length=4, mask_token_id=151669,
+                    eos_token_id=151645, pad_token_id=151643)
+        base.update(overrides)
+        return cls(**base)
+
+
+def block_causal_bounds(L: int, start: int, block_length: int,
+                        device=None) -> torch.Tensor:
+    """``[L]`` int32 key bounds of block-causal attention: position ``q``
+    sees the keys before its block's end.  Blocks of ``block_length`` are
+    aligned at ``start`` (the answer's first position), so the prompt's
+    first block is the short one, as if the prompt were left-padded to a
+    multiple of ``block_length`` with pads nobody attends to."""
+    q = torch.arange(L, device=device)
+    hi = start + torch.div(q - start, block_length,
+                           rounding_mode="floor") * block_length
+    return (hi + block_length).clamp(max=L).int()
 
 
 # ---------------------------------------------------------------------------
@@ -153,6 +224,7 @@ def init_llada_params(cfg: LLaDAConfig, generator: torch.Generator,
     dev = torch.device(device) if device is not None else generator.device
     d, h = cfg.d_model, cfg.hidden_size
     kvd = cfg.effective_n_kv_heads * cfg.head_dim
+    qd = cfg.n_heads * cfg.head_dim
     L = cfg.n_layers
     pd = cfg.param_dtype
     resid_div = math.sqrt(2 * L)
@@ -181,16 +253,25 @@ def init_llada_params(cfg: LLaDAConfig, generator: torch.Generator,
         blocks = {
             "attn_norm": ones(L, d),
             "ff_norm": ones(L, d),
-            "q_proj": nrm((L, d, d)),
+            "q_proj": nrm((L, d, qd)),
             "k_proj": nrm((L, d, kvd)),
             "v_proj": nrm((L, d, kvd)),
-            "attn_out": nrm((L, d, d), "out_attn"),
-            "ff_proj": nrm((L, d, h)),
-            "up_proj": nrm((L, d, h)),
-            "ff_out": nrm((L, h, d), "out_resid"),
+            "attn_out": nrm((L, qd, d), "out_attn"),
         }
+        if cfg.n_experts:
+            E, m = cfg.n_experts, cfg.moe_hidden_size
+            blocks.update(router=nrm((L, d, E)),
+                          expert_gate=nrm((L, E, d, m)),
+                          expert_up=nrm((L, E, d, m)),
+                          expert_down=nrm((L, E, m, d), "out_resid"))
+        else:
+            blocks.update(ff_proj=nrm((L, d, h)), up_proj=nrm((L, d, h)),
+                          ff_out=nrm((L, h, d), "out_resid"))
+        if cfg.attention_layer_norm:
+            blocks.update(q_norm=ones(L, cfg.head_dim),
+                          k_norm=ones(L, cfg.head_dim))
         if cfg.include_qkv_bias:
-            blocks.update(q_bias=zeros(L, d), k_bias=zeros(L, kvd),
+            blocks.update(q_bias=zeros(L, qd), k_bias=zeros(L, kvd),
                           v_bias=zeros(L, kvd))
     elif cfg.block_type == "sequential":
         ff_out_in = int(cfg.act_output_multiplier * h)
@@ -297,15 +378,43 @@ def _layer(blocks: Dict[str, Any], i: int) -> Dict[str, Any]:
                    else p[i]) for name, p in blocks.items()}
 
 
+def _qk_norm(q: torch.Tensor, k: torch.Tensor, lp: Dict[str, Any],
+             cfg: LLaDAConfig, nh: int, nkv: int):
+    """Packed ``q [..., nh*hd]`` and ``k [..., nkv*hd]`` each through the
+    per-head RMSNorm over ``hd`` (``lp["q_norm"]``, ``lp["k_norm"]``),
+    f32 statistics, as Qwen3's attention applies it before RoPE."""
+    hd = cfg.head_dim
+    qn = _rms_norm(q.unflatten(-1, (nh, hd)), lp["q_norm"], cfg.rms_norm_eps)
+    kn = _rms_norm(k.unflatten(-1, (nkv, hd)), lp["k_norm"], cfg.rms_norm_eps)
+    return qn.flatten(-2), kn.flatten(-2)
+
+
+def _mlp(h: torch.Tensor, lp: Dict[str, Any], cfg: LLaDAConfig,
+         out: Callable) -> torch.Tensor:
+    """The llama block's feed-forward branch on the normed ``h``: the
+    SwiGLU MLP with its output projection through ``out``, or, where the
+    config has experts, :func:`~mmada_parallel_torch.ops.moe.moe_mlp`."""
+    if cfg.n_experts:
+        return moe_mlp(h, lp["router"], lp["expert_gate"], lp["expert_up"],
+                       lp["expert_down"], cfg.experts_per_token,
+                       cfg.norm_topk_prob)
+    gate = F.silu(_pmm(h, lp["ff_proj"]))
+    return out(gate * _pmm(h, lp["up_proj"]), lp["ff_out"])
+
+
 def _block(x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: LLaDAConfig,
            sin: torch.Tensor, cos: torch.Tensor,
-           attn_bias: Optional[torch.Tensor], tp=None) -> torch.Tensor:
-    """One transformer block: ``llama`` (separate q/k/v, gated MLP) or
-    ``sequential`` (fused ``att_proj``, plain or SwiGLU MLP).  ``tp``: the
-    hook's :class:`~mmada_parallel_torch.parallel.tensor.TensorPlan`; a
-    half it runs split computes this rank's heads (``tp.n_heads``,
-    ``tp.n_kv_heads``) or MLP hidden, its input through ``tp.copy`` and
-    its output projection row-parallel (``tp.row``)."""
+           attn_bias: Optional[torch.Tensor], tp=None,
+           kv_hi: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One transformer block: ``llama`` (separate q/k/v, gated MLP or
+    experts) or ``sequential`` (fused ``att_proj``, plain or SwiGLU MLP).
+    ``tp``: the hook's :class:`~mmada_parallel_torch.parallel.tensor.
+    TensorPlan`; a half it runs split computes this rank's heads
+    (``tp.n_heads``, ``tp.n_kv_heads``) or MLP hidden, its input through
+    ``tp.copy`` and its output projection row-parallel (``tp.row``).
+    ``kv_hi`` (``[B, L]``, in place of ``attn_bias``): per-row key bounds,
+    through :func:`~mmada_parallel_torch.ops.attention.
+    rope_attention_prefix` (K4 on the card from 4096 positions)."""
     B, L, D = x.shape
     attn_tp = tp is not None and tp.attn_local
     mlp_tp = tp is not None and tp.mlp_local
@@ -332,11 +441,19 @@ def _block(x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: LLaDAConfig,
             q = q + lp["q_bias"].to(cdt)
             k = k + lp["k_bias"].to(cdt)
             v = v + lp["v_bias"].to(cdt)
+        if cfg.attention_layer_norm:
+            q, k = _qk_norm(q, k, lp, cfg, nh, nkv)
 
-    att = rope_attention(q, k, v, sin, cos, bias=attn_bias,
-                         n_heads=nh, n_kv_heads=nkv,
-                         full_precision=cfg.rope_full_precision,
-                         impl=cfg.attention_impl)
+    if kv_hi is not None:
+        att = rope_attention_prefix(q, k, v, sin, cos, kv_hi, n_heads=nh,
+                                    n_kv_heads=nkv,
+                                    full_precision=cfg.rope_full_precision,
+                                    impl=cfg.attention_impl)
+    else:
+        att = rope_attention(q, k, v, sin, cos, bias=attn_bias,
+                             n_heads=nh, n_kv_heads=nkv,
+                             full_precision=cfg.rope_full_precision,
+                             impl=cfg.attention_impl)
     x = x + (tp.row(att, lp["attn_out"]) if attn_tp
              else _pmm(att, lp["attn_out"]))
 
@@ -347,9 +464,7 @@ def _block(x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: LLaDAConfig,
     if cfg.block_type == "sequential":
         act = _activation(_pmm(h, lp["ff_proj"]), cfg.activation_type)
         return x + out(act, lp["ff_out"])
-    gate = F.silu(_pmm(h, lp["ff_proj"]))
-    up = _pmm(h, lp["up_proj"])
-    return x + out(gate * up, lp["ff_out"])
+    return x + _mlp(h, lp, cfg, out)
 
 
 def _hook(params: Dict[str, Any], cfg: LLaDAConfig,
@@ -393,10 +508,16 @@ def llada_hidden(params: Dict[str, Any], cfg: LLaDAConfig,
                  input_ids: torch.Tensor,
                  attn_mask: Optional[torch.Tensor] = None,
                  position_ids: Optional[torch.Tensor] = None,
-                 gather: Optional[Callable[[str, Any], Any]] = None
+                 gather: Optional[Callable[[str, Any], Any]] = None,
+                 kv_hi: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
     """Backbone only: ``[B, L]`` ids -> ``[B, L, d_model]`` hidden states
     after ``ln_f``.
+
+    ``kv_hi``: optional ``[B, L]`` (or ``[L]``) per-row key bounds (row
+    ``q`` sees keys ``< kv_hi[q]``), in place of ``attn_mask``; a
+    ``block_causal`` config without them takes
+    :func:`block_causal_bounds` aligned at position 0.
 
     ``attn_mask``: optional ``[B, L]`` bool padding mask (True = real),
     folded into a pairwise f32 0 / -1e30 bias.  ``position_ids``: optional
@@ -437,6 +558,12 @@ def llada_hidden(params: Dict[str, Any], cfg: LLaDAConfig,
     attn_bias = None
     if attn_mask is not None:
         attn_bias = to_bias(pairwise_padding_mask(attn_mask))
+    if kv_hi is None and cfg.attention == "block_causal":
+        kv_hi = block_causal_bounds(L, 0, cfg.block_length, x.device)
+    if kv_hi is not None:
+        if attn_bias is not None:
+            raise ValueError("kv_hi and attn_mask do not combine")
+        kv_hi = kv_hi.expand(B, L)
 
     blocks = params["blocks"]
 
@@ -445,7 +572,7 @@ def llada_hidden(params: Dict[str, Any], cfg: LLaDAConfig,
             lp = _layer(blocks, i)
             if gather is not None:
                 lp = gather("blocks", lp)
-            x = _block(x, lp, cfg, sin, cos, attn_bias, tp)
+            x = _block(x, lp, cfg, sin, cos, attn_bias, tp, kv_hi)
         return x
 
     step = max(group, 1)
@@ -574,24 +701,27 @@ def _rope_packed(t: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor,
 
 
 def _cached_block(x: torch.Tensor, lp: Dict[str, torch.Tensor],
-                  cfg: LLaDAConfig, attend, tp=None) -> torch.Tensor:
+                  cfg: LLaDAConfig, attend, tp=None, nh: int = 0,
+                  nkv: int = 0) -> torch.Tensor:
     """A llama block whose attention is ``attend(q, k, v) -> att``: the
-    caller rotates k, updates its cache and runs the q-only attention.
-    ``tp`` as in :func:`_block`."""
+    caller rotates k, updates its cache and runs the attention; q and k
+    arrive through the q/k norms where the config has them (``nh``,
+    ``nkv``: the head counts this rank computes).  ``tp`` as in
+    :func:`_block`."""
     attn_tp = tp is not None and tp.attn_local
     mlp_tp = tp is not None and tp.mlp_local
     h = _norm(x, lp["attn_norm"], cfg)
     if attn_tp:
         h = tp.copy(h)
-    att = attend(_pmm(h, lp["q_proj"]), _pmm(h, lp["k_proj"]),
-                 _pmm(h, lp["v_proj"]))
+    q, k = _pmm(h, lp["q_proj"]), _pmm(h, lp["k_proj"])
+    if cfg.attention_layer_norm:
+        q, k = _qk_norm(q, k, lp, cfg, nh, nkv)
+    att = attend(q, k, _pmm(h, lp["v_proj"]))
     x = x + (tp.row if attn_tp else _pmm)(att, lp["attn_out"])
     h = _norm(x, lp["ff_norm"], cfg)
     if mlp_tp:
         h = tp.copy(h)
-    gate = F.silu(_pmm(h, lp["ff_proj"]))
-    return x + (tp.row if mlp_tp else _pmm)(gate * _pmm(h, lp["up_proj"]),
-                                            lp["ff_out"])
+    return x + _mlp(h, lp, cfg, tp.row if mlp_tp else _pmm)
 
 
 def _cached_layers(params: Dict[str, Any], cfg: LLaDAConfig, gather):
@@ -618,14 +748,27 @@ def _final_norm(params, cfg, x, gather) -> torch.Tensor:
 
 def llada_hidden_with_cache(params: Dict[str, Any], cfg: LLaDAConfig,
                             input_ids: torch.Tensor,
-                            gather: Optional[Callable[[str, Any], Any]] = None
+                            gather: Optional[Callable[[str, Any], Any]] = None,
+                            kv_hi: Optional[torch.Tensor] = None,
+                            cache_len: Optional[int] = None,
+                            out: Optional[Dict[str, torch.Tensor]] = None
                             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full forward that also returns the per-layer k/v feature cache
     ``{"k": [n_layers, B, L, KV*hd], "v": ...}`` in the packed layout, k
     stored POST-RoPE (rounded to the compute dtype), so partial steps rotate
     only the recomputed positions.  Attention is the q-only path against the
     layer's own rotated k.  ``gather`` as in :func:`llada_hidden`; over
-    ``tensor`` the cache holds this rank's ``KV/g`` heads."""
+    ``tensor`` the cache holds this rank's ``KV/g`` heads.
+
+    ``kv_hi`` (``[B, L]`` or ``[L]`` key bounds; a ``block_causal`` config
+    without them takes :func:`block_causal_bounds` aligned at 0): the
+    attention is :func:`~mmada_parallel_torch.ops.attention.
+    rope_attention_prefix` on the unrotated k (K4 on the card from 4096
+    positions), the cache still gets the rotated k.  ``cache_len`` (at
+    least L) sizes the cache for the positions partial forwards will
+    write; the rows past ``L`` start at zero.  ``out``: a cache of that
+    shape to write into in place of a new one (its rows past ``L`` keep
+    what they hold)."""
     if cfg.block_type != "llama":
         raise NotImplementedError("feature cache supports llama blocks only")
     cdt = cfg.compute_dtype
@@ -634,27 +777,79 @@ def llada_hidden_with_cache(params: Dict[str, Any], cfg: LLaDAConfig,
     layer, tp, nh, nkv = _cached_layers(params, cfg, gather)
     x = _embed(params, cfg, input_ids, gather)
     sin, cos = _rope_sin_cos(L, cfg.head_dim, cfg.rope_theta, x.device)
-    shape = (cfg.n_layers, B, L, nkv * cfg.head_dim)
-    cache = {"k": torch.empty(shape, dtype=cdt, device=x.device),
-             "v": torch.empty(shape, dtype=cdt, device=x.device)}
+    if kv_hi is None and cfg.attention == "block_causal":
+        kv_hi = block_causal_bounds(L, 0, cfg.block_length, x.device)
+    if kv_hi is not None:
+        kv_hi = kv_hi.expand(B, L)
+    Lc = L if cache_len is None else cache_len
+    if Lc < L:
+        raise ValueError(f"cache_len {Lc} is shorter than the ids' {L}")
+    shape = (cfg.n_layers, B, Lc, nkv * cfg.head_dim)
+    if out is not None:
+        if any(out[n].shape != shape or out[n].dtype != cdt
+               for n in ("k", "v")):
+            raise ValueError(f"out must hold k and v of {list(shape)} {cdt}")
+        cache = out
+    else:
+        alloc = torch.empty if Lc == L else torch.zeros
+        cache = {"k": alloc(shape, dtype=cdt, device=x.device),
+                 "v": alloc(shape, dtype=cdt, device=x.device)}
 
     for i in range(cfg.n_layers):
         def attend(q, k, v, i=i):
-            cache["k"][i] = _rope_packed(k, sin, cos, nkv,
-                                         cfg.rope_full_precision)
-            cache["v"][i] = v
+            cache["k"][i, :, :L] = _rope_packed(k, sin, cos, nkv,
+                                                cfg.rope_full_precision)
+            cache["v"][i, :, :L] = v
+            if kv_hi is not None:
+                return rope_attention_prefix(
+                    q, k, v, sin, cos, kv_hi, n_heads=nh, n_kv_heads=nkv,
+                    full_precision=cfg.rope_full_precision,
+                    impl=cfg.attention_impl)
             return rope_attention_qonly(
                 q, cache["k"][i], cache["v"][i], sin, cos, n_heads=nh,
                 n_kv_heads=nkv, full_precision=cfg.rope_full_precision,
                 impl=cfg.attention_impl)
-        x = _cached_block(x, layer(i), cfg, attend, tp)
+        x = _cached_block(x, layer(i), cfg, attend, tp, nh, nkv)
     return _final_norm(params, cfg, x, gather), cache
+
+
+def _cache_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     sin: torch.Tensor, cos: torch.Tensor,
+                     bias: Optional[torch.Tensor], nh: int, nkv: int,
+                     cfg: LLaDAConfig, fold: bool) -> torch.Tensor:
+    """The selected rows' q-only attention against the whole cache
+    (:func:`~mmada_parallel_torch.ops.attention.rope_attention_qonly`).
+    ``fold`` (GQA, ``G = nh / nkv > 1``): the ``G`` query heads that share a
+    kv head become ``G`` rows of one head, ``[B, n*G, nkv*hd]`` with the
+    tables and the bias repeated alike, so K2 reads each kv head's cache
+    once for ``n*G`` rows rather than ``G`` times for ``n`` (a 64-row tile
+    for 4 rows at SDAR's 8:1); the result is the same function."""
+    G = nh // nkv
+    if not fold or G == 1:
+        return rope_attention_qonly(
+            q, k, v, sin, cos, bias, n_heads=nh, n_kv_heads=nkv,
+            full_precision=cfg.rope_full_precision, impl=cfg.attention_impl)
+    B, n, _ = q.shape
+    hd = cfg.head_dim
+    qg = q.view(B, n, nkv, G, hd).transpose(2, 3).reshape(B, n * G,
+                                                           nkv * hd)
+    row = sin.ndim - 2
+    sin, cos = (t.repeat_interleave(G, dim=row) for t in (sin, cos))
+    if bias is not None:
+        bias = bias.repeat_interleave(G, dim=2)
+    out = rope_attention_qonly(
+        qg, k, v, sin, cos, bias, n_heads=nkv, n_kv_heads=nkv,
+        full_precision=cfg.rope_full_precision, impl=cfg.attention_impl)
+    return out.view(B, n, G, nkv, hd).transpose(2, 3).reshape(B, n, nh * hd)
 
 
 def llada_hidden_partial(params: Dict[str, Any], cfg: LLaDAConfig,
                          sel_ids: torch.Tensor, sel_pos: torch.Tensor,
                          cache: Dict[str, torch.Tensor],
-                         gather: Optional[Callable[[str, Any], Any]] = None
+                         gather: Optional[Callable[[str, Any], Any]] = None,
+                         kv_hi: Optional[torch.Tensor] = None,
+                         tables: Optional[Tuple[torch.Tensor,
+                                                torch.Tensor]] = None
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Partial recompute: run only the ``n`` selected tokens (``sel_ids``
     ``[B, n]`` at absolute positions ``sel_pos`` ``[B, n]``) through the
@@ -664,17 +859,25 @@ def llada_hidden_partial(params: Dict[str, Any], cfg: LLaDAConfig,
     PLACE (the JAX function returns a new one; the values are the same):
     each layer scatters the selected rows' rotated k and v into its slice
     before attending.  RoPE uses the true absolute positions.  ``gather``
-    as in :func:`llada_hidden_with_cache`."""
+    as in :func:`llada_hidden_with_cache`.  ``kv_hi`` (``[B, n]``): each
+    selected row sees the cache's keys before its bound only (a bias built
+    once a call), as a block-causal step's rows see up to their block's
+    end.  On the card a GQA model's query heads fold into rows of their kv
+    head (:func:`_cache_attention`).  ``tables``: the RoPE ``(sin, cos)``
+    of the cache's positions, made beforehand (a CUDA graph's capture
+    takes no host-to-device copy)."""
     B, n = sel_ids.shape
     L = cache["k"].shape[2]
     gather = _hook(params, cfg, gather)
     layer, tp, nh, nkv = _cached_layers(params, cfg, gather)
     x = _embed(params, cfg, sel_ids, gather)
-    sin_full, cos_full = _rope_sin_cos(L, cfg.head_dim, cfg.rope_theta,
-                                       x.device)
+    sin_full, cos_full = (tables if tables is not None else _rope_sin_cos(
+        L, cfg.head_dim, cfg.rope_theta, x.device))
     pos = sel_pos.long()
     sin_sel, cos_sel = sin_full[pos], cos_full[pos]        # [B, n, hd]
     idx = pos[:, :, None].expand(B, n, cache["k"].shape[-1])
+    bias = (None if kv_hi is None
+            else to_bias(_prefix_dense_bias(kv_hi.expand(B, n), L)))
 
     for i in range(cfg.n_layers):
         def attend(q, k, v, i=i):
@@ -682,11 +885,9 @@ def llada_hidden_partial(params: Dict[str, Any], cfg: LLaDAConfig,
             k_full.scatter_(1, idx, _rope_packed(
                 k, sin_sel, cos_sel, nkv, cfg.rope_full_precision))
             v_full.scatter_(1, idx, v)
-            return rope_attention_qonly(
-                q, k_full, v_full, sin_sel, cos_sel, n_heads=nh,
-                n_kv_heads=nkv, full_precision=cfg.rope_full_precision,
-                impl=cfg.attention_impl)
-        x = _cached_block(x, layer(i), cfg, attend, tp)
+            return _cache_attention(q, k_full, v_full, sin_sel, cos_sel,
+                                    bias, nh, nkv, cfg, fold=q.is_cuda)
+        x = _cached_block(x, layer(i), cfg, attend, tp, nh, nkv)
     return _final_norm(params, cfg, x, gather), cache
 
 
@@ -705,6 +906,9 @@ def param_shardings(cfg: LLaDAConfig, fsdp_axis: str = "fsdp",
     over both axes.  :func:`~mmada_parallel_torch.parallel.mesh.shard_params`
     cuts a tree by it."""
     from mmada_parallel_torch.parallel.mesh import PartitionSpec as P
+    if cfg.n_experts or cfg.attention_layer_norm:
+        raise NotImplementedError("experts and q/k norms have no placement "
+                                  "over a mesh yet")
     fs, tp = fsdp_axis, tensor_axis
     if cfg.block_type == "sequential":
         blocks = {

@@ -58,6 +58,8 @@ _SIGNATURES = {
                          + [_LL, _P], _I),
     "mmada_group_norm_cl": ([_P] * 6 + [_I] * 4 + [_F] + [_I] * 5 + [_P],
                             _I),
+    # the mixture of experts' grouped GEMM (csrc/moe_grouped_gemm.cu)
+    "mmada_moe_grouped_gemm": ([_P] * 8 + [_I] * 7 + [_P], _I),
 }
 
 

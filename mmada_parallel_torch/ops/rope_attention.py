@@ -392,7 +392,8 @@ def _launch_qonly(q, k, v, sin_q, cos_q, bias, H: int, KV: int,
     if err != 0:
         raise RuntimeError(f"flash_attention_rope_qonly CUDA launch failed: "
                            f"cudaError_t {err}")
-    flash_attention_rope_qonly.launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        flash_attention_rope_qonly.launches += 1
     return (out, lse) if with_stats else out
 
 
@@ -468,7 +469,9 @@ def flash_attention_rope_qonly(q: torch.Tensor, k: torch.Tensor,
     a CPU tensor runs :func:`flash_attention_rope_qonly_reference`.  A bf16
     launch splits the key tiles as :func:`plan_splits` says for this card.
     ``flash_attention_rope_qonly.launches`` counts calls that launched the
-    kernel (one per call: the pre-pass, the body and the combine).
+    kernel (one per call: the pre-pass, the body and the combine); a call
+    recorded into a CUDA graph launches nothing, and the graph's replays
+    go uncounted.
     ``with_stats=True`` (bf16 on CUDA) also returns the rows' softmax
     statistics for the backward (written by the combine when the call
     splits): ``(out, stats)``."""

@@ -347,7 +347,10 @@ def generate_ti2ti_cached(
     Logits elsewhere are reused, so this is an approximation; with
     ``refresh_interval=1`` every step refreshes and the trajectory equals
     :func:`generate_ti2ti`.  The uncond CFG forwards (image steps only)
-    stay exact.  Same arguments and return as :func:`generate_ti2ti`."""
+    stay exact.  Same arguments and return as :func:`generate_ti2ti`, and
+    the same spans (``ti2ti.step`` > ``ti2ti.cond``, the refresh or partial
+    forward and its heads; ``ti2ti.text_update``; ``ti2ti.uncond``,
+    ``ti2ti.image_update``)."""
     if opts.remasking == "random" and generator is None:
         raise ValueError("remasking='random' requires a generator")
     device = input_ids.device
@@ -377,36 +380,44 @@ def generate_ti2ti_cached(
     cache = text_logits = vq = None
     changed = torch.zeros((B, text_len), dtype=torch.bool, device=device)
     for s in range(steps):          # refresh[0] is always True
-        if refresh[s]:
-            cache = None                  # free the old one first
-            hidden, cache = llada_hidden_with_cache(params, cfg, ids)
-            text_logits = llada_head(params, cfg, hidden[:, ts:te])
-            vq = llada_head(params, cfg, hidden[:, img_pos],
-                            vocab_slice=(tvs, cb))
-            del hidden
-        else:
-            masked = ids[:, ts:te] == opts.mask_token
-            conf = torch.softmax(text_logits, dim=-1).amax(dim=-1)
-            score = changed.float() * 1e6 + masked.float() * (1.0 - conf)
-            # stable: unmasked, unchanged slots all score 0
-            sel_slot = torch.sort(-score, dim=-1,
-                                  stable=True).indices[:, :n_sel]
-            sel_pos = ts + sel_slot
-            h_sel, cache = llada_hidden_partial(
-                params, cfg, torch.gather(ids, 1, sel_pos), sel_pos, cache)
-            logits_sel = llada_head(params, cfg, h_sel)
-            text_logits.scatter_(1, sel_slot[:, :, None].expand_as(
-                logits_sel), logits_sel.to(text_logits.dtype))
-        # both branches consume the previous step's commits, so the slots
-        # that go stale are exactly this step's transfers
-        ids, changed = _text_update(ids, text_logits, budgets[:, s], opts,
-                                    layout, generator, return_transfer=True)
-        if img_step[s]:
-            ut_vq, ui_vq = _uncond_vq(params, cfg, ids, vq, plan, img_pos,
-                                      tvs, cb)
-            ids = _image_update(ids, vq, ut_vq, ui_vq, img_pos,
-                                mask_ratios[s], img_temps[s], opts,
-                                generator)
+        with span("ti2ti.step"):
+            with span("ti2ti.cond"):
+                if refresh[s]:
+                    cache = None                  # free the old one first
+                    hidden, cache = llada_hidden_with_cache(params, cfg, ids)
+                    text_logits = llada_head(params, cfg, hidden[:, ts:te])
+                    vq = llada_head(params, cfg, hidden[:, img_pos],
+                                    vocab_slice=(tvs, cb))
+                    del hidden
+                else:
+                    masked = ids[:, ts:te] == opts.mask_token
+                    conf = torch.softmax(text_logits, dim=-1).amax(dim=-1)
+                    score = (changed.float() * 1e6
+                             + masked.float() * (1.0 - conf))
+                    # stable: unmasked, unchanged slots all score 0
+                    sel_slot = torch.sort(-score, dim=-1,
+                                          stable=True).indices[:, :n_sel]
+                    sel_pos = ts + sel_slot
+                    h_sel, cache = llada_hidden_partial(
+                        params, cfg, torch.gather(ids, 1, sel_pos), sel_pos,
+                        cache)
+                    logits_sel = llada_head(params, cfg, h_sel)
+                    text_logits.scatter_(1, sel_slot[:, :, None].expand_as(
+                        logits_sel), logits_sel.to(text_logits.dtype))
+            # both branches consume the previous step's commits, so the
+            # slots that go stale are exactly this step's transfers
+            with span("ti2ti.text_update"):
+                ids, changed = _text_update(ids, text_logits, budgets[:, s],
+                                            opts, layout, generator,
+                                            return_transfer=True)
+            if img_step[s]:
+                with span("ti2ti.uncond"):
+                    ut_vq, ui_vq = _uncond_vq(params, cfg, ids, vq, plan,
+                                              img_pos, tvs, cb)
+                with span("ti2ti.image_update"):
+                    ids = _image_update(ids, vq, ut_vq, ui_vq, img_pos,
+                                        mask_ratios[s], img_temps[s], opts,
+                                        generator)
     return ids, _final_codes(ids, layout, opts, generator)
 
 

@@ -49,7 +49,8 @@ from mmada_parallel_torch import tokens as tk
 from mmada_parallel_torch.models.llada import LLaDAConfig
 from mmada_parallel_torch.samplers.interleave import (
     InterleaveOptions, interleave_generate, interleave_generate_cached)
-from mmada_parallel_torch.samplers.mmu import MMUOptions, mmu_generate
+from mmada_parallel_torch.samplers.mmu import (DecodeGraphs, MMUOptions,
+                                               mmu_generate)
 from mmada_parallel_torch.samplers.parallel_ti2ti import (TI2TIOptions,
                                                           decode_text,
                                                           generate_ti2ti)
@@ -690,6 +691,9 @@ class MMUServer(_BatchServerBase):
                  seed: int = 0):
         self.cfg = cfg
         self.opts = opts if opts is not None else MMUOptions()
+        # a block-causal model's decode graphs, kept between batches of
+        # one bucket (another bucket's shape captures anew)
+        self._graphs = DecodeGraphs()
         self.bucket_quantum = bucket_quantum
         self.max_prompt_len = max_prompt_len
         self.tokenizer = tokenizer
@@ -725,7 +729,8 @@ class MMUServer(_BatchServerBase):
             mask[i, :len(prompt)] = True
         return mmu_generate(self.params, self.cfg, self._tensor(ids),
                             self.opts, attn_mask=self._tensor(mask),
-                            generator=self._generator).cpu().numpy()
+                            generator=self._generator,
+                            graphs=self._graphs).cpu().numpy()
 
     def _warm_bucket(self, plen: int) -> None:
         self._generate(plen, [[self.tokens.eos] * plen])

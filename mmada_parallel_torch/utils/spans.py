@@ -13,8 +13,11 @@ records nothing.  While it records, ``with span("layer.what"):``
   stream, with no synchronize;
 * notes its parent, the innermost span open on the same thread.
 
-:func:`count` adds to a named counter, also only while recording.  A span
-adds no synchronize and no kernel, so it changes no result.  Names are
+:func:`count` adds to a named counter, also only while recording: a
+number, or a tensor on the card, which is summed there (no synchronize) and
+read as a number by :func:`counters`.  :func:`recording` says whether the
+profiler records, for a counter that costs work to compute.  A span adds no
+synchronize and no kernel, so it changes no result.  Names are
 ``layer.what``; each is read by a per-layer metric of the benchmark
 (``PERF.md`` §3 lists them).
 
@@ -33,11 +36,11 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
-from typing import Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import torch
 
-__all__ = ["span", "count", "summary", "counters", "records"]
+__all__ = ["span", "count", "recording", "summary", "counters", "records"]
 
 _recording = torch._C._autograd._profiler_enabled
 _OFF = contextlib.nullcontext()
@@ -50,7 +53,7 @@ class _Store:
 
     def __init__(self):
         self.records = []
-        self.counters: Dict[str, int] = {}
+        self.counters: Dict[str, Any] = {}
         self.ended = True           # the profiler was seen off
         self.lock = threading.Lock()
         self.local = threading.local()
@@ -113,8 +116,14 @@ def span(name: str):
     return _Span(name)
 
 
-def count(name: str, n: int) -> None:
-    """Add ``n`` to the counter ``name`` while the profiler records."""
+def recording() -> bool:
+    """True while the profiler records (spans and counters are on)."""
+    return bool(_recording())
+
+
+def count(name: str, n: Union[int, torch.Tensor]) -> None:
+    """Add ``n`` to the counter ``name`` while the profiler records; a
+    tensor ``n`` is added on its device."""
     if not _recording():
         _store.ended = True
         return
@@ -156,11 +165,13 @@ def summary() -> Dict[str, Dict[str, Optional[float]]]:
     return out
 
 
-def counters() -> Dict[str, int]:
-    """The session's counters."""
+def counters() -> Dict[str, Union[int, float]]:
+    """The session's counters, a tensor's read as a number (which
+    synchronizes with the card)."""
     _closed()
     with _store.lock:
-        return dict(_store.counters)
+        return {k: v.item() if isinstance(v, torch.Tensor) else v
+                for k, v in _store.counters.items()}
 
 
 def records() -> list:

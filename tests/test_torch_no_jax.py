@@ -214,7 +214,7 @@ def test_chip_smoke_and_train_cli_import_no_jax_package():
         ["flash_attention", "flash_attention_rope",
          "flash_attention_rope_prefix", "flash_attention_rope_qonly",
          "flash_attention_bwd", "flash_attention_rope_bwd",
-         "flash_attention_rope_qonly_bwd"])
+         "flash_attention_rope_qonly_bwd", "moe_grouped_gemm"])
     assert res["m_len"] == 2360         # the interleave length chip_smoke uses
 
 
@@ -874,3 +874,53 @@ def test_fused_group_norm_imports_no_jax():
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res["jax"] == [] and res["equal"]
     assert res["plan"] == [64, 16384]
+
+
+SDAR_SCRIPT = r"""
+import importlib.abc, json, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "mmada_parallel_tpu"):
+            raise ImportError(f"{name} is blocked here")
+        return None
+
+sys.meta_path.insert(0, Block())
+
+import torch
+from benchmark.reference import sdar as RS
+from benchmark.reference import cache as RC
+from benchmark.harness import moe_counts, sdar as HS
+from benchmark.drivers import block_decode, ti2ti_edit_cached
+from mmada_parallel_torch.models import llada as TL
+from mmada_parallel_torch.ops import moe as MO
+from mmada_parallel_torch.samplers import mmu as TM
+cfg = TL.LLaDAConfig.sdar_30b_a3b(
+    d_model=32, n_heads=4, n_kv_heads=1, head_dim=16, n_layers=1,
+    vocab_size=40, n_experts=4, experts_per_token=2, moe_hidden_size=16,
+    mask_token_id=39, param_dtype=torch.float32,
+    compute_dtype=torch.float32)
+params = TL.init_llada_params(cfg, torch.Generator().manual_seed(0))
+out = TM.mmu_generate_fast(params, cfg, torch.arange(4)[None],
+                           TM.MMUOptions(max_new_tokens=4, steps=4,
+                                         block_length=4, mask_token=39),
+                           eot_token=0)
+print(json.dumps({
+    "jax": sorted(m for m in sys.modules if m.split(".")[0] in
+                  ("jax", "jaxlib", "mmada_parallel_tpu")),
+    "masked": int((out == 39).sum()), "shape": list(out.shape)}))
+"""
+
+
+def test_sdar_block_sampler_and_its_reference_import_no_jax():
+    """SDAR's path (the q/k norms, ``ops/moe.py``, the block-causal cached
+    route of ``samplers/mmu.py``), its plain reference and the new
+    benchmark drivers and counts: imported and run on the CPU."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", SDAR_SCRIPT], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["jax"] == [] and res["masked"] == 0
+    assert res["shape"] == [1, 8]

@@ -227,3 +227,19 @@ def test_outputs_bit_identical_with_the_profiler_on_and_off(pipe):
     p_off = _train()
     for k in p_off:
         assert torch.equal(p_on[k], p_off[k]), k
+
+
+def test_tensor_counters_sum_on_their_device_and_read_as_numbers():
+    """A counter fed tensors (the experts a layer touched, counted on the
+    device with no sync) reads as the number they sum to, and only while
+    the profiler records; ``recording`` says which."""
+    assert not spans.recording()
+    spans.count("moe.experts_touched", torch.tensor(3))
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert spans.recording()
+        spans.count("moe.experts_touched", torch.tensor(3))
+        spans.count("moe.experts_touched", 2)
+        spans.count("moe.experts_touched", torch.tensor(4))
+    got = spans.counters()
+    assert got == {"moe.experts_touched": 9}
+    assert isinstance(got["moe.experts_touched"], int)
