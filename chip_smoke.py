@@ -428,7 +428,8 @@ def _launch_counters():
 
 def reset_launches() -> None:
     from mmada_parallel_torch.ops.group_norm import group_norm_swish
-    for fn in (*_launch_counters().values(), group_norm_swish):
+    from mmada_parallel_torch.ops.rms_norm import rms_norm
+    for fn in (*_launch_counters().values(), group_norm_swish, rms_norm):
         fn.launches = 0
 
 
@@ -1940,6 +1941,161 @@ def phase_kernel_group_norm() -> dict:
     calls = GN.group_norm_swish.launches - before
     log(f"[kernel] group_norm: {calls} kernel calls in the checks")
     return records
+
+
+# The backbone's RMSNorm (csrc/rms_norm.cu) at the main path's shapes: the
+# edit's B=1 and B=2 forwards (d 4096, L 2424); SDAR-30B-A3B's decode
+# forward (16 rows x a block of 4, d 2048), 64 positions a row, its
+# per-head q and k norms (width 128) and its prefill (16 prompts of 4096).
+RMS_CASES = (("edit B=1", (1, 2424, 4096)), ("edit B=2", (2, 2424, 4096)),
+             ("sdar decode", (16, 4, 2048)), ("sdar 64", (16, 64, 2048)),
+             ("sdar decode q", (16, 4, 32, 128)),
+             ("sdar 64 q", (16, 64, 32, 128)), ("sdar 64 k", (16, 64, 4, 128)),
+             ("sdar prefill", (16, 4096, 2048)),
+             ("sdar prefill k", (16, 4096, 4, 128)))
+# against the plain chain in bf16: the two round at the same points and sum
+# the squares in another order, so at least this share of the elements is
+# equal and none is more than RMS_MAX_ULPS bf16 ulps away; in f32 every
+# element within RMS_F32_RTOL (a few f32 ulps of the rsqrt's input)
+RMS_EQUAL_SHARE, RMS_MAX_ULPS, RMS_F32_RTOL = 0.999, 2, 1e-6
+# the edit's shape at other plans than the planner's: (threads a row,
+# vectors a thread)
+RMS_SWEEP = ((64, 8), (128, 4), (256, 2), (512, 1))
+# the rms_norm launches of the main path's phases (phase -> launches)
+RMS_RUNS = {}
+
+
+def bf16_ulps(a, b):
+    """Elementwise distance of two bf16 tensors in ulps (+0 and -0 equal)."""
+    import torch
+
+    def key(t):
+        bits = t.view(torch.int16).int()
+        return torch.where(bits < 0, -(bits + 32768), bits)
+    return (key(a) - key(b)).abs()
+
+
+def check_rms_agreement(name: str, got, want) -> dict:
+    """The kernel's output against the plain chain's: the share of equal
+    elements and the largest distance (bf16 ulps, or f32 relative), held
+    to ``RMS_EQUAL_SHARE`` and ``RMS_MAX_ULPS`` or ``RMS_F32_RTOL``."""
+    import torch
+    if got.dtype == torch.bfloat16:
+        ulps = bf16_ulps(got, want)
+        a = {"equal_share": float((ulps == 0).float().mean()),
+             "max_ulps": int(ulps.max())}
+        ok = (a["equal_share"] >= RMS_EQUAL_SHARE
+              and a["max_ulps"] <= RMS_MAX_ULPS)
+    else:
+        rel = (got - want).abs() / want.abs().clamp_min(1e-30)
+        a = {"equal_share": float((got == want).float().mean()),
+             "max_rel": float(rel.max())}
+        ok = a["max_rel"] <= RMS_F32_RTOL
+    if not ok:
+        raise AssertionError(f"{name}: the kernel off the plain chain: {a}")
+    return a
+
+
+def phase_kernel_rms_norm() -> dict:
+    """The RMSNorm kernel against the plain chain at ``RMS_CASES`` (bf16 x
+    and weight; the edit's shape also with an f32 weight and in f32),
+    timed against its bound (``ops.rms_norm.norm_bytes`` at 3.35 TB/s),
+    the plain chain and ``F.rms_norm`` as the library yardstick (the port
+    never calls it); the edit's shape at the plans of ``RMS_SWEEP``; bits
+    on a repeat and one row alone against its batch.  Returns the timed
+    records by case name."""
+    import torch
+    import torch.nn.functional as F
+    from mmada_parallel_torch.ops import rms_norm as RN
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf16, eps = torch.bfloat16, 1e-5
+    records = {}
+    before = RN.rms_norm.launches
+    for name, shape in RMS_CASES:
+        width = shape[-1]
+        x = torch.randn(shape, generator=gen, device="cuda").to(bf16)
+        w = (1 + 0.1 * torch.randn(width, generator=gen,
+                                   device="cuda")).to(bf16)
+        plan = RN.plan_rms_norm(width, 2)
+        got = RN.rms_norm(x, w, eps)
+        rec = check_rms_agreement(f"rms_norm {name}", got,
+                                  RN.rms_norm_reference(x, w, eps))
+        if not torch.equal(got, RN.rms_norm(x, w, eps)) or not torch.equal(
+                got[:1], RN.rms_norm(x[:1].clone(), w, eps)):
+            raise AssertionError(f"rms_norm {name}: not bitwise equal on a "
+                                 f"repeat or for its first row alone")
+        nbytes = RN.norm_bytes(x, w)
+        rec.update(shape=list(shape), plan=list(plan),
+                   ms=time_ms(lambda: RN.rms_norm(x, w, eps), reps=20),
+                   plain_ms=time_ms(lambda: RN.rms_norm_reference(x, w, eps),
+                                    reps=20),
+                   library_ms=time_ms(lambda: F.rms_norm(x, (width,), w, eps),
+                                      reps=20),
+                   bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes")
+        kernels = _device_kernels(lambda: RN.rms_norm(x, w, eps),
+                                  f"rms_norm {name}")
+        if [_short_kernel(n).split("<")[0] for n in kernels] != [
+                "rmsn::rms_norm_kernel"]:
+            raise AssertionError(f"rms_norm {name}: device kernels "
+                                 f"{list(kernels)}")
+        rec["device_ms"] = sum(kernels.values()) / 1e3
+        rec["plain_device_ms"] = sum(_device_kernels(
+            lambda: RN.rms_norm_reference(x, w, eps),
+            f"rms_norm plain {name}").values()) / 1e3
+        rec["library_device_ms"] = sum(_device_kernels(
+            lambda: F.rms_norm(x, (width,), w, eps),
+            f"rms_norm library {name}").values()) / 1e3
+        log(f"[kernel] rms_norm {name}: {list(shape)} bf16 {plan}; equal "
+            f"{rec['equal_share']:.6f}, max {rec['max_ulps']} ulps; kernel "
+            f"{rec['ms']:.4f} ms (device {rec['device_ms']:.4f} ms), bound "
+            f"{rec['bound_ms']:.4f} ms (bytes), "
+            f"{100 * rec['bound_ms'] / rec['device_ms']:.1f} % of bound by "
+            f"device time; plain chain {rec['plain_ms']:.4f} ms (device "
+            f"{rec['plain_device_ms']:.4f}); F.rms_norm {rec['library_ms']:.4f}"
+            f" ms (device {rec['library_device_ms']:.4f})")
+        records[name] = rec
+        if name == "edit B=1":
+            sweep = {}
+            for threads, vecs in RMS_SWEEP:
+                p = RN.Plan(threads, vecs, 1)
+                check_rms_agreement(f"rms_norm {name} {p}",
+                                    RN._launch(x, w, eps, p), got)
+                sweep[f"{threads}x{vecs}"] = sum(_device_kernels(
+                    lambda: RN._launch(x, w, eps, p),
+                    f"rms_norm {name} {p}").values())
+            rec["sweep_device_us"] = sweep
+            log(f"[kernel] rms_norm {name}: device us by (threads a row x "
+                f"vectors a thread): { {k: round(v, 2) for k, v in sweep.items()} }"
+                f"; the planner's {plan.row_threads}x{plan.vecs}")
+            wf = w.float()
+            check_rms_agreement(f"rms_norm {name} f32 weight",
+                                RN.rms_norm(x, wf, eps),
+                                RN.rms_norm_reference(x, wf, eps))
+            xf = x.float()
+            rec["f32"] = check_rms_agreement(
+                f"rms_norm {name} f32", RN.rms_norm(xf, wf, eps),
+                RN.rms_norm_reference(xf, wf, eps))
+        del x, got
+    torch.cuda.empty_cache()
+    log(f"[kernel] rms_norm: {RN.rms_norm.launches - before} kernel calls "
+        f"in the checks")
+    return records
+
+
+def check_rms_launches(phase: str, cfg, forwards: int) -> int:
+    """The RMSNorm kernel's launches since the last reset must be the
+    backbone's norms of ``forwards`` inference forwards: two a layer and
+    ``ln_f`` (four a layer with q/k norms), and none of the plain chain."""
+    from mmada_parallel_torch.ops.rms_norm import rms_norm
+    per = (4 if cfg.attention_layer_norm else 2) * cfg.n_layers + 1
+    if rms_norm.launches != per * forwards:
+        raise AssertionError(f"{phase}: rms_norm launches "
+                             f"{rms_norm.launches}, expected {per} x "
+                             f"{forwards} forwards")
+    log(f"[norm] {phase}: rms_norm {rms_norm.launches} launches ({per} x "
+        f"{forwards} forwards)")
+    RMS_RUNS[phase] = rms_norm.launches
+    return rms_norm.launches
 
 
 # The mixture of experts' grouped GEMM (csrc/moe_grouped_gemm.cu) at
@@ -3511,6 +3667,7 @@ def phase_edit(full) -> int:
     check_norm_launches("edit", sum(vq_norm_calls()["amused"]), routes)
     _check_image("edit", info["codes"], info["pixels"])
     forwards = opts.text_steps + n_img
+    check_rms_launches("edit", cfg, forwards)
     codes = info["codes"]
     log(f"[edit] 512x512, seq {info['layout'].total_len}, text_steps "
         f"{opts.text_steps}, image steps {n_img}, cfg_scale {opts.cfg_scale} "
@@ -3572,6 +3729,7 @@ def phase_cached_edit(full) -> int:
         "flash_attention_rope": cfg.n_layers * n_img})
     _check_image("cached-edit", info["codes"], info["pixels"])
     forwards = opts.text_steps + n_img
+    check_rms_launches("cached-edit", cfg, forwards)
     log(f"[cached-edit] 512x512, seq {info['layout'].total_len}, text_steps "
         f"{opts.text_steps} ({opts.text_steps - n_partial} full + "
         f"{n_partial} partial), image steps {n_img}: "
@@ -4376,6 +4534,7 @@ def phase_train_a() -> dict:
     if any(x != want for x in lk):
         raise AssertionError(f"train-a: launches per step {lk}, expected "
                              f"{want}")
+    check_rms_launches("train-a", cfg, 0)    # the norms record gradients
     if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
                and m["nonfinite"] == 0 for m in mk):
         raise AssertionError(f"train-a: non-finite step {mk}")
@@ -7016,6 +7175,7 @@ def main() -> int:
     records.update(phase_kernel_bwd())
     phase_kernel_grads()
     gn_records = phase_kernel_group_norm()
+    rms_records = phase_kernel_rms_norm()
     moe_records = phase_kernel_moe()
     records["moe_grouped_gemm"] = moe_records["decode"]
     mark("phase 2 (kernels)")
@@ -7145,6 +7305,13 @@ def main() -> int:
                         **{f: gn_records[case][f] if case else None
                            for f in fields}})
     kernels.append(moe_prefill_entry(moe_records, sdar_run))
+    kernels.append({"name": "rms_norm", "route": "cuda",
+                    "source": CSRC + "rms_norm.cu",
+                    "replaces": "none (XLA fuses the JAX package's "
+                                "llada._rms_norm)",
+                    "launches": RMS_RUNS["edit"], "case": "edit B=1",
+                    **{f: rms_records["edit B=1"][f] for f in fields
+                       if f != "max_abs_err"}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

@@ -21,7 +21,9 @@ The forwards are differentiable: f32 parameters are cast to
 
 Attention goes through :func:`mmada_parallel_torch.ops.attention.rope_attention`
 (and, for the feature-cached forwards, ``rope_attention_qonly``), which
-launch the fused-RoPE CUDA kernels for CUDA tensors.  A linear weight may be
+launch the fused-RoPE CUDA kernels for CUDA tensors; RMSNorm, where autograd
+records nothing, through :func:`mmada_parallel_torch.ops.rms_norm.rms_norm`
+(one CUDA launch a norm).  A linear weight may be
 a W8A8 dict (:func:`mmada_parallel_torch.ops.quant.quantize_llada_params`):
 the block GEMMs and the head then take the int8 product.
 """
@@ -44,6 +46,7 @@ from mmada_parallel_torch.ops.attention import (_prefix_dense_bias,
 from mmada_parallel_torch.ops.masks import pairwise_padding_mask, to_bias
 from mmada_parallel_torch.ops.moe import moe_mlp
 from mmada_parallel_torch.ops.quant import int8_matmul
+from mmada_parallel_torch.ops.rms_norm import rms_norm, rms_norm_reference
 from mmada_parallel_torch.ops.rope_attention import rope_tensor
 
 __all__ = ["LLaDAConfig", "init_llada_params", "llada_hidden", "llada_head",
@@ -311,14 +314,15 @@ def count_params(params) -> int:
 
 def _rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
               gemma: bool = False) -> torch.Tensor:
-    """RMSNorm with fp32 statistics."""
-    og = x.dtype
-    xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    x = (xf * torch.rsqrt(var + eps)).to(og)
+    """RMSNorm with fp32 statistics: where autograd records (``x`` or the
+    weight requires grad), and for the gemma variant, the plain chain;
+    everywhere else :func:`~mmada_parallel_torch.ops.rms_norm.rms_norm`,
+    the hand-written kernel on a card."""
     if gemma:
-        return x * (1 + weight).to(og)
-    return x * weight.to(og)
+        return rms_norm_reference(x, 1 + weight, eps)
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+        return rms_norm_reference(x, weight, eps)
+    return rms_norm(x, weight, eps)
 
 
 def _layer_norm(x: torch.Tensor, weight: torch.Tensor,

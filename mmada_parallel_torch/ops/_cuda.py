@@ -60,6 +60,8 @@ _SIGNATURES = {
                             _I),
     # the mixture of experts' grouped GEMM (csrc/moe_grouped_gemm.cu)
     "mmada_moe_grouped_gemm": ([_P] * 8 + [_I] * 7 + [_P], _I),
+    # the backbone's RMSNorm (csrc/rms_norm.cu)
+    "mmada_rms_norm": ([_P] * 3 + [_LL, _I, _F] + [_I] * 5 + [_P], _I),
 }
 
 
