@@ -19,7 +19,10 @@ The forwards are differentiable: f32 parameters are cast to
 ``jax.checkpoint`` strategies do.  The inference pipelines run them under
 ``torch.inference_mode()``; nothing here turns grad off.
 
-Attention goes through :func:`mmada_parallel_torch.ops.attention.rope_attention`
+One block (:func:`_block`) runs the three forwards, :func:`llada_hidden`
+and the feature-cached :func:`llada_hidden_with_cache` and
+:func:`llada_hidden_partial`; each forward hands it only its attention.
+That goes through :func:`mmada_parallel_torch.ops.attention.rope_attention`
 (and, for the feature-cached forwards, ``rope_attention_qonly``), which
 launch the fused-RoPE CUDA kernels for CUDA tensors; RMSNorm, where autograd
 records nothing, through :func:`mmada_parallel_torch.ops.rms_norm.rms_norm`
@@ -31,6 +34,7 @@ the block GEMMs and the head then take the int8 product.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -406,25 +410,19 @@ def _mlp(h: torch.Tensor, lp: Dict[str, Any], cfg: LLaDAConfig,
     return out(gate * _pmm(h, lp["up_proj"]), lp["ff_out"])
 
 
-def _block(x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: LLaDAConfig,
-           sin: torch.Tensor, cos: torch.Tensor,
-           attn_bias: Optional[torch.Tensor], tp=None,
-           kv_hi: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One transformer block: ``llama`` (separate q/k/v, gated MLP or
-    experts) or ``sequential`` (fused ``att_proj``, plain or SwiGLU MLP).
-    ``tp``: the hook's :class:`~mmada_parallel_torch.parallel.tensor.
-    TensorPlan`; a half it runs split computes this rank's heads
-    (``tp.n_heads``, ``tp.n_kv_heads``) or MLP hidden, its input through
+def _block(x: torch.Tensor, lp: Dict[str, Any], cfg: LLaDAConfig,
+           attend: Callable, tp, nh: int, nkv: int) -> torch.Tensor:
+    """One transformer block: ``llama`` (separate q/k/v with the biases
+    ``lp`` holds, the per-head q/k norm, gated MLP or experts) or
+    ``sequential`` (fused ``att_proj``, plain or SwiGLU MLP).
+    ``attend(q, k, v) -> att`` is the forward's attention on the packed
+    projections, q and k unrotated.  ``tp``: the hook's
+    :class:`~mmada_parallel_torch.parallel.tensor.TensorPlan` or None; a half it
+    runs split computes this rank's heads or MLP hidden, its input through
     ``tp.copy`` and its output projection row-parallel (``tp.row``).
-    ``kv_hi`` (``[B, L]``, in place of ``attn_bias``): per-row key bounds,
-    through :func:`~mmada_parallel_torch.ops.attention.
-    rope_attention_prefix` (K4 on the card from 4096 positions)."""
-    B, L, D = x.shape
+    ``nh``, ``nkv``: the head counts this rank computes."""
     attn_tp = tp is not None and tp.attn_local
     mlp_tp = tp is not None and tp.mlp_local
-    nh, nkv, hd = cfg.n_heads, cfg.effective_n_kv_heads, cfg.head_dim
-    if attn_tp:
-        nh, nkv = tp.n_heads, tp.n_kv_heads
     cdt = x.dtype
 
     h = _norm(x, lp["attn_norm"], cfg)
@@ -434,9 +432,9 @@ def _block(x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: LLaDAConfig,
         qkv = _pmm(h, lp["att_proj"])
         if "att_proj_bias" in lp:
             qkv = qkv + lp["att_proj_bias"].to(cdt)
-        kvd = nkv * hd
+        kvd = nkv * cfg.head_dim
         q, k, v = (t.contiguous()
-                   for t in qkv.split([D, kvd, kvd], dim=-1))
+                   for t in qkv.split([x.shape[-1], kvd, kvd], dim=-1))
     else:
         q = _pmm(h, lp["q_proj"])
         k = _pmm(h, lp["k_proj"])
@@ -447,17 +445,8 @@ def _block(x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: LLaDAConfig,
             v = v + lp["v_bias"].to(cdt)
         if cfg.attention_layer_norm:
             q, k = _qk_norm(q, k, lp, cfg, nh, nkv)
-
-    if kv_hi is not None:
-        att = rope_attention_prefix(q, k, v, sin, cos, kv_hi, n_heads=nh,
-                                    n_kv_heads=nkv,
-                                    full_precision=cfg.rope_full_precision,
-                                    impl=cfg.attention_impl)
-    else:
-        att = rope_attention(q, k, v, sin, cos, bias=attn_bias,
-                             n_heads=nh, n_kv_heads=nkv,
-                             full_precision=cfg.rope_full_precision,
-                             impl=cfg.attention_impl)
+    att = attend(q, k, v)
+    del q, k, v                         # not held through the MLP
     x = x + (tp.row(att, lp["attn_out"]) if attn_tp
              else _pmm(att, lp["attn_out"]))
 
@@ -490,17 +479,56 @@ def _hook(params: Dict[str, Any], cfg: LLaDAConfig,
     return MeshGather(params.mesh, params.specs, cfg)
 
 
-def _embed(params: Dict[str, Any], cfg: LLaDAConfig, ids: torch.Tensor,
-           gather) -> torch.Tensor:
-    """The embedding of ``ids`` in the compute dtype, out-of-range ids
-    clamped into the (global) vocab as JAX's ``mode="clip"`` gather does;
-    vocab-parallel over ``tensor`` where the hook has a ``tp``."""
-    wte = params["wte"] if gather is None else gather("wte", params["wte"])
-    tp = getattr(gather, "tp", None)
-    if tp is not None:
-        return tp.embed(ids, wte).to(cfg.compute_dtype)
-    ids = ids.long().clamp(0, wte.shape[0] - 1)
-    return F.embedding(ids, wte).to(cfg.compute_dtype)
+class _Stack:
+    """What the three forwards share: the parameter hook (:func:`_hook`)
+    and its ``tp``, the head counts this rank computes (``nh``, ``nkv``),
+    the embedding (:meth:`embed`), the layers (:meth:`run`) and ``ln_f``
+    (:meth:`final`).  ``drop``: weights each layer leaves out."""
+
+    def __init__(self, params: Dict[str, Any], cfg: LLaDAConfig, gather,
+                 drop: Tuple[str, ...] = ()):
+        self.params, self.cfg, self.drop = params, cfg, drop
+        self.gather = _hook(params, cfg, gather)
+        self.tp = tp = getattr(self.gather, "tp", None)
+        self.nh, self.nkv = ((cfg.n_heads, cfg.effective_n_kv_heads)
+                             if tp is None else (tp.n_heads, tp.n_kv_heads))
+
+    def _fetch(self, name: str, p: Any) -> Any:
+        return p if self.gather is None else self.gather(name, p)
+
+    def embed(self, ids: torch.Tensor) -> torch.Tensor:
+        """The embedding of ``ids`` in the compute dtype, out-of-range ids
+        clamped into the global vocab as JAX's ``mode="clip"`` gather does;
+        vocab-parallel where the hook has a ``tp``."""
+        wte = self._fetch("wte", self.params["wte"])
+        x = (self.tp.embed(ids, wte) if self.tp is not None else
+             F.embedding(ids.long().clamp(0, wte.shape[0] - 1), wte))
+        return x.to(self.cfg.compute_dtype)
+
+    def run(self, x: torch.Tensor, attend: Callable, start: int = 0,
+            stop: Optional[int] = None) -> torch.Tensor:
+        """Layers ``[start, stop)`` on ``x``, each layer's weights through
+        the hook into :func:`_block`; ``attend(i, q, k, v)`` is layer
+        ``i``'s attention.  A layer's input is freed when the layer has
+        run unless the caller keeps a reference to ``x``."""
+        for i in range(start, self.cfg.n_layers if stop is None else stop):
+            lp = self._fetch("blocks", _layer(self.params["blocks"], i))
+            lp = {k: t for k, t in lp.items() if k not in self.drop}
+            x = _block(x, lp, self.cfg, functools.partial(attend, i),
+                       self.tp, self.nh, self.nkv)
+        return x
+
+    def final(self, x: torch.Tensor) -> torch.Tensor:
+        return _norm(x, self._fetch("ln_f", self.params["ln_f"]), self.cfg)
+
+
+def _bounds(cfg: LLaDAConfig, kv_hi: Optional[torch.Tensor], B: int, L: int,
+            device) -> Optional[torch.Tensor]:
+    """``kv_hi`` as ``[B, L]``; a ``block_causal`` config without them
+    takes :func:`block_causal_bounds` aligned at position 0."""
+    if kv_hi is None and cfg.attention == "block_causal":
+        kv_hi = block_causal_bounds(L, 0, cfg.block_length, device)
+    return None if kv_hi is None else kv_hi.expand(B, L)
 
 
 # ---------------------------------------------------------------------------
@@ -519,9 +547,10 @@ def llada_hidden(params: Dict[str, Any], cfg: LLaDAConfig,
     after ``ln_f``.
 
     ``kv_hi``: optional ``[B, L]`` (or ``[L]``) per-row key bounds (row
-    ``q`` sees keys ``< kv_hi[q]``), in place of ``attn_mask``; a
-    ``block_causal`` config without them takes
-    :func:`block_causal_bounds` aligned at position 0.
+    ``q`` sees keys ``< kv_hi[q]``), in place of ``attn_mask``, through
+    :func:`~mmada_parallel_torch.ops.attention.rope_attention_prefix` (K4
+    on the card from 4096 positions); a ``block_causal`` config without
+    them takes :func:`block_causal_bounds` aligned at position 0.
 
     ``attn_mask``: optional ``[B, L]`` bool padding mask (True = real),
     folded into a pairwise f32 0 / -1e30 bias.  ``position_ids``: optional
@@ -548,9 +577,8 @@ def llada_hidden(params: Dict[str, Any], cfg: LLaDAConfig,
             f"(got {cfg.n_layers}); use 'whole_layer' instead")
     cdt = cfg.compute_dtype
     B, L = input_ids.shape
-    gather = _hook(params, cfg, gather)
-    tp = getattr(gather, "tp", None)
-    x = _embed(params, cfg, input_ids, gather)
+    s = _Stack(params, cfg, gather)
+    x = s.embed(input_ids)
     if cfg.input_emb_norm:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cdt)
 
@@ -562,31 +590,27 @@ def llada_hidden(params: Dict[str, Any], cfg: LLaDAConfig,
     attn_bias = None
     if attn_mask is not None:
         attn_bias = to_bias(pairwise_padding_mask(attn_mask))
-    if kv_hi is None and cfg.attention == "block_causal":
-        kv_hi = block_causal_bounds(L, 0, cfg.block_length, x.device)
-    if kv_hi is not None:
-        if attn_bias is not None:
-            raise ValueError("kv_hi and attn_mask do not combine")
-        kv_hi = kv_hi.expand(B, L)
+    kv_hi = _bounds(cfg, kv_hi, B, L, x.device)
+    if kv_hi is not None and attn_bias is not None:
+        raise ValueError("kv_hi and attn_mask do not combine")
 
-    blocks = params["blocks"]
+    def attend(i, q, k, v):
+        if kv_hi is not None:
+            return rope_attention_prefix(
+                q, k, v, sin, cos, kv_hi, n_heads=s.nh, n_kv_heads=s.nkv,
+                full_precision=cfg.rope_full_precision,
+                impl=cfg.attention_impl)
+        return rope_attention(q, k, v, sin, cos, bias=attn_bias,
+                              n_heads=s.nh, n_kv_heads=s.nkv,
+                              full_precision=cfg.rope_full_precision,
+                              impl=cfg.attention_impl)
 
-    def layers(x, start: int, stop: int):
-        for i in range(start, stop):
-            lp = _layer(blocks, i)
-            if gather is not None:
-                lp = gather("blocks", lp)
-            x = _block(x, lp, cfg, sin, cos, attn_bias, tp, kv_hi)
-        return x
-
+    run = (s.run if group == 0 else
+           functools.partial(checkpoint, s.run, use_reentrant=False))
     step = max(group, 1)
-    for start in range(0, cfg.n_layers, step):
-        stop = start + step
-        if group == 0:
-            x = layers(x, start, stop)
-        else:
-            x = checkpoint(layers, x, start, stop, use_reentrant=False)
-    return _final_norm(params, cfg, x, gather)
+    for start in range(0, cfg.n_layers, step):   # x rebound: the embedding
+        x = run(x, attend, start, start + step)  # is freed after the first
+    return s.final(x)
 
 
 # layers per checkpointed group (0: no checkpointing), as in the JAX package
@@ -704,50 +728,14 @@ def _rope_packed(t: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor,
     return rope_tensor(t4, sin, cos, full_precision).reshape(B, L, HD)
 
 
-def _cached_block(x: torch.Tensor, lp: Dict[str, torch.Tensor],
-                  cfg: LLaDAConfig, attend, tp=None, nh: int = 0,
-                  nkv: int = 0) -> torch.Tensor:
-    """A llama block whose attention is ``attend(q, k, v) -> att``: the
-    caller rotates k, updates its cache and runs the attention; q and k
-    arrive through the q/k norms where the config has them (``nh``,
-    ``nkv``: the head counts this rank computes).  ``tp`` as in
-    :func:`_block`."""
-    attn_tp = tp is not None and tp.attn_local
-    mlp_tp = tp is not None and tp.mlp_local
-    h = _norm(x, lp["attn_norm"], cfg)
-    if attn_tp:
-        h = tp.copy(h)
-    q, k = _pmm(h, lp["q_proj"]), _pmm(h, lp["k_proj"])
-    if cfg.attention_layer_norm:
-        q, k = _qk_norm(q, k, lp, cfg, nh, nkv)
-    att = attend(q, k, _pmm(h, lp["v_proj"]))
-    x = x + (tp.row if attn_tp else _pmm)(att, lp["attn_out"])
-    h = _norm(x, lp["ff_norm"], cfg)
-    if mlp_tp:
-        h = tp.copy(h)
-    return x + _mlp(h, lp, cfg, tp.row if mlp_tp else _pmm)
-
-
-def _cached_layers(params: Dict[str, Any], cfg: LLaDAConfig, gather):
-    """``(layer(i), tp, n_heads, n_kv_heads)`` of the cached forwards: the
-    layers' weights through the hook, and the head counts this rank
-    computes."""
-    tp = getattr(gather, "tp", None)
-    nh, nkv = cfg.n_heads, cfg.effective_n_kv_heads
-    if tp is not None and tp.attn_local:
-        nh, nkv = tp.n_heads, tp.n_kv_heads
-    blocks = params["blocks"]
-
-    def layer(i):
-        lp = _layer(blocks, i)
-        return lp if gather is None else gather("blocks", lp)
-    return layer, tp, nh, nkv
-
-
-def _final_norm(params, cfg, x, gather) -> torch.Tensor:
-    ln_f = params["ln_f"] if gather is None else gather("ln_f",
-                                                         params["ln_f"])
-    return _norm(x, ln_f, cfg)
+def _cached_stack(params: Dict[str, Any], cfg: LLaDAConfig,
+                  gather) -> _Stack:
+    """The cached forwards' :class:`_Stack`, under JAX's contract for them:
+    llama blocks only, no ``input_emb_norm`` and no q/k/v biases (left out
+    of each layer's weights)."""
+    if cfg.block_type != "llama":
+        raise NotImplementedError("feature cache supports llama blocks only")
+    return _Stack(params, cfg, gather, drop=("q_bias", "k_bias", "v_bias"))
 
 
 def llada_hidden_with_cache(params: Dict[str, Any], cfg: LLaDAConfig,
@@ -773,22 +761,16 @@ def llada_hidden_with_cache(params: Dict[str, Any], cfg: LLaDAConfig,
     write; the rows past ``L`` start at zero.  ``out``: a cache of that
     shape to write into in place of a new one (its rows past ``L`` keep
     what they hold)."""
-    if cfg.block_type != "llama":
-        raise NotImplementedError("feature cache supports llama blocks only")
     cdt = cfg.compute_dtype
     B, L = input_ids.shape
-    gather = _hook(params, cfg, gather)
-    layer, tp, nh, nkv = _cached_layers(params, cfg, gather)
-    x = _embed(params, cfg, input_ids, gather)
-    sin, cos = _rope_sin_cos(L, cfg.head_dim, cfg.rope_theta, x.device)
-    if kv_hi is None and cfg.attention == "block_causal":
-        kv_hi = block_causal_bounds(L, 0, cfg.block_length, x.device)
-    if kv_hi is not None:
-        kv_hi = kv_hi.expand(B, L)
+    s = _cached_stack(params, cfg, gather)
+    dev = input_ids.device
+    sin, cos = _rope_sin_cos(L, cfg.head_dim, cfg.rope_theta, dev)
+    kv_hi = _bounds(cfg, kv_hi, B, L, dev)
     Lc = L if cache_len is None else cache_len
     if Lc < L:
         raise ValueError(f"cache_len {Lc} is shorter than the ids' {L}")
-    shape = (cfg.n_layers, B, Lc, nkv * cfg.head_dim)
+    shape = (cfg.n_layers, B, Lc, s.nkv * cfg.head_dim)
     if out is not None:
         if any(out[n].shape != shape or out[n].dtype != cdt
                for n in ("k", "v")):
@@ -796,25 +778,24 @@ def llada_hidden_with_cache(params: Dict[str, Any], cfg: LLaDAConfig,
         cache = out
     else:
         alloc = torch.empty if Lc == L else torch.zeros
-        cache = {"k": alloc(shape, dtype=cdt, device=x.device),
-                 "v": alloc(shape, dtype=cdt, device=x.device)}
+        cache = {"k": alloc(shape, dtype=cdt, device=dev),
+                 "v": alloc(shape, dtype=cdt, device=dev)}
 
-    for i in range(cfg.n_layers):
-        def attend(q, k, v, i=i):
-            cache["k"][i, :, :L] = _rope_packed(k, sin, cos, nkv,
-                                                cfg.rope_full_precision)
-            cache["v"][i, :, :L] = v
-            if kv_hi is not None:
-                return rope_attention_prefix(
-                    q, k, v, sin, cos, kv_hi, n_heads=nh, n_kv_heads=nkv,
-                    full_precision=cfg.rope_full_precision,
-                    impl=cfg.attention_impl)
-            return rope_attention_qonly(
-                q, cache["k"][i], cache["v"][i], sin, cos, n_heads=nh,
-                n_kv_heads=nkv, full_precision=cfg.rope_full_precision,
+    def attend(i, q, k, v):
+        cache["k"][i, :, :L] = _rope_packed(k, sin, cos, s.nkv,
+                                            cfg.rope_full_precision)
+        cache["v"][i, :, :L] = v
+        if kv_hi is not None:
+            return rope_attention_prefix(
+                q, k, v, sin, cos, kv_hi, n_heads=s.nh, n_kv_heads=s.nkv,
+                full_precision=cfg.rope_full_precision,
                 impl=cfg.attention_impl)
-        x = _cached_block(x, layer(i), cfg, attend, tp, nh, nkv)
-    return _final_norm(params, cfg, x, gather), cache
+        return rope_attention_qonly(
+            q, cache["k"][i], cache["v"][i], sin, cos, n_heads=s.nh,
+            n_kv_heads=s.nkv, full_precision=cfg.rope_full_precision,
+            impl=cfg.attention_impl)
+
+    return s.final(s.run(s.embed(input_ids), attend)), cache
 
 
 def _cache_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -872,27 +853,24 @@ def llada_hidden_partial(params: Dict[str, Any], cfg: LLaDAConfig,
     takes no host-to-device copy)."""
     B, n = sel_ids.shape
     L = cache["k"].shape[2]
-    gather = _hook(params, cfg, gather)
-    layer, tp, nh, nkv = _cached_layers(params, cfg, gather)
-    x = _embed(params, cfg, sel_ids, gather)
+    s = _cached_stack(params, cfg, gather)
     sin_full, cos_full = (tables if tables is not None else _rope_sin_cos(
-        L, cfg.head_dim, cfg.rope_theta, x.device))
+        L, cfg.head_dim, cfg.rope_theta, sel_ids.device))
     pos = sel_pos.long()
     sin_sel, cos_sel = sin_full[pos], cos_full[pos]        # [B, n, hd]
     idx = pos[:, :, None].expand(B, n, cache["k"].shape[-1])
     bias = (None if kv_hi is None
             else to_bias(_prefix_dense_bias(kv_hi.expand(B, n), L)))
 
-    for i in range(cfg.n_layers):
-        def attend(q, k, v, i=i):
-            k_full, v_full = cache["k"][i], cache["v"][i]
-            k_full.scatter_(1, idx, _rope_packed(
-                k, sin_sel, cos_sel, nkv, cfg.rope_full_precision))
-            v_full.scatter_(1, idx, v)
-            return _cache_attention(q, k_full, v_full, sin_sel, cos_sel,
-                                    bias, nh, nkv, cfg, fold=q.is_cuda)
-        x = _cached_block(x, layer(i), cfg, attend, tp, nh, nkv)
-    return _final_norm(params, cfg, x, gather), cache
+    def attend(i, q, k, v):
+        k_full, v_full = cache["k"][i], cache["v"][i]
+        k_full.scatter_(1, idx, _rope_packed(
+            k, sin_sel, cos_sel, s.nkv, cfg.rope_full_precision))
+        v_full.scatter_(1, idx, v)
+        return _cache_attention(q, k_full, v_full, sin_sel, cos_sel, bias,
+                                s.nh, s.nkv, cfg, fold=q.is_cuda)
+
+    return s.final(s.run(s.embed(sel_ids), attend)), cache
 
 
 # ---------------------------------------------------------------------------

@@ -414,6 +414,10 @@ def check_ring_input(cfg, mesh, batch: int, length: int,
                          f"(got {shape})")
     if cfg.block_type != "llama":
         raise ValueError("tp_overlap supports the llama block flavor only")
+    if (cfg.attention != "bidirectional" or cfg.attention_layer_norm
+            or cfg.n_experts):
+        raise ValueError("tp_overlap supports bidirectional attention, no "
+                         "q/k norm and the dense MLP only")
     if cfg.n_heads % g:
         raise ValueError(f"n_heads {cfg.n_heads} not divisible by g={g}")
     if cfg.effective_n_kv_heads % g:
@@ -448,8 +452,10 @@ def llada_hidden_tp_overlap(
     data group's whole rows, and the reduce-scatter of the sum leaves each
     rank its chunk).  The batch splits over the ``data``
     axis and each data group runs its own ring over ``tensor``; the rows
-    come back in natural order on every rank.  Requires the llama block,
-    ``n_heads % g == 0`` and ``n_kv_heads % g == 0``, ``L % g == 0``,
+    come back in natural order on every rank.  Requires the llama block
+    with bidirectional attention, no q/k norm and the dense MLP (all that
+    :func:`_block_tp` runs), ``n_heads % g == 0`` and ``n_kv_heads % g ==
+    0``, ``L % g == 0``,
     ``fsdp == 1`` and no padding mask or position ids.  Its signature is
     ``llada_hidden``'s, so samplers take it as their ``hidden_fn``
     (:func:`ring_hidden_fn`)."""

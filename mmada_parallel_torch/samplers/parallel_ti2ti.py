@@ -5,8 +5,9 @@ Counterpart of :mod:`mmada_parallel_tpu.samplers.parallel_ti2ti`.
 ``generate_ti2ti``: per step one conditional full-sequence forward and a
 text update; on the scheduled image steps, the uncond CFG forwards (one
 batched forward when both prefixes are used), dual CFG, a categorical sample
-and the MaskGit-style re-mask.  ``generate_ti2ti_cached``: the same steps,
-with the cond forward replaced between refreshes by a partial recompute of a
+and the MaskGit-style re-mask.  ``generate_ti2ti_cached``: the same step
+(``_step``, whose argument is the cond forward), that forward replaced
+between refreshes by a partial recompute of a
 few text slots against a per-layer k/v cache (an opt-in approximation).  The
 ``lax.scan``/``lax.cond`` of the JAX samplers are a Python loop and host
 booleans: the step schedules are precomputed, so the loop needs no
@@ -174,6 +175,57 @@ def _image_update(ids: torch.Tensor, cond_vq: torch.Tensor,
     return out
 
 
+def _heads(params, cfg, hidden, layout: SequenceLayout, img_pos,
+           opts: TI2TIOptions):
+    """The text span's logits and the image positions' codebook logits."""
+    return (llada_head(params, cfg, hidden[:, layout.text_start:
+                                           layout.text_end]),
+            llada_head(params, cfg, hidden[:, img_pos], vocab_slice=(
+                opts.text_vocab_size, opts.codebook_size)))
+
+
+def _step(params, cfg, layout: SequenceLayout, opts: TI2TIOptions,
+          uncond_text_prefix, uncond_image_prefix, img_pos, cond: Callable,
+          hidden_fn: Callable, attn_mask=None, pos_ids=None,
+          device=None) -> Callable:
+    """The step of both samplers, ``step(ids, step_idx, budget, generator)
+    -> (ids, transfer)`` (``transfer``: the text slots it committed), around
+    the sampler's cond forward and heads ``cond(ids, step_idx) ->
+    (text_logits, cond_vq)``; the image steps' uncond forwards run
+    ``hidden_fn``.  The image-step schedule is a host bool array."""
+    steps = opts.text_steps
+    ratios = (torch.arange(steps, dtype=torch.float32, device=device)
+              + 1) / steps
+    mask_ratios = S.get_mask_schedule(opts.schedule)(ratios)
+    img_temps = opts.temperature * (1.0 - ratios)
+    img_step = S.image_step_mask(steps, opts.timesteps)
+    plan = _cfg_plan(opts, uncond_text_prefix, uncond_image_prefix, device)
+    tvs, cb = opts.text_vocab_size, opts.codebook_size
+
+    def step(ids: torch.Tensor, step_idx: int, budget: torch.Tensor,
+             generator: Optional[torch.Generator]):
+        with span("ti2ti.step"):
+            with span("ti2ti.cond"):
+                text_logits, cond_vq = cond(ids, step_idx)
+            with span("ti2ti.text_update"):
+                ids, transfer = _text_update(ids, text_logits, budget, opts,
+                                             layout, generator,
+                                             return_transfer=True)
+            if img_step[step_idx]:
+                with span("ti2ti.uncond"):
+                    ut_vq, ui_vq = _uncond_vq(
+                        params, cfg, ids, cond_vq, plan, img_pos, tvs, cb,
+                        attn_mask=attn_mask, position_ids=pos_ids,
+                        hidden_fn=hidden_fn)
+                with span("ti2ti.image_update"):
+                    ids = _image_update(ids, cond_vq, ut_vq, ui_vq, img_pos,
+                                        mask_ratios[step_idx],
+                                        img_temps[step_idx], opts, generator)
+            return ids, transfer
+
+    return step
+
+
 def make_ti2ti_step(
     params: Dict[str, Any],
     cfg: LLaDAConfig,
@@ -198,42 +250,16 @@ def make_ti2ti_step(
     pos_ids = ragged_positions(attn_mask) if attn_mask is not None else None
     img_pos = torch.as_tensor(layout.image_positions(), dtype=torch.long,
                               device=device)
-    ts, te = layout.text_start, layout.text_end
-    tvs, cb = opts.text_vocab_size, opts.codebook_size
 
-    steps = opts.text_steps
-    sched = S.get_mask_schedule(opts.schedule)
-    ratios = (torch.arange(steps, dtype=torch.float32, device=device)
-              + 1) / steps
-    mask_ratios = sched(ratios)
-    img_temps = opts.temperature * (1.0 - ratios)
-    img_step = S.image_step_mask(steps, opts.timesteps)
-    plan = _cfg_plan(opts, uncond_text_prefix, uncond_image_prefix, device)
+    def cond(ids, step_idx):
+        hidden = hidden_fn(params, cfg, ids, attn_mask, pos_ids)
+        return _heads(params, cfg, hidden, layout, img_pos, opts)
 
-    def step(ids: torch.Tensor, step_idx: int, budget: torch.Tensor,
-             generator: Optional[torch.Generator]) -> torch.Tensor:
-        with span("ti2ti.step"):
-            with span("ti2ti.cond"):
-                hidden = hidden_fn(params, cfg, ids, attn_mask, pos_ids)
-                text_logits = llada_head(params, cfg, hidden[:, ts:te])
-                cond_vq = llada_head(params, cfg, hidden[:, img_pos],
-                                     vocab_slice=(tvs, cb))
-                del hidden
-            with span("ti2ti.text_update"):
-                ids = _text_update(ids, text_logits, budget, opts, layout,
-                                   generator)
-            if img_step[step_idx]:
-                with span("ti2ti.uncond"):
-                    ut_vq, ui_vq = _uncond_vq(params, cfg, ids, cond_vq,
-                                              plan, img_pos, tvs, cb,
-                                              attn_mask, pos_ids, hidden_fn)
-                with span("ti2ti.image_update"):
-                    ids = _image_update(ids, cond_vq, ut_vq, ui_vq, img_pos,
-                                        mask_ratios[step_idx],
-                                        img_temps[step_idx], opts, generator)
-            return ids
-
-    return step
+    step = _step(params, cfg, layout, opts, uncond_text_prefix,
+                 uncond_image_prefix, img_pos, cond, hidden_fn, attn_mask,
+                 pos_ids, device)
+    return lambda ids, step_idx, budget, generator: step(
+        ids, step_idx, budget, generator)[0]
 
 
 @torch.inference_mode()
@@ -348,76 +374,56 @@ def generate_ti2ti_cached(
     ``refresh_interval=1`` every step refreshes and the trajectory equals
     :func:`generate_ti2ti`.  The uncond CFG forwards (image steps only)
     stay exact.  Same arguments and return as :func:`generate_ti2ti`, and
-    the same spans (``ti2ti.step`` > ``ti2ti.cond``, the refresh or partial
-    forward and its heads; ``ti2ti.text_update``; ``ti2ti.uncond``,
-    ``ti2ti.image_update``)."""
+    its step (schedules, CFG plan, spans and updates) with the refresh or
+    the partial forward as the cond forward."""
     if opts.remasking == "random" and generator is None:
         raise ValueError("remasking='random' requires a generator")
     device = input_ids.device
     ids = input_ids.long()
-    B = ids.shape[0]
     img_pos = torch.as_tensor(layout.image_positions(), dtype=torch.long,
                               device=device)
     ts, te = layout.text_start, layout.text_end
     text_len = te - ts
-    tvs, cb = opts.text_vocab_size, opts.codebook_size
     steps = opts.text_steps
-
-    ratios = (torch.arange(steps, dtype=torch.float32, device=device)
-              + 1) / steps
-    mask_ratios = S.get_mask_schedule(opts.schedule)(ratios)
-    img_temps = opts.temperature * (1.0 - ratios)
-    img_step = S.image_step_mask(steps, opts.timesteps)
     refresh = cached_refresh_schedule(steps, opts.timesteps,
                                       refresh_interval, warmup_ratio)
     n_sel = min(math.ceil(text_len / steps) + 1
                 + max(math.ceil((1.0 - cache_ratio) * text_len), 1),
                 text_len)
-    plan = _cfg_plan(opts, uncond_text_prefix, uncond_image_prefix, device)
+    cache = text_logits = vq = None
+    changed = torch.zeros((ids.shape[0], text_len), dtype=torch.bool,
+                          device=device)
+
+    def cond(ids, s):               # refresh[0] is always True
+        nonlocal cache, text_logits, vq
+        if refresh[s]:
+            cache = None                          # free the old one first
+            hidden, cache = llada_hidden_with_cache(params, cfg, ids)
+            text_logits, vq = _heads(params, cfg, hidden, layout, img_pos,
+                                     opts)
+            return text_logits, vq
+        masked = ids[:, ts:te] == opts.mask_token
+        conf = torch.softmax(text_logits, dim=-1).amax(dim=-1)
+        score = changed.float() * 1e6 + masked.float() * (1.0 - conf)
+        # stable: unmasked, unchanged slots all score 0
+        sel_slot = torch.sort(-score, dim=-1, stable=True).indices[:, :n_sel]
+        sel_pos = ts + sel_slot
+        h_sel, cache = llada_hidden_partial(
+            params, cfg, torch.gather(ids, 1, sel_pos), sel_pos, cache)
+        logits_sel = llada_head(params, cfg, h_sel)
+        text_logits.scatter_(1, sel_slot[:, :, None].expand_as(logits_sel),
+                             logits_sel.to(text_logits.dtype))
+        return text_logits, vq
+
+    step = _step(params, cfg, layout, opts, uncond_text_prefix,
+                 uncond_image_prefix, img_pos, cond, llada_hidden,
+                 device=device)
     budgets = S.get_num_transfer_tokens(
         (ids[:, ts:te] == opts.mask_token).sum(dim=1), steps)
-
-    cache = text_logits = vq = None
-    changed = torch.zeros((B, text_len), dtype=torch.bool, device=device)
-    for s in range(steps):          # refresh[0] is always True
-        with span("ti2ti.step"):
-            with span("ti2ti.cond"):
-                if refresh[s]:
-                    cache = None                  # free the old one first
-                    hidden, cache = llada_hidden_with_cache(params, cfg, ids)
-                    text_logits = llada_head(params, cfg, hidden[:, ts:te])
-                    vq = llada_head(params, cfg, hidden[:, img_pos],
-                                    vocab_slice=(tvs, cb))
-                    del hidden
-                else:
-                    masked = ids[:, ts:te] == opts.mask_token
-                    conf = torch.softmax(text_logits, dim=-1).amax(dim=-1)
-                    score = (changed.float() * 1e6
-                             + masked.float() * (1.0 - conf))
-                    # stable: unmasked, unchanged slots all score 0
-                    sel_slot = torch.sort(-score, dim=-1,
-                                          stable=True).indices[:, :n_sel]
-                    sel_pos = ts + sel_slot
-                    h_sel, cache = llada_hidden_partial(
-                        params, cfg, torch.gather(ids, 1, sel_pos), sel_pos,
-                        cache)
-                    logits_sel = llada_head(params, cfg, h_sel)
-                    text_logits.scatter_(1, sel_slot[:, :, None].expand_as(
-                        logits_sel), logits_sel.to(text_logits.dtype))
-            # both branches consume the previous step's commits, so the
-            # slots that go stale are exactly this step's transfers
-            with span("ti2ti.text_update"):
-                ids, changed = _text_update(ids, text_logits, budgets[:, s],
-                                            opts, layout, generator,
-                                            return_transfer=True)
-            if img_step[s]:
-                with span("ti2ti.uncond"):
-                    ut_vq, ui_vq = _uncond_vq(params, cfg, ids, vq, plan,
-                                              img_pos, tvs, cb)
-                with span("ti2ti.image_update"):
-                    ids = _image_update(ids, vq, ut_vq, ui_vq, img_pos,
-                                        mask_ratios[s], img_temps[s], opts,
-                                        generator)
+    for s in range(steps):
+        # both kinds of step consume the previous step's commits, so the
+        # slots that go stale are exactly this step's transfers
+        ids, changed = step(ids, s, budgets[:, s], generator)
     return ids, _final_codes(ids, layout, opts, generator)
 
 

@@ -173,7 +173,9 @@ def test_bf16_head_on_cuda_against_f32(cuda_device, rows, vocab_slice):
     head = torch.randn(4096, 16384, generator=g, device=cuda_device) * 0.02
     hidden = torch.randn(rows, 4096, generator=g, device=cuda_device).to(
         torch.bfloat16)
-    params = {"head": head.requires_grad_(True)}
+    # the hook holds an unsharded tree to wte's rows: a width-0 stand-in
+    params = {"head": head.requires_grad_(True),
+              "wte": torch.empty(cfg.emb_size, 0, device=cuda_device)}
     h = hidden.detach().requires_grad_(True)
     got = TL.llada_head(params, cfg, h, vocab_slice=vocab_slice)
     w = head if vocab_slice is None else head[:, 4096:4096 + 8192]

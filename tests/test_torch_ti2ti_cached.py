@@ -103,3 +103,61 @@ def test_random_remasking_needs_generator(models):
         generator=torch.Generator().manual_seed(0))
     assert (fin[0, lay.text_start:lay.text_end] != MASK).all()
     assert int(codes.min()) >= 0 and int(codes.max()) < CB
+
+
+def test_wrapped_module_names_see_the_drivers_call_order(models,
+                                                         monkeypatch):
+    """The cached edit benchmark wraps this module's ``_text_update``,
+    ``_uncond_vq`` (replacing its ``hidden_fn`` by keyword),
+    ``llada_hidden_with_cache`` and ``llada_hidden_partial``: each step
+    runs a refresh or a partial forward as ``cached_refresh_schedule``
+    says, then one text update, then on image steps one uncond forward on
+    plain ``llada_hidden``; the wrapped run ends where the plain one does."""
+    _, tcfg, _, tp = models
+    ids, lay, kw, un = _setup(text_len=24, steps=16, timesteps=4)
+    opts = TT.TI2TIOptions(**kw)
+    x = torch.tensor(ids[None])
+    want = TT.generate_ti2ti_cached(tp, tcfg, x, lay, opts,
+                                    uncond_image_prefix=un)
+    real = {n: getattr(TT, n) for n in (
+        "_text_update", "_uncond_vq", "llada_hidden_with_cache",
+        "llada_hidden_partial")}
+    calls = []
+
+    def text_update(ids, *a, **k):
+        calls.append("text_update")
+        return real["_text_update"](ids, *a, **k)
+
+    def uncond_vq(*a, **k):
+        fn = k.get("hidden_fn", TT.llada_hidden)
+        assert fn is TL.llada_hidden
+
+        def hidden(params, cfg, ids, *b, **kk):
+            calls.append("uncond")
+            return fn(params, cfg, ids, *b, **kk)
+        k["hidden_fn"] = hidden
+        return real["_uncond_vq"](*a, **k)
+
+    def with_cache(*a, **k):
+        calls.append("refresh")
+        return real["llada_hidden_with_cache"](*a, **k)
+
+    def partial(*a, **k):
+        calls.append("partial")
+        return real["llada_hidden_partial"](*a, **k)
+
+    for name, fn in (("_text_update", text_update), ("_uncond_vq", uncond_vq),
+                     ("llada_hidden_with_cache", with_cache),
+                     ("llada_hidden_partial", partial)):
+        monkeypatch.setattr(TT, name, fn)
+    got = TT.generate_ti2ti_cached(tp, tcfg, x, lay, opts,
+                                   uncond_image_prefix=un)
+    refresh = TT.cached_refresh_schedule(16, 4)
+    img = TT.S.image_step_mask(16, 4)
+    order = []
+    for s in range(16):
+        order += ["refresh" if refresh[s] else "partial", "text_update"]
+        order += ["uncond"] if img[s] else []
+    assert calls == order
+    assert "partial" in calls
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

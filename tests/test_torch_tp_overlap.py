@@ -726,6 +726,30 @@ def test_param_shardings_equal_jax(name):
         jspecs(jcfg, "f", "t"))
 
 
+class _StandInMesh:
+    """What ``check_ring_input`` reads of a mesh: axis names and sizes."""
+    mesh_dim_names = ("data", "fsdp", "tensor")
+    shape = (1, 1, 2)
+
+
+@pytest.mark.parametrize("over", [
+    dict(attention="block_causal", block_length=4),
+    dict(attention_layer_norm=True),
+    dict(n_experts=4, experts_per_token=2, moe_hidden_size=32),
+], ids=["block_causal", "qk_norm", "experts"])
+def test_ring_refuses_what_its_block_does_not_run(over):
+    """``_block_tp`` runs bidirectional attention, no q/k norm and the dense
+    MLP: a config with any other is refused before any communication, even
+    where a tree cut by hand gets past ``param_shardings``."""
+    from mmada_parallel_torch.models.llada import LLaDAConfig
+    from mmada_parallel_torch.parallel.tp_overlap import check_ring_input
+    mesh = _StandInMesh()
+    check_ring_input(LLaDAConfig.tiny(), mesh, 2, 8)       # the block's own
+    with pytest.raises(ValueError, match="bidirectional attention, no "
+                       "q/k norm and the dense MLP only"):
+        check_ring_input(LLaDAConfig.tiny(**over), mesh, 2, 8)
+
+
 # ---------------------------------------------------------------------------
 # Over the ranks
 # ---------------------------------------------------------------------------
