@@ -431,6 +431,7 @@ def reset_launches() -> None:
     from mmada_parallel_torch.ops.rms_norm import rms_norm
     for fn in (*_launch_counters().values(), group_norm_swish, rms_norm):
         fn.launches = 0
+    rms_norm.backward_launches = 0
 
 
 def read_launches() -> dict:
@@ -1963,6 +1964,21 @@ RMS_EQUAL_SHARE, RMS_MAX_ULPS, RMS_F32_RTOL = 0.999, 2, 1e-6
 RMS_SWEEP = ((64, 8), (128, 4), (256, 2), (512, 1))
 # the rms_norm launches of the main path's phases (phase -> launches)
 RMS_RUNS = {}
+# The backward kernel at the training steps' shapes: a-sft's rows beside an
+# f32 weight, m-sft's, the f32 template's x, SDAR's q and k heads (width
+# 128): (name, shape, x dtype, weight dtype)
+RMS_BWD_CASES = (("a-sft", (3, 5120, 4096), "bfloat16", "float32"),
+                 ("m-sft", (1, 2565, 4096), "bfloat16", "float32"),
+                 ("f32", (1, 2424, 4096), "float32", "float32"),
+                 ("q heads", (4, 256, 32, 128), "bfloat16", "bfloat16"),
+                 ("k heads", (4, 256, 4, 128), "bfloat16", "bfloat16"))
+# its grid at a-sft's shape, in blocks an SM, beside the planner's
+RMS_BWD_SWEEP = (1, 2, 4, 8)
+# against the chain's autograd: every element within 2 ulps of the largest
+# |gradient| (bf16; 16 in f32), and in bf16 dx (no sum's cancellation
+# leaves a small one) RMS_BWD_SHARE of the elements within RMS_MAX_ULPS
+RMS_BWD_REL = {"bfloat16": 2.0 ** -6, "float32": 2.0 ** -19}
+RMS_BWD_SHARE = 0.9999
 
 
 def bf16_ulps(a, b):
@@ -2077,23 +2093,164 @@ def phase_kernel_rms_norm() -> dict:
                 RN.rms_norm_reference(xf, wf, eps))
         del x, got
     torch.cuda.empty_cache()
+    records.update(phase_kernel_rms_norm_bwd())
     log(f"[kernel] rms_norm: {RN.rms_norm.launches - before} kernel calls "
         f"in the checks")
     return records
 
 
-def check_rms_launches(phase: str, cfg, forwards: int) -> int:
-    """The RMSNorm kernel's launches since the last reset must be the
-    backbone's norms of ``forwards`` inference forwards: two a layer and
-    ``ln_f`` (four a layer with q/k norms), and none of the plain chain."""
+def check_rms_grad(name: str, got, want, x_dtype, ulp_share=True) -> dict:
+    """A backward gradient against the chain's autograd, in the type it
+    was last rounded to: every element within ``RMS_BWD_REL`` of the
+    largest |gradient|, and in bf16 where ``ulp_share`` ``RMS_BWD_SHARE``
+    of them within ``RMS_MAX_ULPS`` (dw's sums over the rows leave small
+    elements whose ulps the sums' order moves)."""
+    import torch
+    if got.dtype == torch.float32 and x_dtype == torch.bfloat16:
+        got, want = got.to(x_dtype), want.to(x_dtype)
+    kind = str(got.dtype).removeprefix("torch.")
+    a = {"max_rel": float((got.float() - want.float()).abs().max()
+                          / want.float().abs().max())}
+    ok = a["max_rel"] <= RMS_BWD_REL[kind]
+    if kind == "bfloat16":
+        ulps = bf16_ulps(got, want)
+        a["within_share"] = float((ulps <= RMS_MAX_ULPS).float().mean())
+        a["max_ulps"] = int(ulps.max())
+        ok = ok and (a["within_share"] >= RMS_BWD_SHARE or not ulp_share)
+    if not ok:
+        raise AssertionError(f"{name}: the backward off the chain's: {a}")
+    return a
+
+
+def phase_kernel_rms_norm_bwd() -> dict:
+    """The backward kernel at ``RMS_BWD_CASES``: dx and dw against the
+    chain's autograd, bits on a repeat, device time (the row pass and the
+    dw pass) against its bound (``norm_bwd_bytes`` at 3.35 TB/s), the
+    chain's forward + backward beside the kernels' forward + backward;
+    a-sft's shape at the grids of ``RMS_BWD_SWEEP``.  Returns the records
+    by case name."""
+    import torch
+    from mmada_parallel_torch.ops import _cuda
+    from mmada_parallel_torch.ops import rms_norm as RN
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    eps, records = 1e-5, {}
+    before = RN.rms_norm.backward_launches
+    for name, shape, xd, wd in RMS_BWD_CASES:
+        xd, wd = getattr(torch, xd), getattr(torch, wd)
+        width = shape[-1]
+        x = torch.randn(shape, generator=gen, device="cuda").to(xd)
+        w = (1 + 0.1 * torch.randn(width, generator=gen,
+                                   device="cuda")).to(wd)
+        dy = torch.randn(shape, generator=gen, device="cuda").to(xd)
+
+        def chain():
+            xi, wi = x.clone().requires_grad_(), w.clone().requires_grad_()
+            RN.rms_norm_reference(xi, wi, eps).backward(dy)
+            return xi.grad, wi.grad
+
+        def kernels():
+            xi, wi = x.clone().requires_grad_(), w.clone().requires_grad_()
+            RN.rms_norm(xi, wi, eps).backward(dy)
+            return xi.grad, wi.grad
+
+        dx, dw = RN._launch_backward(x, w, dy, eps)
+        want = chain()
+        rec = {"dx": check_rms_grad(f"rms_norm bwd {name} dx", dx, want[0],
+                                    xd),
+               "dw": check_rms_grad(f"rms_norm bwd {name} dw", dw, want[1],
+                                    xd, ulp_share=False)}
+        if not all(torch.equal(a, b) for a, b in zip(
+                (dx, dw), RN._launch_backward(x, w, dy, eps))):
+            raise AssertionError(f"rms_norm bwd {name}: not bitwise equal "
+                                 f"on a repeat")
+        if not all(torch.equal(a, b) for a, b in zip((dx, dw), kernels())):
+            raise AssertionError(f"rms_norm bwd {name}: the Function's "
+                                 f"gradients are not the launch's")
+        plan = RN.plan_rms_norm(width, x.element_size())
+        rows = x.numel() // width
+        grid = RN.backward_grid(rows, plan, _cuda.sm_count(x.device))
+        kernels_us = _device_kernels(
+            lambda: RN._launch_backward(x, w, dy, eps), f"rms_norm bwd {name}")
+        if sorted(_short_kernel(n).split("<")[0] for n in kernels_us) != [
+                "rmsn::rms_norm_bwd_kernel", "rmsn::rms_norm_dw_kernel"]:
+            raise AssertionError(f"rms_norm bwd {name}: device kernels "
+                                 f"{list(kernels_us)}")
+        by = {_short_kernel(n).split("<")[0].split("::")[1]: us
+              for n, us in kernels_us.items()}
+        nbytes = RN.norm_bwd_bytes(x, w)
+        rec.update(shape=list(shape), dtypes=[str(xd), str(wd)],
+                   plan=list(plan), grid=grid,
+                   device_ms=sum(kernels_us.values()) / 1e3,
+                   rows_ms=by["rms_norm_bwd_kernel"] / 1e3,
+                   dw_ms=by["rms_norm_dw_kernel"] / 1e3,
+                   bound_ms=nbytes / PEAK_BYTES * 1e3,
+                   fwd_device_ms=sum(_device_kernels(
+                       lambda: RN.rms_norm(x, w, eps),
+                       f"rms_norm fwd {name}").values()) / 1e3,
+                   chain_device_ms=sum(_device_kernels(
+                       lambda: RN.rms_norm_reference(x, w, eps),
+                       f"rms_norm chain fwd {name}").values()) / 1e3,
+                   chain_fwd_bwd_device_ms=sum(_device_kernels(
+                       chain, f"rms_norm chain {name}").values()) / 1e3,
+                   kernels_fwd_bwd_device_ms=sum(_device_kernels(
+                       kernels, f"rms_norm kernels {name}").values()) / 1e3)
+        log(f"[kernel] rms_norm bwd {name}: {list(shape)} {xd} x, {wd} w, "
+            f"plan {tuple(plan)}, grid {grid}; dx {rec['dx']}, dw "
+            f"{rec['dw']}; device {rec['device_ms']:.4f} ms (rows "
+            f"{rec['rows_ms']:.4f} + dw {rec['dw_ms']:.4f}), bound "
+            f"{rec['bound_ms']:.4f} ms (bytes), "
+            f"{100 * rec['bound_ms'] / rec['device_ms']:.1f} % of bound; "
+            f"forward {rec['fwd_device_ms']:.4f} ms; the chain: forward "
+            f"{rec['chain_device_ms']:.4f}, forward + backward "
+            f"{rec['chain_fwd_bwd_device_ms']:.4f} ms (the clones inside) "
+            f"against the kernels' {rec['kernels_fwd_bwd_device_ms']:.4f}")
+        if name == "a-sft":
+            sweep = {}
+            sms = _cuda.sm_count(x.device)
+            for k in RMS_BWD_SWEEP:
+                g = min(rows, sms * k)
+                gdx, gdw = RN._launch_backward(x, w, dy, eps, grid=g)
+                if not torch.equal(gdx, dx):
+                    raise AssertionError(f"rms_norm bwd {name} grid {g}: dx "
+                                         f"not the planned grid's")
+                check_rms_grad(f"rms_norm bwd {name} grid {g} dw", gdw,
+                               want[1], xd, ulp_share=False)
+                sweep[g] = sum(_device_kernels(
+                    lambda: RN._launch_backward(x, w, dy, eps, grid=g),
+                    f"rms_norm bwd {name} grid {g}").values())
+            rec["sweep_device_us"] = sweep
+            log(f"[kernel] rms_norm bwd {name}: device us by grid "
+                f"{ {k: round(v, 2) for k, v in sweep.items()} }; the "
+                f"planner's {grid}")
+        records[f"bwd {name}"] = rec
+        del x, dy, dx, dw, want
+    torch.cuda.empty_cache()
+    log(f"[kernel] rms_norm: {RN.rms_norm.backward_launches - before} "
+        f"backward calls in the checks")
+    return records
+
+
+def check_rms_launches(phase: str, cfg, forwards: int, recomputes: int = 0,
+                       backwards: int = 0) -> int:
+    """The RMSNorm kernels' launches since the last reset must be the
+    backbone's norms of ``forwards`` forwards (two a layer and ``ln_f``,
+    four a layer with q/k norms) and of ``recomputes`` remat recomputes
+    (the layers' again), and the backward kernel's once a norm of
+    ``backwards`` backwards; none of the plain chain."""
     from mmada_parallel_torch.ops.rms_norm import rms_norm
     per = (4 if cfg.attention_layer_norm else 2) * cfg.n_layers + 1
-    if rms_norm.launches != per * forwards:
+    want = per * forwards + (per - 1) * recomputes
+    if (rms_norm.launches, rms_norm.backward_launches) != (want,
+                                                           per * backwards):
         raise AssertionError(f"{phase}: rms_norm launches "
-                             f"{rms_norm.launches}, expected {per} x "
-                             f"{forwards} forwards")
+                             f"{rms_norm.launches}, backward "
+                             f"{rms_norm.backward_launches}, expected "
+                             f"{want} ({per} x {forwards} forwards, "
+                             f"{per - 1} x {recomputes} recomputes) and "
+                             f"{per} x {backwards}")
     log(f"[norm] {phase}: rms_norm {rms_norm.launches} launches ({per} x "
-        f"{forwards} forwards)")
+        f"{forwards} forwards, {per - 1} x {recomputes} recomputes), "
+        f"backward {rms_norm.backward_launches}")
     RMS_RUNS[phase] = rms_norm.launches
     return rms_norm.launches
 
@@ -4534,7 +4691,8 @@ def phase_train_a() -> dict:
     if any(x != want for x in lk):
         raise AssertionError(f"train-a: launches per step {lk}, expected "
                              f"{want}")
-    check_rms_launches("train-a", cfg, 0)    # the norms record gradients
+    # 2 microbatches, each a forward, a remat recompute and a backward
+    check_rms_launches("train-a", cfg, 2, recomputes=2, backwards=2)
     if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
                and m["nonfinite"] == 0 for m in mk):
         raise AssertionError(f"train-a: non-finite step {mk}")

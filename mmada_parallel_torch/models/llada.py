@@ -24,9 +24,9 @@ and the feature-cached :func:`llada_hidden_with_cache` and
 :func:`llada_hidden_partial`; each forward hands it only its attention.
 That goes through :func:`mmada_parallel_torch.ops.attention.rope_attention`
 (and, for the feature-cached forwards, ``rope_attention_qonly``), which
-launch the fused-RoPE CUDA kernels for CUDA tensors; RMSNorm, where autograd
-records nothing, through :func:`mmada_parallel_torch.ops.rms_norm.rms_norm`
-(one CUDA launch a norm).  A linear weight may be
+launch the fused-RoPE CUDA kernels for CUDA tensors; RMSNorm through
+:func:`mmada_parallel_torch.ops.rms_norm.rms_norm` (one CUDA launch a norm,
+and one backward where autograd records).  A linear weight may be
 a W8A8 dict (:func:`mmada_parallel_torch.ops.quant.quantize_llada_params`):
 the block GEMMs and the head then take the int8 product.
 """
@@ -318,14 +318,12 @@ def count_params(params) -> int:
 
 def _rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
               gemma: bool = False) -> torch.Tensor:
-    """RMSNorm with fp32 statistics: where autograd records (``x`` or the
-    weight requires grad), and for the gemma variant, the plain chain;
+    """RMSNorm with fp32 statistics: for the gemma variant the plain chain;
     everywhere else :func:`~mmada_parallel_torch.ops.rms_norm.rms_norm`,
-    the hand-written kernel on a card."""
+    the hand-written kernel on a card (with its backward kernel where
+    autograd records)."""
     if gemma:
         return rms_norm_reference(x, 1 + weight, eps)
-    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
-        return rms_norm_reference(x, weight, eps)
     return rms_norm(x, weight, eps)
 
 

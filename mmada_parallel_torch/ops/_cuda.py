@@ -62,6 +62,7 @@ _SIGNATURES = {
     "mmada_moe_grouped_gemm": ([_P] * 8 + [_I] * 7 + [_P], _I),
     # the backbone's RMSNorm (csrc/rms_norm.cu)
     "mmada_rms_norm": ([_P] * 3 + [_LL, _I, _F] + [_I] * 5 + [_P], _I),
+    "mmada_rms_norm_bwd": ([_P] * 6 + [_LL, _I, _F] + [_I] * 6 + [_P], _I),
 }
 
 

@@ -36,8 +36,10 @@ def enable_full_determinism(seed: int):
     (an op with no deterministic CUDA implementation then raises),
     ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (which cuBLAS needs for
     reproducible GEMMs; set before the first cuBLAS call), and cuDNN's
-    deterministic mode with autotuning off.  The port's attention kernels
-    are deterministic as they are: fixed tiles, fixed summation order."""
+    deterministic mode with autotuning off.  The port's attention and norm
+    kernels are deterministic as they are: fixed tiles, fixed summation
+    order (the RMSNorm backward sums dw's partials in a fixed order, with
+    no atomics)."""
     set_seed(seed)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.use_deterministic_algorithms(True)
